@@ -1,0 +1,149 @@
+"""BVH8 collapse — a numpy copy of ``tpurt/bvh/wide.py`` (collapse only).
+
+Collapses the threaded binary SAH BVH into 8-wide nodes with the same rules
+as tpurt (greedy widening by surface area, subtree flattening into leaf
+slots of <= LEAF8_MAX triangles, adjacent leaf-slot merging), so the rows
+are identical to the reference's.
+
+Row layout (f32 lanes; indices as exact small floats < 2^24):
+  [k*6 .. k*6+5]  child k aabb_min.xyz, aabb_max.xyz   (k = 0..7)
+  [48 + k]        wide index of internal child k, -1 if leaf/empty
+  [56 + k]        leaf first-triangle index (0 if not leaf)
+  [64 + k]        leaf triangle count (0 if internal/empty)
+Empty slots carry an inverted box, so every slab test misses them.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+BRANCHING = 8
+LEAF8_MAX = 32
+_EMPTY_MIN = 3.0e37
+_EMPTY_MAX = -3.0e37
+
+
+def _subtree_ranges(entry, skip, first, count, is_leaf):
+    """Per-node (first, count, contiguous?) of the whole subtree's
+    triangles; children sit at higher indices, so one reverse pass does."""
+    n = len(entry)
+    sub_first = np.where(is_leaf, first, 0).astype(np.int64)
+    sub_count = np.where(is_leaf, count, 0).astype(np.int64)
+    flat_ok = is_leaf.copy()
+    for b in range(n - 1, -1, -1):
+        if not is_leaf[b]:
+            l = int(entry[b])
+            r = int(skip[l])
+            sub_first[b] = min(sub_first[l], sub_first[r])
+            sub_count[b] = sub_count[l] + sub_count[r]
+            ends_meet = (
+                sub_first[l] + sub_count[l] == sub_first[r]
+                or sub_first[r] + sub_count[r] == sub_first[l])
+            flat_ok[b] = bool(flat_ok[l] and flat_ok[r] and ends_meet)
+    return sub_first, sub_count, flat_ok
+
+
+def collapse8(bvh: dict, leaf_max: int = LEAF8_MAX):
+    """Binary FlatBVH arrays -> (nodes8 (M8, 128) f32, depth in wide levels,
+    root = 1)."""
+    amin = np.asarray(bvh["aabb_min"], np.float32)
+    amax = np.asarray(bvh["aabb_max"], np.float32)
+    entry = np.asarray(bvh["entry"], np.int64)
+    skip = np.asarray(bvh["skip"], np.int64)
+    first = np.asarray(bvh["first_tri"], np.int64)
+    count = np.asarray(bvh["tri_count"], np.int64)
+    is_leaf = count > 0
+
+    sub_first, sub_count, flat_ok = _subtree_ranges(entry, skip, first,
+                                                    count, is_leaf)
+    d = amax - amin
+    area = d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 0] * d[:, 2]
+
+    def binary_children(b: int):
+        l = int(entry[b])
+        return l, int(skip[l])
+
+    def slot_is_leaf(b: int) -> bool:
+        return bool(is_leaf[b]
+                    or (flat_ok[b] and sub_count[b] <= leaf_max))
+
+    def slot_range(b: int):
+        if is_leaf[b]:
+            return int(first[b]), int(count[b])
+        return int(sub_first[b]), int(sub_count[b])
+
+    def kids_of(b: int):
+        kids = list(binary_children(b))
+        while len(kids) < BRANCHING:
+            cand = [(area[k], j) for j, k in enumerate(kids)
+                    if not is_leaf[k]]
+            if not cand:
+                break
+            _, j = max(cand)
+            k = kids.pop(j)
+            kids.extend(binary_children(k))
+        slots = []
+        for k in kids:
+            if slot_is_leaf(k):
+                f, c = slot_range(k)
+                slots.append((True, (f, c, amin[k].copy(), amax[k].copy())))
+            else:
+                slots.append((False, k))
+        leaves = sorted((s[1] for s in slots if s[0]), key=lambda p: p[0])
+        merged = []
+        for f, c, mn, mx in leaves:
+            if merged and merged[-1][0] + merged[-1][1] == f \
+                    and merged[-1][1] + c <= leaf_max:
+                pf, pc, pmn, pmx = merged[-1]
+                merged[-1] = (pf, pc + c, np.minimum(pmn, mn),
+                              np.maximum(pmx, mx))
+            else:
+                merged.append((f, c, mn, mx))
+        return ([(False, s[1]) for s in slots if not s[0]]
+                + [(True, m) for m in merged])
+
+    if is_leaf[0]:
+        slot_lists = [[(True, (int(first[0]), int(count[0]),
+                               amin[0], amax[0]))]]
+        wide_of = {}
+        depth = 1
+    elif flat_ok[0] and sub_count[0] <= leaf_max:
+        slot_lists = [[(True, (int(sub_first[0]), int(sub_count[0]),
+                               amin[0], amax[0]))]]
+        wide_of = {}
+        depth = 1
+    else:
+        wide_of = {0: 0}
+        queue = [(0, 1)]
+        slot_lists = []
+        depth = 1
+        while queue:
+            b, dep = queue.pop(0)
+            depth = max(depth, dep)
+            slots = kids_of(b)
+            slot_lists.append(slots)
+            for lf, payload in slots:
+                if not lf:
+                    wide_of[payload] = len(wide_of)
+                    queue.append((payload, dep + 1))
+
+    nodes8 = np.zeros((len(slot_lists), 128), np.float32)
+    for lane in range(3):
+        nodes8[:, lane:48:6] = _EMPTY_MIN
+        nodes8[:, lane + 3:48:6] = _EMPTY_MAX
+    nodes8[:, 48:56] = -1.0
+    for w, slots in enumerate(slot_lists):
+        assert len(slots) <= BRANCHING
+        for k_slot, (lf, payload) in enumerate(slots):
+            base = k_slot * 6
+            if lf:
+                f, c, mn, mx = payload
+                assert 0 < c <= leaf_max
+                nodes8[w, base:base + 3] = mn
+                nodes8[w, base + 3:base + 6] = mx
+                nodes8[w, 56 + k_slot] = float(f)
+                nodes8[w, 64 + k_slot] = float(c)
+            else:
+                nodes8[w, base:base + 3] = amin[payload]
+                nodes8[w, base + 3:base + 6] = amax[payload]
+                nodes8[w, 48 + k_slot] = float(wide_of[payload])
+    return nodes8, depth

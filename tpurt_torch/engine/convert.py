@@ -1,0 +1,112 @@
+"""Carry tpurt's host state across: numpy dicts -> the port's tensors.
+
+Each function takes what the reference builds on the host (and feeds to its
+jitted frame) and returns the port's tensors on an explicit device:
+
+  scene_tensors   FlatScene.as_pytree()            (either package's)
+  camera_tensors  Camera.uniform()
+  light_tensors   Lights.shader_arrays()
+  gtao_tensors    gtao_constants(...)
+  lpm_tensors     lpm_setup(...)[1]
+
+The tests use these to feed identical inputs to both packages. Texel rows
+upload as one flat (rows, 64) u8 table without tpurt's streaming arena
+(which tpurt documents as giving bit-identical values).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..bvh.wide import LEAF8_MAX
+from ..kernels.gtao_main import GTAO_VEC
+from ..kernels.traverse_bvh8 import STACK_SIZE, stack_entries
+
+
+def _t(x, device, dtype=None):
+    return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                           device=device)
+
+
+def bvh8_depth(nodes8: np.ndarray) -> int:
+    """Wide levels (root = 1) of packed BVH8 rows, from the child lanes."""
+    child = np.asarray(nodes8)[:, 48:56].astype(np.int64)
+    depth, cur = 0, np.array([0], np.int64)
+    while cur.size:
+        depth += 1
+        nxt = child[cur].reshape(-1)
+        cur = np.unique(nxt[nxt >= 0])
+    return depth
+
+
+def pack_tris(geom: dict) -> np.ndarray:
+    """Traversal triangle rows [v0, e1, e2, tri_id, 0, 0] (T, 12) f32 in
+    BVH leaf order; tri_id is an exact small float (< 2^24)."""
+    t = geom["v0"].shape[0]
+    if t >= 1 << 24:
+        raise ValueError(f"{t} triangles: ids must stay below 2^24")
+    tris = np.zeros((max(t, 1), 12), np.float32)
+    tris[:t, 0:3] = geom["v0"]
+    tris[:t, 3:6] = geom["e1"]
+    tris[:t, 6:9] = geom["e2"]
+    tris[:t, 9] = np.asarray(geom["tri_id"]).astype(np.float32)
+    return tris
+
+
+def scene_tensors(pt: dict, device) -> dict:
+    """Static scene tables on `device`. Raises when the BVH8 could overflow
+    the traversal stack or a leaf is wider than the kernels' leaf loop."""
+    nodes8 = np.asarray(pt["bvh"]["nodes8"], np.float32)
+    depth8 = bvh8_depth(nodes8)
+    if stack_entries(depth8) > STACK_SIZE:
+        raise ValueError(f"BVH8 depth {depth8} needs {stack_entries(depth8)}"
+                         f" stack entries; the kernels hold {STACK_SIZE}")
+    if nodes8[:, 64:72].max(initial=0) > LEAF8_MAX:
+        raise ValueError(f"a BVH8 leaf holds more than {LEAF8_MAX} tris")
+    quad = np.asarray(pt["tex_quad48"], np.uint8)
+    return dict(
+        nodes8=_t(nodes8, device),
+        tris=_t(pack_tris(pt["geom"]), device),
+        num_tris=int(pt["geom"]["v0"].shape[0]),
+        depth8=depth8,
+        tri_attr=_t(np.asarray(pt["tri_attr"], np.float32), device),
+        tex_quad=_t(quad.reshape(-1, quad.shape[-1]), device),
+        tex_quad_shape=tuple(int(s) for s in quad.shape),
+    )
+
+
+def camera_tensors(uniform: dict, device) -> dict:
+    return {k: _t(np.asarray(v, np.float32), device)
+            for k, v in uniform.items()}
+
+
+def light_tensors(arrays: dict, device) -> dict:
+    return {k: _t(v, device) for k, v in arrays.items()}
+
+
+def gtao_tensors(consts: dict, device) -> dict:
+    """The GTAO constants as tpurt's main_pass uses them: the scalar block
+    (effect radius, falloff) is derived in double precision from the Python
+    floats and applied in f32, exactly as the jnp code does. Returns the
+    (14,) f32 vector the main pass reads (kernel and plain version alike,
+    laid out as GTAO_VEC) plus the Python floats the prefilter needs."""
+    effect_radius = consts["effect_radius"] * consts["radius_multiplier"]
+    falloff_range = consts["effect_falloff_range"] * effect_radius
+    falloff_from = effect_radius * (1.0 - consts["effect_falloff_range"])
+    falloff_mul = -1.0 / falloff_range
+    falloff_add = falloff_from / falloff_range + 1.0
+    vec = np.asarray([
+        consts["viewport_pixel_size"][0], consts["viewport_pixel_size"][1],
+        consts["ndc_to_view_mul"][0], consts["ndc_to_view_mul"][1],
+        consts["ndc_to_view_add"][0], consts["ndc_to_view_add"][1],
+        effect_radius, consts["sample_distribution_power"],
+        1.0 + consts["thin_occluder_compensation"], falloff_mul, falloff_add,
+        consts["final_value_power"], consts["depth_mip_sampling_offset"],
+        consts["ndc_to_view_mul_x_pixel_size"][0]], np.float32)
+    assert len(vec) == len(GTAO_VEC)
+    return dict(vec=_t(vec, device), host=dict(consts))
+
+
+def lpm_tensors(derived: dict, device) -> dict:
+    return {k: _t(np.asarray(v, np.float32), device)
+            for k, v in derived.items()}

@@ -1,0 +1,47 @@
+"""One frame of the static-scene main path — port of
+``tpurt/engine/frame.py:render_frame``.
+
+camera rays -> closest hit (K1) -> shade with one shadow trace per light
+(K2) -> G-buffer quantization (B10G11R11F color and normal, R16F depth) ->
+GTAO (prefilter, K3, K4) -> LPM tonemap -> sRGB u8. PyTorch runs eagerly:
+the passes are ordinary calls on the frame's device.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.traverse_bvh8 import trace_closest_bvh8
+from ..passes.encodings import (pack_unorm8, quantize_r11g11b10f,
+                                quantize_r16f)
+from ..passes.gtao import GtaoSettings, ao_visibility_u8, compute_ao
+from ..passes.rays import T_MAX, T_MIN, camera_rays
+from ..passes.shade import shade
+from ..passes.tonemap import tonemap_frame
+
+
+def render_frame(scene: dict, camera: dict, lights: dict, gtao: dict,
+                 lpm: dict, noise_index: int, *, width: int, height: int,
+                 gtao_settings: GtaoSettings = GtaoSettings(),
+                 enable_gtao: bool = True, enable_tonemap: bool = True):
+    """Render one frame. Returns dict: image (H, W, 3) u8 sRGB, color and
+    normal (H, W, 3) f32, depth (H, W) f32, ao (H, W) int32 (0..~383)."""
+    origin, direction = camera_rays(camera, width, height)
+    hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX)
+    g = shade(scene, camera, lights, hits)
+
+    color = quantize_r11g11b10f(g["color"]).reshape(height, width, 3)
+    depth = quantize_r16f(g["depth"]).reshape(height, width)
+    normal = quantize_r11g11b10f(g["normal_enc"]).reshape(height, width, 3)
+
+    if enable_gtao:
+        ao = ao_visibility_u8(compute_ao(depth, normal, gtao, gtao_settings,
+                                         noise_index), gtao_settings)
+    else:
+        ao = torch.full((height, width), 255, dtype=torch.int32,
+                        device=depth.device)
+
+    if enable_tonemap:
+        image = pack_unorm8(tonemap_frame(color, ao, lpm))
+    else:
+        image = pack_unorm8(torch.clamp(color, 0.0, 1.0))
+    return dict(image=image, color=color, depth=depth, normal=normal, ao=ao)

@@ -1,0 +1,136 @@
+"""Build the CUDA sources in ``tpurt_torch/csrc`` and bind them with ctypes.
+
+All ``csrc/*.cu`` files compile in one ``nvcc`` call into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC -Xptxas -v -o _build/<name>.so csrc/*.cu
+
+``--fmad=false`` keeps every multiply and add separately rounded, which is
+what makes the kernels bit-comparable with their plain PyTorch versions.
+The library lands in ``tpurt_torch/_build/`` (ignored by git), named by a
+hash of the sources, and is built at first use. Pointers and the stream are
+passed as ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
+:func:`check` raises when it is not 0.
+
+Each kernel wrapper counts its launches in :data:`launch_counts`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+SRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+# one plain integer per kernel entry point, bumped only where it launches
+launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_main": 0,
+                 "gtao_denoise": 0}
+
+_LOCK = threading.Lock()
+_LIB = None
+build_log = ""
+
+
+def reset_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha1()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"tpurt_torch_kernels_{h.hexdigest()[:12]}.so"
+
+
+def get_lib():
+    """The loaded kernel library, compiled on first use. Raises on any build
+    or load failure: there is no fallback."""
+    global _LIB, build_log
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        so = library_path()
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=600)
+            build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{build_log}")
+            (BUILD_DIR / (so.stem + ".log")).write_text(build_log)
+            os.replace(tmp, so)
+        else:
+            log = BUILD_DIR / (so.stem + ".log")
+            build_log = log.read_text() if log.exists() else ""
+        lib = ctypes.CDLL(str(so))
+        lib.tpurt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.tpurt_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+        return lib
+
+
+def function(name: str, argtypes):
+    """A C entry point of the library with its argument types set; every
+    entry returns the CUDA error code of its launch."""
+    fn = getattr(get_lib(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str):
+    if err != 0:
+        msg = get_lib().tpurt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+                           f"({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require_cuda(name: str, tensors: dict, device):
+    """Device, contiguity checks shared by the wrappers' kernel branch."""
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")

@@ -1,0 +1,63 @@
+"""Storage-format quantizers — port of ``tpurt/passes/encodings.py``.
+
+The frame stores color and encoded normals in B10G11R11_UFLOAT, view depth
+in R16F and the image in unorm8, at the same points as the reference. The
+small floats round-trip exactly through their f16 bit patterns.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def divide(x, s: float):
+    """x / s, rounded once on every device. PyTorch's CUDA kernels multiply
+    by the reciprocal of a host scalar divisor, which rounds twice; a
+    divisor that lives on the tensor's device divides exactly, as the CPU
+    kernels and the CUDA kernels of this package do."""
+    return x / x.new_full((), s)
+
+
+def rdivide(s: float, x):
+    """s / x, rounded once (``s / x`` with a host scalar computes
+    reciprocal(x) * s)."""
+    return x.new_full((), s) / x
+
+
+def _quantize_small_float(x, mantissa_bits: int):
+    """Round a positive f32 through a 5-exponent / `mantissa_bits` unsigned
+    float (R11F: 6, B10F: 5) by dropping f16 mantissa bits, nearest."""
+    x = torch.clamp_min(x, 0.0)
+    bits = x.to(torch.float16).view(torch.int16).to(torch.int32) & 0xFFFF
+    drop = 10 - mantissa_bits
+    half = 1 << (drop - 1)
+    mask = ~((1 << drop) - 1) & 0xFFFF
+    rounded = (bits + half) & mask
+    max_finite = 0x7BFF & mask
+    rounded = torch.where(
+        rounded >= 0x7C00,
+        torch.where(bits >= 0x7C00, bits & mask,
+                    torch.full_like(bits, max_finite)),
+        rounded)
+    return rounded.to(torch.int16).view(torch.float16).to(torch.float32)
+
+
+def quantize_r11g11b10f(rgb):
+    """Round-trip (..., 3) through B10G11R11_UFLOAT."""
+    return torch.stack([_quantize_small_float(rgb[..., 0], 6),
+                        _quantize_small_float(rgb[..., 1], 6),
+                        _quantize_small_float(rgb[..., 2], 5)], dim=-1)
+
+
+def quantize_r16f(x):
+    """Round-trip through R16F (the G-buffer depth format)."""
+    return x.to(torch.float16).to(torch.float32)
+
+
+def pack_unorm8(x):
+    """float [0,1] -> u8 with the +0.5 rounding the shaders use."""
+    return torch.clamp(x * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def srgb_approx(rgb):
+    """Linear -> sRGB, pow(1/2.2)."""
+    return torch.pow(torch.clamp_min(rgb, 0.0), 1.0 / 2.2)
