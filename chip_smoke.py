@@ -18,7 +18,25 @@ with sharp denoise, LPM) at 800x800 and at 1920x1080 runs:
            lights) rays per frame), a checksum and the share of lit pixels.
   phase 3  a 64x64 frame of the same scene on the card against the same
            frame from the plain versions on the host.
+  phase 4  the dynamic scene's kernels at the rebuild path's shapes, with
+           the bench animation (every instance rotated about Y by up to
+           0.5 rad): the LBVH and the refit BVH8 built on the card equal the
+           same built on the host; K6 closest hit on the primary rays and
+           K6 any hit on each light's shadow rays (t_max = 0 lanes
+           included) against the plain version (run once per size), with
+           both times and the LBVH build and refit times.
+  phase 5  >= 8 frames each through Renderer.render_dynamic(): refit frames
+           (K1 1, K2 3, K3 1, K4 1, K6 0 per frame), rebuild frames
+           (refit=False: K6 closest 1, K6 any 3, K3 1, K4 1, K1/K2 0), and a
+           scrambled sequence with check_every=1 whose K6 launches appear
+           right after the check frame; ms/frame and Mrays/s per path.
+  phase 6  64x64 refit and rebuild frames on the card against the plain
+           versions on the host.
 
+Every kernel's bound_ms is the larger of the bytes it must move (each
+input read once, each output written once) at 3.35 TB/s and its float
+operations at 67 TFLOP/s (H100 SXM peaks); traversal work is counted by
+the plain versions on this run's rays, GTAO work from the kernels' source.
 Any failed check exits non-zero before the last line. The line before the
 last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -33,6 +51,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 FRAMES = 10
 WARMUP_FRAMES = 2
+DYN_FRAMES = 8
 SHAPES = ((800, 800), (1920, 1080))
 KERNELS = (
     ("bvh8_closest", "tpurt_torch/csrc/bvh8_trace.cu",
@@ -43,7 +62,29 @@ KERNELS = (
      "tpurt/kernels/gtao_main_pallas.py:317"),
     ("gtao_denoise", "tpurt_torch/csrc/gtao_denoise.cu",
      "tpurt/kernels/gtao_pallas.py:131"),
+    # K6 replaces _packet_kernel (:161) and _packet_kernel_hbm (:357); the
+    # rebuild path runs the hbm tier
+    ("bvh2_closest", "tpurt_torch/csrc/bvh2_trace.cu",
+     "tpurt/kernels/traverse_pallas.py:357"),
+    ("bvh2_any", "tpurt_torch/csrc/bvh2_trace.cu",
+     "tpurt/kernels/traverse_pallas.py:357"),
 )
+ALL_ZERO = {name: 0 for name, _, _ in KERNELS}
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) ops/s
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# operations per unit of work, counted in the CUDA sources (each float add,
+# multiply, divide, min/max, compare, conversion and special function = 1)
+OPS_SLAB = 25          # one slab test (bvh8_trace.cu / bvh2_trace.cu)
+OPS_TRIANGLE = 53      # one Moller-Trumbore test
+OPS_RAY = 3            # the reciprocal direction
+OPS_BVH8_NODE = 8 * OPS_SLAB
+OPS_BVH2_NODE = 2 * OPS_SLAB + 1
+# gtao_main.cu per pixel: setup 125, per slice 137, per step 23, per side
+# sample 45; gtao_denoise.cu per pixel and pass: 100
+GTAO_MAIN_OPS = (125, 137, 23, 45)
+GTAO_DENOISE_OPS = 100
 # K3/K4 budget on the card: u8 steps and the share of pixels that may differ
 AO_MAX_STEP = 1
 AO_MAX_FRACTION = 1e-3
@@ -77,6 +118,44 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the fp32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def trace_work(scene, table, rays, out_bytes_per_ray, stats, node_ops):
+    """(bytes, operations) of one traversal launch: its tables, rays
+    (origin, direction, t_max) and outputs once; the node pops and triangle
+    tests that the plain version counted on these rays."""
+    n = rays[0].shape[0]
+    moved = nbytes(scene[table], scene["tris"], *rays) \
+        + n * out_bytes_per_ray
+    ops = n * OPS_RAY + int(stats["node_pops"]) * node_ops \
+        + int(stats["tri_tests"]) * OPS_TRIANGLE
+    return moved, ops
+
+
+def timed_once(fn):
+    """Milliseconds of one call of fn() by CUDA events, and its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def build_renderer(width, height, device):
@@ -127,7 +206,8 @@ def phase1(r, label):
     # K1: primary rays
     o, d = camera_rays(cam, w, h)
     hk = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX)
-    hp = trace_closest_plain(scene, o, d, T_MIN, T_MAX)
+    work = {}
+    hp = trace_closest_plain(scene, o, d, T_MIN, T_MAX, stats=work)
     torch.cuda.synchronize()
     mism = {k: int((hk[k].view(torch.int32) != hp[k].view(torch.int32))
                    .sum()) for k in ("t", "tri", "u", "v")}
@@ -143,14 +223,23 @@ def phase1(r, label):
     require(sum(mism.values()) == 0, f"[{label}] K1 differs from plain")
     require(hit_share > 0.05, f"[{label}] K1 hit almost nothing")
     out["bvh8_closest"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    out["bvh8_closest"]["bound_ms"], out["bvh8_closest"]["bound_by"] = \
+        bound(*trace_work(scene, "nodes8", (o, d, torch.empty(w * h)), 16,
+                          work, OPS_BVH8_NODE))
 
     # K2: the shadow rays of every light, t_max = 0 lanes included
     k2_ms = k2_plain_ms = k2_err = 0.0
     k2_mism = 0
+    k2_work = [0, 0]      # bytes and operations of the 3 launches
     for i, (so, sd, stmax) in enumerate(shadow_rays(scene, cam, lights, hk)):
         ok = trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, stmax)
-        op = trace_any_plain(scene, so, sd, SHADOW_T_MIN, stmax)
+        work = {}
+        op = trace_any_plain(scene, so, sd, SHADOW_T_MIN, stmax, stats=work)
         torch.cuda.synchronize()
+        moved, ops = trace_work(scene, "nodes8", (so, sd, stmax), 1, work,
+                                OPS_BVH8_NODE)
+        k2_work[0] += moved
+        k2_work[1] += ops
         n_mis = int((ok != op).sum())
         dead = float((stmax <= SHADOW_T_MIN).float().mean())
         k_ms = cuda_ms(lambda: trace_any_bvh8(scene, so, sd, SHADOW_T_MIN,
@@ -165,8 +254,9 @@ def phase1(r, label):
         k2_ms += k_ms
         k2_plain_ms += p_ms
     require(k2_mism == 0, f"[{label}] K2 differs from plain")
+    b_ms, b_by = bound(*k2_work)
     out["bvh8_any"] = dict(max_abs_err=k2_err, ms=k2_ms,
-                           plain_ms=k2_plain_ms)
+                           plain_ms=k2_plain_ms, bound_ms=b_ms, bound_by=b_by)
 
     # K3: the frame's real depth pyramid and G-buffer
     g = shade(scene, cam, lights, hk)
@@ -193,8 +283,12 @@ def phase1(r, label):
     require(ed_mis == 0, f"[{label}] K3 edges differ")
     require(int(dao.max()) <= AO_MAX_STEP and frac <= AO_MAX_FRACTION,
             f"[{label}] K3 AO outside budget")
+    setup, per_slice, per_step, per_side = GTAO_MAIN_OPS
+    px_ops = setup + st[0] * (per_slice + st[1] * (per_step + 2 * per_side))
+    b_ms, b_by = bound(nbytes(*mips, normal, gtao["vec"], noise)
+                       + 2 * w * h, px_ops * w * h)
     out["gtao_main"] = dict(max_abs_err=float(dao.max()), ms=ms,
-                            plain_ms=plain_ms)
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
     # K4: the main pass's AO and edges through the sharp chain (1 pass)
     n_pass = c.gtao.num_denoise_passes
@@ -221,8 +315,13 @@ def phase1(r, label):
         f"{plain_ms:.3f} ms")
     require(int(dd.max()) <= AO_MAX_STEP and frac <= AO_MAX_FRACTION,
             f"[{label}] K4 outside budget")
+    # per pass: AO and edges in (u8 each), the pass's output out (u8, the
+    # last one u16)
+    b_ms, b_by = bound(n_pass * 2 * w * h + (n_pass - 1) * w * h
+                       + 2 * w * h, n_pass * GTAO_DENOISE_OPS * w * h)
     out["gtao_denoise"] = dict(max_abs_err=float(dd.max()), ms=ms,
-                               plain_ms=plain_ms)
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by)
     return out
 
 
@@ -252,7 +351,7 @@ def phase2(r, label):
         f"{rays / ms / 1e3:.2f} Mrays/s ({rays} rays/frame), checksum "
         f"{checksum}, lit share {lit:.4f}")
     shadow = r.stats()["shadow_casting_lights"]
-    want = dict(bvh8_closest=FRAMES, bvh8_any=shadow * FRAMES,
+    want = dict(ALL_ZERO, bvh8_closest=FRAMES, bvh8_any=shadow * FRAMES,
                 gtao_main=FRAMES, gtao_denoise=FRAMES)
     require(counts == want, f"[{label}] launch counts {counts} != {want}")
     require(tuple(image.shape) == (c.height, c.width, 3)
@@ -283,6 +382,256 @@ def phase3():
     # the host's pow/cos/log2 come from another math library than the card's
     require(eq >= 0.999 and far <= 1e-3,
             "64x64 frame on the card disagrees with the host")
+
+
+def bits_equal(a, b):
+    import torch
+
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def dynamic_tables(r, device):
+    from tpurt_torch.engine import convert
+    from tpurt_torch.engine.dynamic import make_refit_data
+
+    return (convert.object_tensors(r.scene.as_object_pytree(), device),
+            convert.refit_tensors(make_refit_data(r.scene), device))
+
+
+def refit_nodes8(obj, refit, transforms):
+    """The refit frame's BVH8 rows under `transforms`."""
+    import torch
+
+    from tpurt_torch.bvh.wide import LEAF8_MAX, refit_bvh8
+    from tpurt_torch.engine.dynamic import world_vertices
+
+    t = torch.as_tensor(transforms, device=obj["obj_vtx_pos"].device)
+    vp = world_vertices(obj, t)[0]
+    tvo = obj["tri_vertex"][refit["order"]]
+    v = [vp[tvo[:, k]] for k in range(3)]
+    return refit_bvh8(refit["nodes8"], refit["levels"],
+                      torch.minimum(torch.minimum(v[0], v[1]), v[2]),
+                      torch.maximum(torch.maximum(v[0], v[1]), v[2]),
+                      LEAF8_MAX)
+
+
+def phase4(r, label):
+    """The dynamic scene's kernels at the rebuild path's shapes."""
+    import torch
+
+    from tpurt_torch.app.bench_scene import rotation_frames
+    from tpurt_torch.bvh.lbvh import build_lbvh
+    from tpurt_torch.engine.dynamic import build_world_tables, world_vertices
+    from tpurt_torch.kernels.traverse_bvh2 import (trace_any_bvh2,
+                                                   trace_any_plain,
+                                                   trace_closest_bvh2,
+                                                   trace_closest_plain)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
+
+    c = r.config
+    w, h = c.width, c.height
+    t = rotation_frames(r.scene.transforms, DYN_FRAMES)[-1]
+    obj, refit = dynamic_tables(r, r.device)
+    obj_h, refit_h = dynamic_tables(r, "cpu")
+    cam, lights, _ = frame_inputs(r)
+    out = {}
+
+    # the LBVH and the refit rows: card against host
+    wd = build_world_tables(obj, t)
+    wh = build_world_tables(obj_h, t)
+    torch.cuda.synchronize()
+    same = {k: bits_equal(wd["bvh"][k], wh["bvh"][k]) for k in wh["bvh"]}
+    same["nodes2"] = bits_equal(wd["nodes2"], wh["nodes2"])
+    same["tris"] = bits_equal(wd["tris"], wh["tris"])
+    n8_equal = bits_equal(refit_nodes8(obj, refit, t),
+                          refit_nodes8(obj_h, refit_h, t))
+    tables_ms = cuda_ms(lambda: build_world_tables(obj, t), 5)
+    tt = torch.as_tensor(t, device=r.device)
+    transform_ms = cuda_ms(lambda: world_vertices(obj, tt), 5)
+    boxes = (wd["bvh"]["aabb_min"][wd["num_tris"] - 1:],
+             wd["bvh"]["aabb_max"][wd["num_tris"] - 1:])
+    lbvh_ms = cuda_ms(lambda: build_lbvh(*boxes), 5)
+    refit_ms = cuda_ms(lambda: refit_nodes8(obj, refit, t), 5)
+    tris, nodes = wd["num_tris"], wd["nodes2"].shape[0]
+    log(f"[{label}] LBVH on the card: {tris} tris, {nodes} nodes, depth "
+        f"bound {wd['depth2']}, equal to the host build: {same}; world "
+        f"tables + LBVH {tables_ms:.3f} ms (vertex transform "
+        f"{transform_ms:.3f} ms, LBVH build {lbvh_ms:.3f} ms); refit BVH8 "
+        f"equal to the host: {n8_equal}, transform + refit "
+        f"{refit_ms:.3f} ms")
+    require(all(same.values()) and n8_equal,
+            f"[{label}] the card's LBVH or refit differs from the host's")
+    require(nodes == 2 * tris - 1, f"[{label}] LBVH node count")
+    out["lbvh"] = dict(tris=tris, nodes=nodes, tables_ms=tables_ms,
+                       transform_ms=transform_ms, build_ms=lbvh_ms,
+                       transform_refit_ms=refit_ms)
+
+    # K6 closest hit: primary rays
+    o, d = camera_rays(cam, w, h)
+    hk = trace_closest_bvh2(wd, o, d, T_MIN, T_MAX)
+    work = {}
+    plain_ms, hp = timed_once(lambda: trace_closest_plain(
+        wd, o, d, T_MIN, T_MAX, stats=work))
+    mism = {k: int((hk[k].view(torch.int32) != hp[k].view(torch.int32))
+                   .sum()) for k in ("t", "tri", "u", "v")}
+    err = float((hk["t"] - hp["t"]).abs().max())
+    hit_share = float((hk["tri"] >= 0).float().mean())
+    ms = cuda_ms(lambda: trace_closest_bvh2(wd, o, d, T_MIN, T_MAX), 10,
+                 warmup=3)
+    b_ms, b_by = bound(*trace_work(wd, "nodes2", (o, d, torch.empty(w * h)),
+                                   16, work, OPS_BVH2_NODE))
+    log(f"[{label}] K6 closest: rays {w * h}, hit share {hit_share:.4f}, "
+        f"bit mismatches {mism}, max |dt| {err}, node pops "
+        f"{int(work['node_pops'])}, triangle tests "
+        f"{int(work['tri_tests'])}, kernel {ms:.4f} ms, plain (once) "
+        f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+    require(sum(mism.values()) == 0, f"[{label}] K6 closest differs")
+    require(hit_share > 0.05, f"[{label}] K6 hit almost nothing")
+    out["bvh2_closest"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+
+    # K6 any hit: every light's shadow rays, t_max = 0 lanes included
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, mism=0)
+    for i, (so, sd, stmax) in enumerate(shadow_rays(wd, cam, lights, hk)):
+        ok = trace_any_bvh2(wd, so, sd, SHADOW_T_MIN, stmax)
+        work = {}
+        p_ms, op = timed_once(lambda: trace_any_plain(
+            wd, so, sd, SHADOW_T_MIN, stmax, stats=work))
+        n_mis = int((ok != op).sum())
+        dead = float((stmax <= SHADOW_T_MIN).float().mean())
+        k_ms = cuda_ms(lambda: trace_any_bvh2(wd, so, sd, SHADOW_T_MIN,
+                                              stmax), 10, warmup=3)
+        moved, ops = trace_work(wd, "nodes2", (so, sd, stmax), 1, work,
+                                OPS_BVH2_NODE)
+        log(f"[{label}] K6 any light {i}: occluded "
+            f"{float(ok.float().mean()):.4f}, t_max=0 lanes {dead:.4f}, "
+            f"mismatches {n_mis}, node pops {int(work['node_pops'])}, "
+            f"kernel {k_ms:.4f} ms, plain (once) {p_ms:.2f} ms, bound "
+            f"{bound(moved, ops)[0]:.4f} ms ({bound(moved, ops)[1]})")
+        tot["mism"] += n_mis
+        tot["ms"] += k_ms
+        tot["plain_ms"] += p_ms
+        tot["bytes"] += moved
+        tot["ops"] += ops
+    require(tot["mism"] == 0, f"[{label}] K6 any differs from plain")
+    b_ms, b_by = bound(tot["bytes"], tot["ops"])
+    out["bvh2_any"] = dict(max_abs_err=float(tot["mism"]), ms=tot["ms"],
+                           plain_ms=tot["plain_ms"], bound_ms=b_ms,
+                           bound_by=b_by)
+    return out
+
+
+def run_frames(r, transforms, label, path, want, **kw):
+    """Frames through Renderer.render_dynamic with the launches of every
+    frame checked against `want`; returns ms/frame and the counts."""
+    import torch
+
+    from tpurt_torch.kernels import build
+
+    counts = build.launch_counts
+    build.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in transforms:
+        before = dict(counts)
+        out = r.render_dynamic(t, block=False, **kw)
+        step = {k: counts[k] - before[k] for k in counts}
+        took = "refit" if "refit_sah_ratio" in out else "rebuild"
+        require(step == want and took == path,
+                f"[{label}] {path} frame launched {step} on the {took} "
+                f"path, want {want}")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000.0 / len(transforms)
+    total = dict(counts)
+    require(total == {k: v * len(transforms) for k, v in want.items()},
+            f"[{label}] {path} launches {total}")
+    image = out["image"]
+    for key in ("color", "depth", "normal"):
+        require(bool(torch.isfinite(out[key]).all()),
+                f"[{label}] non-finite {key}")
+    lit = float((image.amax(dim=-1) > 0).float().mean())
+    require(lit > 0.2, f"[{label}] {path} frame is black")
+    return dict(ms_per_frame=ms, launches=total, lit_share=lit,
+                checksum=int(image.to(torch.int64).sum()))
+
+
+def phase5(r, label):
+    """Refit, rebuild and scrambled frames through render_dynamic."""
+    from tpurt_torch.app.bench_scene import (BENCH_SCRAMBLE_EXTENT,
+                                             rotation_frames,
+                                             scrambled_transforms)
+    from tpurt_torch.kernels import build
+
+    shadow = r.stats()["shadow_casting_lights"]
+    rays = r.stats()["rays_per_frame"]
+    frames = rotation_frames(r.scene.transforms, DYN_FRAMES)
+    r.render_dynamic(frames[0])                    # warm-up, both paths
+    r.render_dynamic(frames[0], refit=False)
+    refit_want = dict(ALL_ZERO, bvh8_closest=1, bvh8_any=shadow,
+                      gtao_main=1, gtao_denoise=1)
+    rebuild_want = dict(ALL_ZERO, bvh2_closest=1, bvh2_any=shadow,
+                        gtao_main=1, gtao_denoise=1)
+    out = {}
+    for path, want, kw in (("refit", refit_want, {}),
+                           ("rebuild", rebuild_want, dict(refit=False))):
+        f = run_frames(r, frames, label, path, want, **kw)
+        f["mrays_per_s"] = rays / f["ms_per_frame"] / 1e3
+        f["last_refit_sah_ratio"] = r.last_refit_sah_ratio
+        log(f"[{label}] dynamic {path} frames {DYN_FRAMES}: launches "
+            f"{f['launches']}, {f['ms_per_frame']:.3f} ms/frame, "
+            f"{f['mrays_per_s']:.2f} Mrays/s, lit share "
+            f"{f['lit_share']:.4f}, refit ratio "
+            f"{r.last_refit_sah_ratio:.4f}")
+        out[path] = f
+
+    # scrambled: every refit frame is a check frame; the ratio passes the
+    # trigger, so the frame after each check rebuilds
+    sc = scrambled_transforms(r.scene.transforms,
+                              extent=BENCH_SCRAMBLE_EXTENT)
+    counts = build.launch_counts
+    build.reset_counts()
+    seq = []
+    for _ in range(4):
+        before = dict(counts)
+        frame = r.render_dynamic(sc, block=False, check_every=1)
+        seq.append(("refit" if "refit_sah_ratio" in frame else "rebuild",
+                    {k: counts[k] - before[k] for k in counts},
+                    r.last_refit_sah_ratio))
+    log(f"[{label}] scrambled, check_every=1: "
+        + "; ".join(f"{p} ratio {q:.3f} K1 {c['bvh8_closest']} K6 "
+                    f"{c['bvh2_closest']}+{c['bvh2_any']}"
+                    for p, c, q in seq))
+    require([p for p, _, _ in seq] == ["refit", "rebuild"] * 2
+            and seq[0][2] > 2.0 and seq[0][1] == refit_want
+            and seq[1][1] == rebuild_want and seq[3][1] == rebuild_want,
+            f"[{label}] the scrambled sequence did not switch to rebuild")
+    out["scrambled_ratio"] = seq[0][2]
+    return out
+
+
+def phase6():
+    """64x64 refit and rebuild frames on the card against the host."""
+    import torch
+
+    from tpurt_torch.app.bench_scene import rotation_frames
+
+    rs = {dev: build_renderer(64, 64, dev) for dev in ("cuda", "cpu")}
+    t = rotation_frames(rs["cpu"].scene.transforms, DYN_FRAMES)[-1]
+    for refit in (True, False):
+        imgs = [rs[dev].render_dynamic(t, refit=refit)["image"].cpu()
+                .to(torch.int32) for dev in ("cuda", "cpu")]
+        d = (imgs[0] - imgs[1]).abs().amax(dim=-1)
+        eq = float((d == 0).float().mean())
+        far = float((d > 2).float().mean())
+        path = "refit" if refit else "rebuild"
+        log(f"[64x64] dynamic {path}, card vs host plain: equal pixels "
+            f"{eq:.4f}, off by > 2 {far:.4f}, max diff {int(d.max())}")
+        require(eq >= 0.999 and far <= 1e-3,
+                f"64x64 {path} frame on the card disagrees with the host")
 
 
 def main():
@@ -323,27 +672,40 @@ def main():
                 f" {r.stats()}")
             k = phase1(r, label)
             f = phase2(r, label)
-            results[label] = dict(kernels=k, frame=f)
+            k.update(phase4(r, label))
+            dyn = phase5(r, label)
+            results[label] = dict(kernels=k, frame=f, dynamic=dyn)
             del r
             torch.cuda.empty_cache()
         phase3()
+        phase6()
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    head = results["800x800"]
-    hd = results["1920x1080"]
+    head = results[f"{SHAPES[0][0]}x{SHAPES[0][1]}"]
+    hd = results[f"{SHAPES[1][0]}x{SHAPES[1][1]}"]
     kernels = []
     for name, source, replaces in KERNELS:
         k, k_hd = head["kernels"][name], hd["kernels"][name]
+        # launches on the main path that runs the kernel: the static frames
+        # for K1-K4, the dynamic rebuild frames for K6
+        runs = head["dynamic"]["rebuild"] if name.startswith("bvh2") \
+            else head["frame"]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=head["frame"]["launches"][name],
+            launches=runs["launches"][name],
             max_abs_err=k["max_abs_err"], ms=k["ms"],
-            plain_ms=k["plain_ms"], ms_1080p=k_hd["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=None, ms_1080p=k_hd["ms"],
             plain_ms_1080p=k_hd["plain_ms"],
+            bound_ms_1080p=k_hd["bound_ms"],
             max_abs_err_1080p=k_hd["max_abs_err"]))
-    log(json.dumps(dict(frames={k: v["frame"] for k, v in results.items()})))
+    log(json.dumps(dict(frames={k: v["frame"] for k, v in results.items()},
+                        dynamic={k: v["dynamic"]
+                                 for k, v in results.items()},
+                        lbvh={k: v["kernels"]["lbvh"]
+                              for k, v in results.items()})))
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 (``--noconftest`` because the repository's conftest.py sets up JAX, which
 the machine with the card need not have.)
 
-Budgets (as chip_smoke.py holds them): K1 and K2 bit-identical; K3 edges
+Budgets (as chip_smoke.py holds them): K1, K2 and K6 bit-identical; the
+LBVH and the BVH8 refit built on the card equal to the same built on the
+host; K3 edges
 equal and AO within 1 u8 step on <= 0.1% of pixels; K4 within 1 step on
 <= 0.1% (measured equal: the kernels and the plain versions call the same
 device math, but nothing guarantees PyTorch's transcendental kernels keep
@@ -107,9 +109,107 @@ def test_frame_on_card_matches_host(cuda_frame):
     build.reset_counts()
     img_gpu = r.render_image()
     assert build.launch_counts == dict(bvh8_closest=1, bvh8_any=3,
-                                       gtao_main=1, gtao_denoise=1)
+                                       gtao_main=1, gtao_denoise=1,
+                                       bvh2_closest=0, bvh2_any=0)
     img_cpu = host.render_image()
     # the host's pow/cos/log2 come from another math library than the
     # card's: a sample can move to another mip or a shading term by an ulp
     d = np.abs(img_gpu.astype(int) - img_cpu.astype(int)).max(-1)
     assert (d == 0).mean() >= 0.999 and (d > 2).mean() <= 1e-3
+
+
+def _dynamic_inputs(r):
+    from tpurt_torch.app.bench_scene import rotation_frames
+    from tpurt_torch.engine import convert
+    from tpurt_torch.engine.dynamic import make_refit_data
+
+    t = rotation_frames(r.scene.transforms, 5)[4]
+    obj = {d: convert.object_tensors(r.scene.as_object_pytree(), d)
+           for d in ("cuda", "cpu")}
+    refit = {d: convert.refit_tensors(make_refit_data(r.scene), d)
+             for d in ("cuda", "cpu")}
+    return t, obj, refit
+
+
+def test_lbvh_and_refit_on_card_equal_host(cuda_frame):
+    """The per-frame acceleration structures: bit-equal on both devices."""
+    from tpurt_torch.bvh.wide import LEAF8_MAX, refit_bvh8
+    from tpurt_torch.engine.dynamic import build_world_tables, world_vertices
+
+    t, obj, refit = _dynamic_inputs(cuda_frame)
+    dev, host = (build_world_tables(obj[d], t) for d in ("cuda", "cpu"))
+    for k in host["bvh"]:
+        a, b = dev["bvh"][k].cpu(), host["bvh"][k]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+    assert torch.equal(dev["nodes2"].cpu().view(torch.int32),
+                       host["nodes2"].view(torch.int32))
+    nodes8 = {}
+    for d in ("cuda", "cpu"):
+        vp = world_vertices(obj[d], torch.as_tensor(t, device=d))[0]
+        tvo = obj[d]["tri_vertex"][refit[d]["order"]]
+        v = [vp[tvo[:, k]] for k in range(3)]
+        nodes8[d] = refit_bvh8(
+            refit[d]["nodes8"], refit[d]["levels"],
+            torch.minimum(torch.minimum(v[0], v[1]), v[2]),
+            torch.maximum(torch.maximum(v[0], v[1]), v[2]), LEAF8_MAX)
+    assert torch.equal(nodes8["cuda"].cpu().view(torch.int32),
+                       nodes8["cpu"].view(torch.int32))
+
+
+def test_k6_bit_identical(cuda_frame):
+    """K6 closest and any hit against the plain version on the card, on the
+    rebuild frame's rays (shadow rays with t_max = 0 lanes included)."""
+    from tpurt_torch.engine.dynamic import build_world_tables
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.traverse_bvh2 import (trace_any_bvh2,
+                                                   trace_any_plain,
+                                                   trace_closest_bvh2,
+                                                   trace_closest_plain)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
+
+    r = cuda_frame
+    t, obj, _ = _dynamic_inputs(r)
+    cam, lights, _ = _inputs(r)
+    sc = build_world_tables(obj["cuda"], t)
+    o, d = camera_rays(cam, r.config.width, r.config.height)
+    build.reset_counts()
+    hk = trace_closest_bvh2(sc, o, d, T_MIN, T_MAX)
+    assert build.launch_counts["bvh2_closest"] == 1
+    hp = trace_closest_plain(sc, o, d, T_MIN, T_MAX)
+    for k in ("t", "tri", "u", "v"):
+        assert torch.equal(hk[k].view(torch.int32), hp[k].view(torch.int32))
+    assert bool((hk["tri"] >= 0).any())
+    for so, sd, stmax in shadow_rays(sc, cam, lights, hk):
+        assert bool((stmax == 0).any())
+        assert torch.equal(trace_any_bvh2(sc, so, sd, SHADOW_T_MIN, stmax),
+                           trace_any_plain(sc, so, sd, SHADOW_T_MIN, stmax))
+    assert build.launch_counts["bvh2_any"] == 3
+
+
+def test_dynamic_frames_on_card_match_host(cuda_frame):
+    """Refit and rebuild frames on the card against the plain versions on
+    the host, with the launches of each path."""
+    from tpurt_torch.app.bench_scene import build_bench_scene
+    from tpurt_torch.engine import Renderer, RendererConfig
+    from tpurt_torch.kernels import build
+
+    r = cuda_frame
+    host = build_bench_scene(
+        Renderer(RendererConfig(width=96, height=80, device="cpu")),
+        field=dict(nx=4, nz=4, subdiv=3), cubes=4)
+    t = _dynamic_inputs(r)[0]
+    want = {True: dict(bvh8_closest=1, bvh8_any=3, gtao_main=1,
+                       gtao_denoise=1, bvh2_closest=0, bvh2_any=0),
+            False: dict(bvh8_closest=0, bvh8_any=0, gtao_main=1,
+                        gtao_denoise=1, bvh2_closest=1, bvh2_any=3)}
+    for refit in (True, False):
+        host._frame_idx = r._frame_idx
+        build.reset_counts()
+        img_gpu = r.render_dynamic(t, refit=refit)["image"].cpu().numpy()
+        assert build.launch_counts == want[refit]
+        img_cpu = host.render_dynamic(t, refit=refit)["image"].numpy()
+        d = np.abs(img_gpu.astype(int) - img_cpu.astype(int)).max(-1)
+        assert (d == 0).mean() >= 0.999 and (d > 2).mean() <= 1e-3

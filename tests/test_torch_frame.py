@@ -16,6 +16,8 @@ pixels, the image u8 equal on >= 99.9% and never off by more than 2.
 import numpy as np
 import pytest
 
+from torch_parity import same_host_builder  # noqa: F401
+
 SIZE = 64
 FIELD = dict(nx=3, nz=3, subdiv=2)
 CUBES = 2

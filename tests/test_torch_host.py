@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import SCENES, camera, resident_models
+from torch_parity import (SCENES, camera, resident_models,  # noqa: F401
+                          same_host_builder)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -199,3 +200,111 @@ def test_upload_refuses_a_bvh8_that_could_overflow_the_stack():
     assert convert.scene_tensors(chain(27), "cpu")["depth8"] == 27
     with pytest.raises(ValueError, match="stack"):
         convert.scene_tensors(chain(28), "cpu")
+
+
+def _bench_models(pkg):
+    """The bench scene's models (3x3 field, ground, 3 cubes) built with one
+    package's procedural module."""
+    import importlib
+
+    proc = importlib.import_module(f"{pkg}.scene.procedural")
+    models = [proc.box_field(nx=3, nz=3, subdiv=2), proc.ground_plane()]
+    for i in range(3):
+        m = proc.material_field(nx=1, nz=1, subdiv=1, seed=i)
+        m.set_model_matrix(np.array([[0.45, 0, 0, (i - 1) * 1.4],
+                                     [0, 0.45, 0, -2.2],
+                                     [0, 0, 0.45, 0.0]], np.float32))
+        models.append(m)
+    for m in models:
+        m.update_model_status(np.array([0.0, -2.5, -9.5], np.float32))
+    return models
+
+
+def test_procedural_copies_equal_reference():
+    """The port's copies of tpurt's host modules give tpurt's meshes,
+    textures and matrices."""
+    ref, got = _bench_models("tpurt"), _bench_models("tpurt_torch")
+    assert [type(m).__module__ for m in got] == ["tpurt_torch.scene.model"] * 5
+    for a, b in zip(ref, got):
+        assert a.is_device_resident() == b.is_device_resident()
+        np.testing.assert_array_equal(b.model_matrix, a.model_matrix)
+        for pa, pb in zip(a.primitives(), b.primitives()):
+            for k in ("positions", "normals", "tex_coords", "tangents",
+                      "indices"):
+                np.testing.assert_array_equal(pb[k], pa[k], err_msg=k)
+            assert sorted(map(int, pb["textures"])) == sorted(
+                map(int, pa["textures"]))
+            for t in pa["textures"]:
+                np.testing.assert_array_equal(
+                    pb["textures"][t].as_array(), pa["textures"][t].as_array())
+
+
+def test_camera_and_light_copies_equal_reference():
+    from tpurt.scene import camera as ref_camera
+    from tpurt.scene import lights as ref_lights
+    from tpurt_torch.scene import camera, lights
+
+    def populate(mod):
+        ls = mod.Lights()
+        ls.directional_lights.append(mod.DirectionalLight(
+            dir=np.array([0.35, 0.85, 0.4]) / np.linalg.norm([0.35, 0.85,
+                                                              0.4]),
+            color=[1.4, 1.3, 1.1], casts_shadows=True))
+        ls.spot_lights.append(mod.SpotLight(
+            pos=[0.0, -4.0, 0.0], dir=[0.0, 1.0, 0.0], color=[13.6, 1.6, 22],
+            falloff_distance=12.0, penumbra_umbra_angles=(0.5, 0.8),
+            casts_shadows=True))
+        ls.point_lights.append(mod.PointLight(
+            pos=[0.0, -3.0, 0.0], color=[6.0, 5.0, 4.0],
+            falloff_distance=15.0, casts_shadows=False))
+        ls.area_lights.append(mod.AreaLight(
+            pos=[-2.0, -3.0, 0.2], pos2=[-2.0, -3.0, -0.8],
+            pos3=[-2.0, -2.2, -0.8], invert_normal=False,
+            color=[5.9, 0.2, 1.2], falloff_distance=12.0,
+            penumbra_umbra_angles=(1.57, 1.571), casts_shadows=True))
+        return ls.shader_arrays()
+
+    want, got = populate(ref_lights), populate(lights)
+    assert want.keys() == got.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for aspect in (1.0, 1920 / 1080):
+        cams = [mod.Camera(aspect=aspect) for mod in (ref_camera, camera)]
+        for c in cams:
+            c.set_pos([0.0, -2.5, -9.5])
+            c.set_dir(np.array([0.0, 0.3, 1.0]) / np.linalg.norm([0, 0.3, 1]))
+        want, got = cams[0].uniform(), cams[1].uniform()
+        assert want.keys() == got.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_sah_tree_copy_equals_reference():
+    """The port's C++ SAH builder (csrc/host, its own g++ build) gives
+    tpurt's tree arrays on the cut bench scene, and its numpy fallback
+    gives tpurt's numpy fallback's. (The two builders partition in other
+    orders, std::partition against a stable concatenation, so their trees
+    differ from each other in both packages.)"""
+    from tpurt.bvh import build_bvh_sah as ref_build
+    from tpurt.bvh.builder import _build_numpy as ref_build_numpy
+    from tpurt.scene.scene import flatten_scene as ref_flatten
+    from tpurt_torch.bvh import build_bvh_sah
+    from tpurt_torch.bvh.builder import _build_numpy
+    from tpurt_torch.bvh.flat import tri_aabbs
+
+    flat = ref_flatten(_bench_models("tpurt"))
+    v0 = np.asarray(flat.geom["v0"])[np.argsort(flat.geom["tri_id"])]
+    e1 = np.asarray(flat.geom["e1"])[np.argsort(flat.geom["tri_id"])]
+    e2 = np.asarray(flat.geom["e2"])[np.argsort(flat.geom["tri_id"])]
+    amin, amax = tri_aabbs(v0, v0 + e1, v0 + e2)
+    ref = ref_build(amin, amax, max_leaf_size=4).as_pytree()
+    got = build_bvh_sah(amin, amax, max_leaf_size=4)
+    assert got.builder in ("c++", "numpy")
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got.as_pytree()[k], np.asarray(v),
+                                      err_msg=k)
+    fallback = _build_numpy(amin, amax, 4)
+    assert fallback.builder == "numpy"
+    for k, v in ref_build_numpy(amin, amax, 4).as_pytree().items():
+        np.testing.assert_array_equal(fallback.as_pytree()[k], np.asarray(v),
+                                      err_msg=k)

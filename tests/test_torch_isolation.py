@@ -1,0 +1,82 @@
+"""The port stands alone: with ``import tpurt`` and ``import jax`` made to
+fail by a meta-path hook, every module of tpurt_torch and chip_smoke.py
+import, and 32x32 CPU frames render through Renderer.render() and
+Renderer.render_dynamic() (refit and rebuild). Each check runs in a fresh
+subprocess: the test session itself has both packages loaded.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCK = textwrap.dedent("""
+    import importlib.abc
+    import sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("tpurt", "jax", "jaxlib"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+""")
+
+CHECKS = {
+    "modules": """
+        import pkgutil
+        import tpurt_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            tpurt_torch.__path__, "tpurt_torch.")]
+        for name in names:
+            __import__(name)
+        assert len(names) >= 30, names
+        import chip_smoke
+        assert callable(chip_smoke.main)
+    """,
+    "frames": """
+        import numpy as np
+        from tpurt_torch.app.bench_scene import (build_bench_scene,
+                                                 rotation_frames)
+        from tpurt_torch.engine import Renderer, RendererConfig
+        r = build_bench_scene(Renderer(RendererConfig(
+            width=32, height=32, device="cpu")),
+            field=dict(nx=2, nz=2, subdiv=1), cubes=2)
+        assert r.render()["image"].shape == (32, 32, 3)
+        t = rotation_frames(r.scene.transforms, 4)[3]
+        a = r.render_dynamic(t)
+        b = r.render_dynamic(t, refit=False)
+        assert "refit_sah_ratio" in a and "refit_sah_ratio" not in b
+        for out in (a, b):
+            assert out["image"].shape == (32, 32, 3)
+            assert int(out["image"].max()) > 0
+    """,
+}
+
+
+@pytest.mark.parametrize("check", sorted(CHECKS))
+def test_port_runs_without_tpurt_and_jax(check):
+    code = BLOCK + textwrap.dedent(CHECKS[check]) + textwrap.dedent("""
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("tpurt", "jax", "jaxlib")]
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_blocker_blocks():
+    """The hook really refuses tpurt and jax (so a pass above means
+    something)."""
+    code = BLOCK + "import tpurt\n"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=dict(os.environ, PYTHONPATH=REPO),
+                         cwd=REPO, timeout=120)
+    assert out.returncode != 0 and "blocked import of tpurt" in out.stderr

@@ -11,6 +11,7 @@ box mask).
 from __future__ import annotations
 
 import numpy as np
+import pytest
 
 from tpurt.scene.camera import Camera
 from tpurt.scene.procedural import box_field, ground_plane, material_field
@@ -26,6 +27,25 @@ SCENES = {
     "tiny": lambda: [box_field(nx=1, nz=1, subdiv=1)],
     "ground": lambda: [box_field(nx=2, nz=2, subdiv=2), ground_plane()],
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def same_host_builder():
+    """Hold both packages to the same host SAH builder in this process.
+
+    tpurt builds its C++ library in place (tpurt/native/build.py), so test
+    workers that build it at the same moment can load a half-written file,
+    and tpurt then builds its trees with numpy for the rest of the process.
+    The port builds its own copy atomically and would keep C++; the two
+    builders give different trees (ROADMAP F10). A module whose tests
+    compare trees that each package builds imports this fixture."""
+    from tpurt.native import get_lib as ref_lib
+    from tpurt_torch.native import build
+
+    if ref_lib() is None:
+        with build._LOCK:
+            build._LIB, build._TRIED = None, True
+    yield
 
 
 def resident_models(name):

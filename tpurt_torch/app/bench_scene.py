@@ -7,13 +7,16 @@ glTF asset is not shipped, so the 8 cubes here are procedural textured
 cubes (``material_field(1, 1, 1, seed=i)``) placed at bench.py's model
 matrices. ``build_bench_scene`` takes any renderer with tpurt's surface
 (``models``, ``camera_mut``, ``lights_mut``, ``prepare_first_frame``), so
-the same function builds the same scene for both packages.
+the same function builds the same scene for both packages. The scene has
+10 instances (box field, ground, 8 cubes); ``rotation_frames`` and
+``scrambled_transforms`` animate them for ``Renderer.render_dynamic``.
 """
 from __future__ import annotations
 
 import numpy as np
-from tpurt.scene.lights import AreaLight, DirectionalLight, SpotLight
-from tpurt.scene.procedural import box_field, ground_plane, material_field
+
+from ..scene.lights import AreaLight, DirectionalLight, SpotLight
+from ..scene.procedural import box_field, ground_plane, material_field
 
 FULL = dict(nx=12, nz=12, subdiv=5)
 
@@ -53,3 +56,36 @@ def build_bench_scene(renderer, field=None, cubes: int = 8):
         casts_shadows=True))
     renderer.prepare_first_frame()
     return renderer
+
+
+def rotation_frames(base: np.ndarray, frames: int) -> np.ndarray:
+    """The dynamic bench's animation (tpurt ``tools/dynamic_bench.py:45-54``):
+    every instance's 3x3 part of `base` (I, 3, 4) rotated about Y by angles
+    ``linspace(0, 0.5, frames)`` radians. Returns (frames, I, 3, 4) f32."""
+    out = []
+    for a in np.linspace(0.0, 0.5, frames).astype(np.float32):
+        c, s = np.cos(a), np.sin(a)
+        rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        t = np.array(base, np.float32, copy=True)
+        t[:, :, :3] = np.einsum("ij,njk->nik", rot, t[:, :, :3])
+        out.append(t)
+    return np.stack(out).astype(np.float32)
+
+
+# tpurt's test teleports six small cubes within +-8; the bench scene's rest
+# tree keeps the 43,200-tri box field apart from the small instances, and
+# only +-16 lifts its refit quality ratio past the trigger (2.0) for seed 0
+BENCH_SCRAMBLE_EXTENT = 16.0
+
+
+def scrambled_transforms(base: np.ndarray, seed: int = 0,
+                         extent: float = 8.0) -> np.ndarray:
+    """Instances teleported across each other (tpurt
+    ``tests/test_dynamic.py:197-205``): every translation drawn from
+    uniform(-extent, extent). The rest-pose BVH8 then groups distant
+    triangles and its refit quality ratio grows past the rebuild
+    trigger."""
+    t = np.array(base, np.float32, copy=True)
+    t[:, :, 3] = np.random.default_rng(seed).uniform(-extent, extent,
+                                                     t[:, :, 3].shape)
+    return t

@@ -1,8 +1,12 @@
 """Binned-SAH BVH builder — a numpy copy of ``tpurt/bvh/builder.py``.
 
-It calls the same C++ builder (``tpurt.native.native_build_sah``, which
-loads no JAX) with the same numpy fallback, so the port's trees are the
-reference's trees bit for bit.
+It calls the port's copy of tpurt's C++ builder
+(``tpurt_torch.native.native_build_sah``, built with ``g++``) with the same
+numpy fallback when the toolchain is missing, so each gives the tree that
+the same builder gives in tpurt, bit for bit. The two builders partition
+in other orders (the C++ ``std::partition`` and ``std::nth_element``, the
+numpy stable order), so their trees differ from each other, in both
+packages; ``FlatBVH.builder`` says which one ran.
 """
 from __future__ import annotations
 
@@ -21,11 +25,11 @@ def build_bvh_sah(aabb_min: np.ndarray, aabb_max: np.ndarray,
     toolchain is there, else numpy, exactly as tpurt decides)."""
     bvh = None
     try:
-        from tpurt.native import native_build_sah
+        from ..native import native_build_sah
 
         out = native_build_sah(aabb_min, aabb_max, max_leaf_size)
         if out is not None:
-            bvh = FlatBVH(**out)
+            bvh = FlatBVH(**out, builder="c++")
     except Exception:  # noqa: BLE001 — tpurt falls back on any failure too
         pass
     if bvh is None:

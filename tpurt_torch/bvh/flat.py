@@ -1,8 +1,9 @@
 """Threaded (skip-link) binary BVH in numpy — a copy of ``tpurt/bvh/flat.py``.
 
-The port keeps its own copy because ``tpurt.bvh`` loads JAX on import. The
-binary tree is only a build intermediate here: the traversal kernels read
-the BVH8 rows that ``bvh/wide.collapse8`` makes from it.
+The port keeps its own copy: it imports nothing of tpurt. The static
+scene's SAH tree is a build intermediate (the traversal kernels read the
+BVH8 rows that ``bvh/wide.collapse8`` makes from it); the dynamic scene's
+LBVH (``bvh/lbvh.py``) is traced as it is by K6 (``kernels/traverse_bvh2``).
 
   node entered & internal  -> go to ``entry[node]`` (left child)
   node missed / leaf done  -> go to ``skip[node]``  (next subtree or -1)
@@ -24,6 +25,7 @@ class FlatBVH:
     first_tri           : (M,)  i32   leaf triangle range start (into order)
     tri_count           : (M,)  i32   0 for internal nodes
     tri_order           : (T,)  i32   reordered triangle -> original index
+    builder             : which host builder made it ("c++" or "numpy")
     """
 
     aabb_min: np.ndarray
@@ -33,6 +35,7 @@ class FlatBVH:
     first_tri: np.ndarray
     tri_count: np.ndarray
     tri_order: np.ndarray
+    builder: str = "numpy"
 
     def as_pytree(self) -> dict:
         return dict(

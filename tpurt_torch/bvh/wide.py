@@ -1,4 +1,8 @@
-"""BVH8 collapse — a numpy copy of ``tpurt/bvh/wide.py`` (collapse only).
+"""BVH8 collapse and refit — port of ``tpurt/bvh/wide.py``.
+
+The collapse and the refit plan are numpy copies (host, once per scene);
+the refit itself and its quality measure are tensor ops on the frame's
+device (the dynamic scene's refit frames).
 
 Collapses the threaded binary SAH BVH into 8-wide nodes with the same rules
 as tpurt (greedy widening by surface area, subtree flattening into leaf
@@ -147,3 +151,91 @@ def collapse8(bvh: dict, leaf_max: int = LEAF8_MAX):
                 nodes8[w, base + 3:base + 6] = amax[payload]
                 nodes8[w, 48 + k_slot] = float(wide_of[payload])
     return nodes8, depth
+
+
+# ------------------------------------------------------------------ refit --
+
+def refit_plan(nodes8: np.ndarray):
+    """Static refit metadata from packed BVH8 rows (host, numpy): the BFS
+    level partition, root level first. Children always sit at deeper
+    levels, so a reverse-level sweep refits bottom-up."""
+    child = np.asarray(nodes8)[:, 48:56].astype(np.int64)
+    levels = []
+    cur = np.array([0], np.int64)
+    while cur.size:
+        levels.append(cur.astype(np.int32))
+        nxt = child[cur].reshape(-1)
+        cur = np.unique(nxt[nxt >= 0])
+    return levels
+
+
+def refit_bvh8(nodes8, levels, tri_min_sah, tri_max_sah, leaf_max: int):
+    """Recompute every slot box of (M, 128) BVH8 rows from the new per-
+    triangle boxes (T, 3) in SAH triangle order, keeping the topology lanes
+    — tensor ops on the rows' device (tpurt ``bvh/wide.py:refit_bvh8``).
+    ``levels``: refit_plan's arrays as int64 tensors on that device."""
+    import torch
+
+    m = nodes8.shape[0]
+    t = tri_min_sah.shape[0]
+    firsts = nodes8[:, 56:64].to(torch.int64)
+    counts = nodes8[:, 64:72].to(torch.int64)
+    childs = nodes8[:, 48:56].to(torch.int64)
+
+    # leaf slot boxes: masked reduction over <= leaf_max triangles
+    slot_min = torch.full((m, 8, 3), _EMPTY_MIN, dtype=torch.float32,
+                          device=nodes8.device)
+    slot_max = torch.full_like(slot_min, _EMPTY_MAX)
+    for k in range(leaf_max):
+        idx = torch.clamp(firsts + k, 0, t - 1)
+        valid = (k < counts)[..., None]
+        slot_min = torch.where(valid,
+                               torch.minimum(slot_min, tri_min_sah[idx]),
+                               slot_min)
+        slot_max = torch.where(valid,
+                               torch.maximum(slot_max, tri_max_sah[idx]),
+                               slot_max)
+
+    # internal slots, deepest level first: child totals are ready before
+    # any parent reads them
+    total_min = torch.zeros((m, 3), dtype=torch.float32,
+                            device=nodes8.device)
+    total_max = torch.zeros_like(total_min)
+    for ids in reversed(levels):
+        ch = childs[ids]                                   # (L, 8)
+        is_int = (ch >= 0)[..., None]
+        smin = torch.where(is_int, total_min[torch.clamp_min(ch, 0)],
+                           slot_min[ids])
+        smax = torch.where(is_int, total_max[torch.clamp_min(ch, 0)],
+                           slot_max[ids])
+        slot_min[ids] = smin
+        slot_max[ids] = smax
+        total_min[ids] = smin.amin(dim=1)
+        total_max[ids] = smax.amax(dim=1)
+
+    out = nodes8.clone()
+    out[:, :48] = torch.cat([slot_min, slot_max], dim=2).reshape(m, 48)
+    return out
+
+
+def _areas(mn, mx):
+    import torch
+
+    ext = torch.clamp_min(mx - mn, 0.0)
+    return 2.0 * (ext[..., 0] * ext[..., 1] + ext[..., 1] * ext[..., 2]
+                  + ext[..., 0] * ext[..., 2])
+
+
+def refit_quality(nodes8, tri_min, tri_max):
+    """SAH-cost proxy of a (refit) BVH8: total slot-box surface area over
+    the total per-triangle box area (0-dim tensor). Triangle boxes move
+    rigidly with their instance, so the ratio of this value after a refit
+    to its rest-pose value is ~1 near rest and grows as the rest-pose
+    grouping decays; engine/dynamic uses it for the refit -> rebuild
+    trigger."""
+    import torch
+
+    boxes = nodes8[:, :48].reshape(-1, 8, 6)
+    slot_area = _areas(boxes[..., 0:3], boxes[..., 3:6]).sum()
+    tri_area = _areas(tri_min, tri_max).sum()
+    return slot_area / torch.clamp_min(tri_area, 1e-20)

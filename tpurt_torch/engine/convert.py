@@ -4,6 +4,9 @@ Each function takes what the reference builds on the host (and feeds to its
 jitted frame) and returns the port's tensors on an explicit device:
 
   scene_tensors   FlatScene.as_pytree()            (either package's)
+  object_tensors  FlatScene.as_object_pytree()     (the dynamic scene)
+  refit_tensors   engine/dynamic.make_refit_data() (the refit frames)
+  bvh2_tensors    a binary BVH + its triangles     (K6's tables)
   camera_tensors  Camera.uniform()
   light_tensors   Lights.shader_arrays()
   gtao_tensors    gtao_constants(...)
@@ -20,7 +23,11 @@ import torch
 
 from ..bvh.wide import LEAF8_MAX
 from ..kernels.gtao_main import GTAO_VEC
+from ..kernels.traverse_bvh2 import kernel_stack
 from ..kernels.traverse_bvh8 import STACK_SIZE, stack_entries
+
+# K6 and K1/K2 carry node and triangle indices as exact f32 values
+MAX_EXACT_INDEX = 1 << 24
 
 
 def _t(x, device, dtype=None):
@@ -43,7 +50,7 @@ def pack_tris(geom: dict) -> np.ndarray:
     """Traversal triangle rows [v0, e1, e2, tri_id, 0, 0] (T, 12) f32 in
     BVH leaf order; tri_id is an exact small float (< 2^24)."""
     t = geom["v0"].shape[0]
-    if t >= 1 << 24:
+    if t >= MAX_EXACT_INDEX:
         raise ValueError(f"{t} triangles: ids must stay below 2^24")
     tris = np.zeros((max(t, 1), 12), np.float32)
     tris[:t, 0:3] = geom["v0"]
@@ -53,26 +60,113 @@ def pack_tris(geom: dict) -> np.ndarray:
     return tris
 
 
-def scene_tensors(pt: dict, device) -> dict:
-    """Static scene tables on `device`. Raises when the BVH8 could overflow
-    the traversal stack or a leaf is wider than the kernels' leaf loop."""
-    nodes8 = np.asarray(pt["bvh"]["nodes8"], np.float32)
+def pack_tris_device(geom: dict):
+    """``pack_tris`` for tensors on their own device: the tables the
+    dynamic frames rebuild every frame never leave the card."""
+    v0 = geom["v0"]
+    t = v0.shape[0]
+    if t >= MAX_EXACT_INDEX:
+        raise ValueError(f"{t} triangles: ids must stay below 2^24")
+    return torch.cat([v0, geom["e1"], geom["e2"],
+                      geom["tri_id"].to(torch.float32)[:, None],
+                      v0.new_zeros((t, 2))], dim=1).contiguous()
+
+
+def pack_bvh2(bvh: dict):
+    """K6's node rows (M, 8) f32 from a threaded binary BVH (tensors, on
+    their device): min.xyz, max.xyz, then (left child, right child) for an
+    internal node or (first triangle, -count) for a leaf, as exact small
+    floats. The right child is ``skip[entry]``."""
+    amin = bvh["aabb_min"]
+    m = amin.shape[0]
+    if m >= MAX_EXACT_INDEX:
+        raise ValueError(f"{m} BVH nodes: indices must stay below 2^24")
+    entry = bvh["entry"].to(torch.int64)
+    count = bvh["tri_count"].to(torch.int64)
+    right = bvh["skip"].to(torch.int64)[torch.clamp_min(entry, 0)]
+    leaf = count > 0
+    a = torch.where(leaf, bvh["first_tri"].to(torch.int64), entry)
+    b = torch.where(leaf, -count, right)
+    return torch.cat([amin, bvh["aabb_max"], a[:, None].to(torch.float32),
+                      b[:, None].to(torch.float32)], dim=1).contiguous()
+
+
+def bvh2_tensors(bvh: dict, geom: dict, depth: int, device) -> dict:
+    """K6's tables for a binary BVH and its leaf-order triangles (numpy or
+    tensors); `depth` bounds the tree's depth (root = 0). Raises when the
+    kernel's stack could overflow."""
+    kernel_stack(depth)
+
+    def tensor(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return torch.tensor(np.asarray(x), device=device)
+
+    bvh = {k: tensor(bvh[k]) for k in ("aabb_min", "aabb_max", "entry",
+                                       "skip", "first_tri", "tri_count")}
+    geom = {k: tensor(geom[k]) for k in ("v0", "e1", "e2", "tri_id")}
+    return dict(nodes2=pack_bvh2(bvh), tris=pack_tris_device(geom),
+                depth2=int(depth))
+
+
+def _check_bvh8(nodes8: np.ndarray) -> int:
+    """The BVH8's depth; raises when it could overflow the traversal stack
+    or a leaf is wider than the kernels' leaf loop."""
     depth8 = bvh8_depth(nodes8)
     if stack_entries(depth8) > STACK_SIZE:
         raise ValueError(f"BVH8 depth {depth8} needs {stack_entries(depth8)}"
                          f" stack entries; the kernels hold {STACK_SIZE}")
     if nodes8[:, 64:72].max(initial=0) > LEAF8_MAX:
         raise ValueError(f"a BVH8 leaf holds more than {LEAF8_MAX} tris")
-    quad = np.asarray(pt["tex_quad48"], np.uint8)
+    return depth8
+
+
+def _quad_tensors(quad48, device) -> dict:
+    quad = np.asarray(quad48, np.uint8)
+    return dict(tex_quad=_t(quad.reshape(-1, quad.shape[-1]), device),
+                tex_quad_shape=tuple(int(s) for s in quad.shape))
+
+
+def scene_tensors(pt: dict, device) -> dict:
+    """Static scene tables on `device`. Raises when the BVH8 could overflow
+    the traversal stack or a leaf is wider than the kernels' leaf loop."""
+    nodes8 = np.asarray(pt["bvh"]["nodes8"], np.float32)
+    depth8 = _check_bvh8(nodes8)
     return dict(
         nodes8=_t(nodes8, device),
         tris=_t(pack_tris(pt["geom"]), device),
         num_tris=int(pt["geom"]["v0"].shape[0]),
         depth8=depth8,
         tri_attr=_t(np.asarray(pt["tri_attr"], np.float32), device),
-        tex_quad=_t(quad.reshape(-1, quad.shape[-1]), device),
-        tex_quad_shape=tuple(int(s) for s in quad.shape),
+        **_quad_tensors(pt["tex_quad48"], device),
     )
+
+
+def object_tensors(pt: dict, device) -> dict:
+    """The dynamic scene's object-space tables on `device`, uploaded once:
+    index tables as int64 (gather indices), the rest as f32 (``tex_size``
+    is read only as the f32 extent columns of ``tri_attr``)."""
+    out = {k: _t(np.asarray(pt[k], np.int64), device)
+           for k in ("tri_vertex", "tri_prim", "vtx_instance",
+                     "tex_img_of_prim")}
+    out.update({k: _t(np.asarray(pt[k], np.float32), device)
+                for k in ("obj_vtx_pos", "obj_vtx_normal", "obj_vtx_tangent",
+                          "vtx_uv", "tex_size")})
+    out.update(_quad_tensors(pt["tex_quad48"], device))
+    return out
+
+
+def refit_tensors(refit: dict, device) -> dict:
+    """The refit frames' static metadata on `device`: the rest-pose BVH8
+    rows (checked as scene_tensors checks them), the BFS levels as index
+    tensors, the SAH triangle order and the rest-pose quality (a float)."""
+    nodes8 = np.asarray(refit["nodes8"], np.float32)
+    return dict(
+        nodes8=_t(nodes8, device), depth8=_check_bvh8(nodes8),
+        levels=[_t(np.asarray(lv, np.int64), device)
+                for lv in refit["levels"]],
+        order=_t(np.asarray(refit["order"], np.int64), device),
+        rest_quality=float(refit["rest_quality"]))
 
 
 def camera_tensors(uniform: dict, device) -> dict:

@@ -4,7 +4,8 @@
 camera rays -> closest hit (K1) -> shade with one shadow trace per light
 (K2) -> G-buffer quantization (B10G11R11F color and normal, R16F depth) ->
 GTAO (prefilter, K3, K4) -> LPM tonemap -> sRGB u8. PyTorch runs eagerly:
-the passes are ordinary calls on the frame's device.
+the passes are ordinary calls on the frame's device. ``finish_frame`` is
+the pass tail that the dynamic frames (``engine/dynamic.py``) share.
 """
 from __future__ import annotations
 
@@ -19,16 +20,12 @@ from ..passes.shade import shade
 from ..passes.tonemap import tonemap_frame
 
 
-def render_frame(scene: dict, camera: dict, lights: dict, gtao: dict,
-                 lpm: dict, noise_index: int, *, width: int, height: int,
-                 gtao_settings: GtaoSettings = GtaoSettings(),
-                 enable_gtao: bool = True, enable_tonemap: bool = True):
-    """Render one frame. Returns dict: image (H, W, 3) u8 sRGB, color and
-    normal (H, W, 3) f32, depth (H, W) f32, ao (H, W) int32 (0..~383)."""
-    origin, direction = camera_rays(camera, width, height)
-    hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX)
-    g = shade(scene, camera, lights, hits)
-
+def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
+                 width: int, height: int, gtao_settings: GtaoSettings,
+                 enable_gtao: bool, enable_tonemap: bool) -> dict:
+    """Quantize the shaded G-buffer `g`, run GTAO and the tonemap. Returns
+    dict: image (H, W, 3) u8 sRGB, color and normal (H, W, 3) f32, depth
+    (H, W) f32, ao (H, W) int32 (0..~383)."""
     color = quantize_r11g11b10f(g["color"]).reshape(height, width, 3)
     depth = quantize_r16f(g["depth"]).reshape(height, width)
     normal = quantize_r11g11b10f(g["normal_enc"]).reshape(height, width, 3)
@@ -45,3 +42,17 @@ def render_frame(scene: dict, camera: dict, lights: dict, gtao: dict,
     else:
         image = pack_unorm8(torch.clamp(color, 0.0, 1.0))
     return dict(image=image, color=color, depth=depth, normal=normal, ao=ao)
+
+
+def render_frame(scene: dict, camera: dict, lights: dict, gtao: dict,
+                 lpm: dict, noise_index: int, *, width: int, height: int,
+                 gtao_settings: GtaoSettings = GtaoSettings(),
+                 enable_gtao: bool = True, enable_tonemap: bool = True):
+    """Render one frame (the outputs of ``finish_frame``)."""
+    origin, direction = camera_rays(camera, width, height)
+    hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX)
+    g = shade(scene, camera, lights, hits)
+    return finish_frame(g, gtao, lpm, noise_index, width=width,
+                        height=height, gtao_settings=gtao_settings,
+                        enable_gtao=enable_gtao,
+                        enable_tonemap=enable_tonemap)

@@ -1,10 +1,12 @@
 """The public renderer API — port of ``tpurt/engine/renderer.py`` for the
-static-scene frame on one device.
+static-scene frame (``render``) and the dynamic-scene frame
+(``render_dynamic``) on one device.
 
 State kept between frames: the model residency (tpurt's ``Model`` state
-machine), the flattened scene uploaded once per resident-set change, and
-the camera / light / GTAO-constant tensors, re-uploaded only when their host
-values change.
+machine), the flattened scene uploaded once per resident-set change (with
+the dynamic scene's object tables and refit metadata, uploaded at its first
+dynamic frame), the camera / light / GTAO-constant tensors, re-uploaded
+only when their host values change, and the refit -> rebuild trigger.
 
 Every static scene traces through the BVH8 kernels (K1, K2): tpurt's
 "auto" tier would pick its binary packet kernel for scenes under ~5k
@@ -20,14 +22,16 @@ from typing import Optional
 
 import numpy as np
 import torch
-from tpurt.scene.camera import Camera
-from tpurt.scene.lights import Lights
-from tpurt.scene.model import Model
 
 from ..passes.gtao import GtaoSettings, gtao_constants
 from ..passes.tonemap import LpmParams, lpm_setup
+from ..scene.camera import Camera
+from ..scene.lights import Lights
+from ..scene.model import Model
 from ..scene.scene import FlatScene, flatten_scene
 from . import convert
+from .dynamic import (REBUILD_SAH_RATIO, make_refit_data,
+                      render_frame_dynamic, render_frame_dynamic_refit)
 from .frame import render_frame
 
 
@@ -67,6 +71,10 @@ class Renderer:
         self._lpm = convert.lpm_tensors(lpm_setup(c.lpm)[1], self.device)
         self._frame_idx = 0
         self.rendered_frames = 0
+        self._obj_device = None      # dynamic-scene object tables
+        self._refit_device = None    # BVH8 refit metadata
+        self._rebuild_until = -1     # rebuild frames until this index
+        self.last_refit_sah_ratio = 1.0
 
     # -- scene management ---------------------------------------------------
 
@@ -103,6 +111,7 @@ class Renderer:
             self._scene = flatten_scene(self.models)
             self._scene_device = convert.scene_tensors(
                 self._scene.as_pytree(), self.device)
+            self._obj_device = self._refit_device = None
 
     def _cached(self, key: str, host: dict, to_device):
         """Reuse uploaded tensors while the host values are unchanged."""
@@ -118,12 +127,9 @@ class Renderer:
 
     # -- frame loop -----------------------------------------------------------
 
-    def render(self, block: bool = True) -> dict:
-        """Render one frame; returns the output dict of device tensors."""
+    def _frame_inputs(self):
+        """The camera, light and GTAO-constant tensors of this frame."""
         c = self.config
-        self._update_models()
-        if self._scene is None:
-            raise RuntimeError("call prepare_first_frame() first")
         cam = self._cached("camera", self.camera.uniform(),
                            convert.camera_tensors)
         lights = self._cached("lights", self.lights.shader_arrays(),
@@ -131,11 +137,70 @@ class Renderer:
         gtao = self._cached("gtao", gtao_constants(
             c.width, c.height, self.camera.znear, self.camera.zfar,
             self.camera.fovy, self.camera.aspect), convert.gtao_tensors)
+        return cam, lights, gtao
+
+    def render(self, block: bool = True) -> dict:
+        """Render one frame; returns the output dict of device tensors."""
+        c = self.config
+        self._update_models()
+        if self._scene is None:
+            raise RuntimeError("call prepare_first_frame() first")
+        cam, lights, gtao = self._frame_inputs()
         out = render_frame(self._scene_device, cam, lights, gtao, self._lpm,
                            self._frame_idx % 64, width=c.width,
                            height=c.height, gtao_settings=c.gtao,
                            enable_gtao=c.enable_gtao,
                            enable_tonemap=c.enable_tonemap)
+        self._frame_idx += 1
+        self.rendered_frames += 1
+        if block and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return out
+
+    def render_dynamic(self, transforms, block: bool = True,
+                       refit: bool = True, auto_rebuild: bool = True,
+                       check_every: int = 16) -> dict:
+        """Render one frame with per-frame instance transforms (the
+        reference's animated-TLAS path, renderer.rs:637-651).
+
+        transforms: (I, 3, 4), numpy or a tensor, replacing the scene's
+        instance transforms this frame. refit=True keeps the rest-pose BVH8
+        topology and refits its boxes (K1/K2, about the static frame's
+        cost); refit=False rebuilds an LBVH on the device and traces it
+        with K6.
+
+        auto_rebuild: every `check_every`-th refit frame reads the refit
+        quality ratio (a device sync) and, above REBUILD_SAH_RATIO,
+        switches the next `check_every` frames to the rebuild path —
+        tpurt's trigger (tpurt/engine/renderer.py:298-366)."""
+        c = self.config
+        self._update_models()
+        if self._scene is None:
+            raise RuntimeError("call prepare_first_frame() first")
+        if self._obj_device is None:
+            self._obj_device = convert.object_tensors(
+                self._scene.as_object_pytree(), self.device)
+            self._refit_device = convert.refit_tensors(
+                make_refit_data(self._scene), self.device)
+        cam, lights, gtao = self._frame_inputs()
+        if refit and auto_rebuild and self._frame_idx < self._rebuild_until:
+            refit = False  # decayed tree: rebuild for this window
+        kw = dict(width=c.width, height=c.height, gtao_settings=c.gtao,
+                  enable_gtao=c.enable_gtao, enable_tonemap=c.enable_tonemap)
+        if refit:
+            out = render_frame_dynamic_refit(
+                self._obj_device, self._refit_device, transforms, cam,
+                lights, gtao, self._lpm, self._frame_idx % 64, **kw)
+            if auto_rebuild and self._frame_idx % check_every == 0:
+                ratio = float(out["refit_sah_ratio"])
+                self.last_refit_sah_ratio = ratio
+                if ratio > REBUILD_SAH_RATIO:
+                    # +1: _frame_idx increments after this frame
+                    self._rebuild_until = self._frame_idx + 1 + check_every
+        else:
+            out = render_frame_dynamic(
+                self._obj_device, transforms, cam, lights, gtao, self._lpm,
+                self._frame_idx % 64, **kw)
         self._frame_idx += 1
         self.rendered_frames += 1
         if block and self.device.type == "cuda":
@@ -168,7 +233,7 @@ class Renderer:
                        bvh8_nodes=int(self._scene.bvh["nodes8"].shape[0]),
                        bvh8_depth=self._scene_device["depth8"],
                        primitives=self._scene.num_prims,
-                       tracer_tier="bvh8")
+                       tracer_tier="bvh8", host_builder=self._scene.builder)
         return out
 
     @property

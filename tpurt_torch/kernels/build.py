@@ -1,10 +1,12 @@
 """Build the CUDA sources in ``tpurt_torch/csrc`` and bind them with ctypes.
 
-All ``csrc/*.cu`` files compile in one ``nvcc`` call into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds):
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more call links the objects into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v -o _build/<name>.so csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<kernel>.cu -o <kernel>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <name>.so *.o
 
 ``--fmad=false`` keeps every multiply and add separately rounded, which is
 what makes the kernels bit-comparable with their plain PyTorch versions.
@@ -28,13 +30,13 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # one plain integer per kernel entry point, bumped only where it launches
 launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_main": 0,
-                 "gtao_denoise": 0}
+                 "gtao_denoise": 0, "bvh2_closest": 0, "bvh2_any": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -79,17 +81,8 @@ def get_lib():
         so = library_path()
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in sorted(SRC_DIR.glob("*.cu"))]]
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=600)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{build_log}")
+            build_log = _compile(so)
             (BUILD_DIR / (so.stem + ".log")).write_text(build_log)
-            os.replace(tmp, so)
         else:
             log = BUILD_DIR / (so.stem + ".log")
             build_log = log.read_text() if log.exists() else ""
@@ -98,6 +91,42 @@ def get_lib():
         lib.tpurt_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
         return lib
+
+
+def _compile(so: Path) -> str:
+    """Compile every source in parallel, link, and move the library into
+    place; returns the compilers' output. Raises on any failure."""
+    nvcc = nvcc_path()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate(timeout=600)
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True, timeout=600)
+        log.append(f"== link\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append("link")
+        else:
+            os.replace(tmp, so)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{text}")
+    return text
 
 
 def function(name: str, argtypes):

@@ -156,21 +156,47 @@ def _moller_trumbore(rows, o, d, t_min, tfar):
     return hit, t, u, v
 
 
-def trace_closest_plain(scene, origin, direction, t_min, t_max):
-    """Plain PyTorch version of K1 on any device."""
+def trace_closest_plain(scene, origin, direction, t_min, t_max,
+                        stats=None):
+    """Plain PyTorch version of K1 on any device. `stats`, a dict, gets
+    the traversal work (see count_work)."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
-                        _t_max_tensor(t_max, n, origin), any_hit=False)
+                        _t_max_tensor(t_max, n, origin), any_hit=False,
+                        stats=stats)
 
 
-def trace_any_plain(scene, origin, direction, t_min, t_max):
-    """Plain PyTorch version of K2 on any device."""
+def trace_any_plain(scene, origin, direction, t_min, t_max, stats=None):
+    """Plain PyTorch version of K2 on any device (`stats` as above)."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
-                        _t_max_tensor(t_max, n, origin), any_hit=True)
+                        _t_max_tensor(t_max, n, origin), any_hit=True,
+                        stats=stats)
 
 
-def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool):
+def count_work(stats, node_pops, leaf_pops, tri_tests):
+    """Add one iteration's work to `stats` (device tensors; read them with
+    int() after the traversal): node_pops and leaf_pops count popped
+    entries that are visited, tri_tests the Moller-Trumbore tests the
+    kernel runs (an any-hit leaf stops at its first hit)."""
+    if stats is None:
+        return
+    for key, val in (("node_pops", node_pops), ("leaf_pops", leaf_pops),
+                     ("tri_tests", tri_tests)):
+        stats[key] = stats.get(key, 0) + val
+
+
+def leaf_tests(hit, count, any_hit: bool):
+    """Moller-Trumbore tests of leaf pops with per-slot hits `hit` (A, K)
+    and `count` triangles each: all of them, or up to the first hit."""
+    if not any_hit:
+        return count.sum()
+    first = hit.to(torch.int8).argmax(dim=1) + 1
+    return torch.where(hit.any(1), first, count).sum()
+
+
+def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
+                 stats=None):
     """The plain PyTorch traversal: every live ray pops one stack entry per
     iteration, over (N, S) stacks of codes and entry distances."""
     nodes, tris = scene["nodes8"], scene["tris"]
@@ -229,6 +255,7 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool):
             codes[rows_i, pos] = child_code
             nears[rows_i, pos] = keys
             sp[na] = base + nh
+            count_work(stats, na.numel(), 0, 0)
 
         # ---- leaf pops: Moller-Trumbore over the leaf's triangles
         sel = live & (code < 0)
@@ -244,6 +271,7 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool):
             hit, tk, uk, vk = _moller_trumbore(rows, origin[la],
                                                direction[la], t_min, tfar)
             hit &= leaf_k[None, :] < count[:, None]
+            count_work(stats, 0, la.numel(), leaf_tests(hit, count, any_hit))
             if any_hit:
                 occ[la] |= hit.any(1)
             else:

@@ -5,14 +5,20 @@
 Per hit: one ``tri_attr`` row gives the three corners' position, uv,
 normal and tangent; barycentric interpolation; Gram-Schmidt TBN; one quad
 row gives the whole 2x2 bilinear footprint of albedo, ORM and normal map;
-then per light the GGX + Burley BRDF, one any-hit shadow trace (K2) with
+then per light the GGX + Burley BRDF, one any-hit shadow trace with
 inactive lanes at ``t_max = 0``, and the radiance accumulation. Outputs the
 unquantized G-buffer: color, view depth, encoded view normal.
+
+``tables`` picks the shadow tracer as tpurt's ``pallas_tables`` /
+``max_leaf`` do (``tpurt/passes/shade.py:526-528, 867-872``): "bvh8" for
+the BVH8 rows (K2: static and refit frames), "bvh2" for a binary BVH (K6
+any-hit, leaves of up to ``max_leaf`` triangles: the rebuild frames).
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.traverse_bvh2 import trace_any_bvh2
 from ..kernels.traverse_bvh8 import trace_any_bvh8
 from . import brdf
 from .encodings import divide
@@ -137,9 +143,21 @@ def shadow_rays(scene: dict, camera: dict, lights: dict, hits: dict):
     return rays
 
 
-def shade(scene: dict, camera: dict, lights: dict, hits: dict):
+def shadow_tracer(tables: str, max_leaf: int = 1):
+    """The any-hit tracer of a table kind: (scene, origin, direction,
+    t_min, t_max) -> (N,) bool."""
+    if tables == "bvh8":
+        return trace_any_bvh8
+    if tables == "bvh2":
+        return lambda *args: trace_any_bvh2(*args, max_leaf=max_leaf)
+    raise ValueError(f"unknown shadow tables {tables!r}")
+
+
+def shade(scene: dict, camera: dict, lights: dict, hits: dict,
+          tables: str = "bvh8", max_leaf: int = 1):
     """Shade one batch of primary hits; returns dict(color (N, 3),
     depth (N,), normal_enc (N, 3))."""
+    trace_any = shadow_tracer(tables, max_leaf)
     surf = surface(scene, camera, hits)
     N, V, albedo = surf["N"], surf["V"], surf["albedo"]
     metallic = surf["metallic"]
@@ -168,8 +186,8 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict):
             corrected_roughness, NdotV, nc_NdotV, nc_NdotL, LdotH,
             LOCAL_SSS_RATIO)[..., None]
 
-        occluded = trace_any_bvh8(scene, surf["world_pos"], L, SHADOW_T_MIN,
-                                  lr["t_max"])
+        occluded = trace_any(scene, surf["world_pos"], L, SHADOW_T_MIN,
+                             lr["t_max"])
         attenuation = torch.where(lr["wants_shadow"] & occluded,
                                   torch.full_like(NdotL, SHADOW_ATTENUATION),
                                   torch.ones_like(NdotL))

@@ -1,11 +1,13 @@
-"""Scene flattening, static and without mips — the numpy path of
+"""Scene flattening without mips — the numpy path of
 ``tpurt/scene/scene.py:flatten_scene`` (``mipmaps=False``).
 
 Models become global tables in world space: the traversal triangles
 (``geom``), the binary SAH BVH with its BVH8 collapse (``bvh['nodes8']``),
 one ``tri_attr`` row per triangle for the shade pass, and one 2x2-footprint
-quad row per texel of every unique image (``tex_quad48``). Every array
-equals the reference's bit for bit; ``engine/convert.py`` uploads them.
+quad row per texel of every unique image (``tex_quad48``). The object-space
+tables and the instance transforms are kept for the dynamic scene
+(``as_object_pytree``). Every array equals the reference's bit for bit;
+``engine/convert.py`` uploads them.
 """
 from __future__ import annotations
 
@@ -13,10 +15,10 @@ from dataclasses import dataclass
 from typing import List
 
 import numpy as np
-from tpurt.scene.mesh import TextureType
 
 from ..bvh import build_bvh_sah, collapse8
 from ..bvh.flat import tri_aabbs
+from .mesh import TextureType
 
 MAX_LEAF = 4
 
@@ -30,7 +32,7 @@ _LAYER_OF = {TextureType.ALBEDO: 0, TextureType.ORM: 1, TextureType.NORMAL: 2}
 
 @dataclass
 class FlatScene:
-    """The static scene tables (host numpy)."""
+    """The scene tables (host numpy)."""
 
     bvh: dict         # binary FlatBVH arrays + nodes8 (M8, 128) f32
     geom: dict        # BVH-leaf-order triangles: v0, e1, e2, tri_id
@@ -39,12 +41,35 @@ class FlatScene:
     tex_quad48: np.ndarray  # (U, Hmax, Wmax, 64) u8 2x2-footprint rows
     tex_size: np.ndarray    # (P, 2) i32 (h, w) per primitive
     num_prims: int
+    builder: str            # the host SAH builder that ran: c++ or numpy
+    # object-space tables for the dynamic scene (tpurt scene.py:87-91)
+    tri_vertex: np.ndarray      # (T, 3) i32 global vertex ids
+    tri_prim: np.ndarray        # (T,) i32 global primitive id
+    vtx_uv: np.ndarray          # (V, 2) f32
+    vtx_instance: np.ndarray    # (V,) i32 instance id per vertex
+    obj_vtx_pos: np.ndarray     # (V, 3) f32 object space
+    obj_vtx_normal: np.ndarray  # (V, 3) f32
+    obj_vtx_tangent: np.ndarray  # (V, 4) f32 xyz + handedness w
+    tex_img_of_prim: np.ndarray  # (P,) i32 prim -> unique-image slot
+    transforms: np.ndarray      # (I, 3, 4) f32 instance transforms
 
     def as_pytree(self) -> dict:
         """The tables the frame reads — the same keys tpurt's
         ``FlatScene.as_pytree()`` ships on its non-mip fast path."""
         return dict(bvh=self.bvh, geom=self.geom, tex_size=self.tex_size,
                     tri_attr=self.tri_attr, tex_quad48=self.tex_quad48)
+
+    def as_object_pytree(self) -> dict:
+        """The dynamic scene's inputs — the keys tpurt's
+        ``FlatScene.as_object_pytree()`` ships on its non-mip
+        ``tri_attr`` + ``tex_quad48`` path (transforms come per frame)."""
+        return dict(
+            tri_vertex=self.tri_vertex, tri_prim=self.tri_prim,
+            vtx_instance=self.vtx_instance, obj_vtx_pos=self.obj_vtx_pos,
+            obj_vtx_normal=self.obj_vtx_normal,
+            obj_vtx_tangent=self.obj_vtx_tangent, vtx_uv=self.vtx_uv,
+            tex_size=self.tex_size, tex_img_of_prim=self.tex_img_of_prim,
+            tex_quad48=self.tex_quad48)
 
 
 def _transform_points(m3x4, pts):
@@ -164,7 +189,8 @@ def flatten_scene(models: List) -> FlatScene:
     v1 = vtx_pos[tri_vertex[:, 1]]
     v2 = vtx_pos[tri_vertex[:, 2]]
     amin, amax = tri_aabbs(v0, v1, v2)
-    bvh_pt = build_bvh_sah(amin, amax, max_leaf_size=MAX_LEAF).as_pytree()
+    sah = build_bvh_sah(amin, amax, max_leaf_size=MAX_LEAF)
+    bvh_pt = sah.as_pytree()
     bvh_pt["nodes8"], _ = collapse8(bvh_pt)
 
     order = np.asarray(bvh_pt["tri_order"])
@@ -200,4 +226,9 @@ def flatten_scene(models: List) -> FlatScene:
 
     return FlatScene(bvh=bvh_pt, geom=geom, tri_attr=tri_attr,
                      tex_quad48=tex_quad48, tex_size=tex_size,
-                     num_prims=prim_idx)
+                     num_prims=prim_idx, builder=sah.builder,
+                     tri_vertex=tri_vertex, tri_prim=tri_prim, vtx_uv=vtx_uv,
+                     vtx_instance=vtx_instance, obj_vtx_pos=obj_vtx_pos,
+                     obj_vtx_normal=obj_vtx_normal,
+                     obj_vtx_tangent=obj_vtx_tangent,
+                     tex_img_of_prim=img_of_prim, transforms=transforms)
