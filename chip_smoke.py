@@ -32,6 +32,21 @@ with sharp denoise, LPM) at 800x800 and at 1920x1080 runs:
            right after the check frame; ms/frame and Mrays/s per path.
   phase 6  64x64 refit and rebuild frames on the card against the plain
            versions on the host.
+  phase 7  tpurt's traversal switches. On the frame's real rays: the fused
+           multi-light shadow kernel (K5) and its two-pop form (K5p) against
+           their plain versions and against K2 per light; the two-pop
+           closest and any kernels (K7b) against their plain versions and
+           against K1/K2 (t bit-equal, tri differing only on ties); the
+           uv-payload kernel (K7c) against its plain version; all bit-exact,
+           with times and bounds. Then >= 10 frames (after 2 warm-up
+           frames) of each variant with its launches checked per frame:
+           Renderer.render() with POP2_DEFAULT (K7b closest 1, K7b any 3),
+           with UVP_DEFAULT (K7c 1, K2 3), the fused frame
+           (render_frame_fused: K1 1, K5 1) and the fused frame with
+           POP2_DEFAULT (K7b closest 1, K5p 1); each image against the
+           default frame's
+           (bit-identical for the payload and fused frames, >= 99.9% equal
+           and <= 0.1% off by > 2 for the two-pop frames).
 
 Every kernel's bound_ms is the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its float
@@ -68,7 +83,22 @@ KERNELS = (
      "tpurt/kernels/traverse_pallas.py:357"),
     ("bvh2_any", "tpurt_torch/csrc/bvh2_trace.cu",
      "tpurt/kernels/traverse_pallas.py:357"),
+    ("bvh8_any_multi", "tpurt_torch/csrc/bvh8_multi.cu",
+     "tpurt/kernels/traverse_bvh8.py:770"),
+    ("bvh8_any_multi_pop2", "tpurt_torch/csrc/bvh8_multi.cu",
+     "tpurt/kernels/traverse_bvh8.py:949"),
+    ("bvh8_closest_pop2", "tpurt_torch/csrc/bvh8_trace.cu",
+     "tpurt/kernels/traverse_bvh8.py:497"),
+    ("bvh8_any_pop2", "tpurt_torch/csrc/bvh8_trace.cu",
+     "tpurt/kernels/traverse_bvh8.py:497"),
+    # the uv-payload outputs of _kernel_bvh8_single
+    ("bvh8_closest_uvp", "tpurt_torch/csrc/bvh8_trace.cu",
+     "tpurt/kernels/traverse_bvh8.py:118"),
 )
+# the frames whose launches each new kernel's summary entry reports
+VARIANT_OF = {"bvh8_any_multi": "fused", "bvh8_any_multi_pop2": "fused_pop2",
+              "bvh8_closest_pop2": "pop2", "bvh8_any_pop2": "pop2",
+              "bvh8_closest_uvp": "uvp"}
 ALL_ZERO = {name: 0 for name, _, _ in KERNELS}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) ops/s
@@ -81,6 +111,7 @@ OPS_TRIANGLE = 53      # one Moller-Trumbore test
 OPS_RAY = 3            # the reciprocal direction
 OPS_BVH8_NODE = 8 * OPS_SLAB
 OPS_BVH2_NODE = 2 * OPS_SLAB + 1
+OPS_PAYLOAD = 12       # w = 1 - u - v and the two interpolated uvs, per hit
 # gtao_main.cu per pixel: setup 125, per slice 137, per step 23, per side
 # sample 45; gtao_denoise.cu per pixel and pass: 100
 GTAO_MAIN_OPS = (125, 137, 23, 45)
@@ -139,7 +170,7 @@ def trace_work(scene, table, rays, out_bytes_per_ray, stats, node_ops):
     n = rays[0].shape[0]
     moved = nbytes(scene[table], scene["tris"], *rays) \
         + n * out_bytes_per_ray
-    ops = n * OPS_RAY + int(stats["node_pops"]) * node_ops \
+    ops = n * OPS_RAY + int(stats["node_tests"]) * node_ops \
         + int(stats["tri_tests"]) * OPS_TRIANGLE
     return moved, ops
 
@@ -634,6 +665,246 @@ def phase6():
                 f"64x64 {path} frame on the card disagrees with the host")
 
 
+def phase7_kernels(r, label):
+    """K5, K5p, K7b and K7c against their plain versions (and K5/K5p/K7b
+    against K1/K2) on the frame's real rays, with times and bounds."""
+    import torch
+
+    from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
+                                                   trace_any_bvh8_multi,
+                                                   trace_any_multi_plain,
+                                                   trace_any_plain,
+                                                   trace_closest_bvh8,
+                                                   trace_closest_plain)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
+
+    c = r.config
+    w, h = c.width, c.height
+    scene = r.scene_device
+    cam, lights, _ = frame_inputs(r)
+    out = {}
+    o, d = camera_rays(cam, w, h)
+    hk = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX)
+    rays = shadow_rays(scene, cam, lights, hk)
+    origin = rays[0][0]
+    dirs = torch.stack([sd for _, sd, _ in rays])
+    tmaxs = torch.stack([st for _, _, st in rays])
+    solo = torch.stack([trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st)
+                        for so, sd, st in rays])
+
+    # K5 / K5p: every light's shadow rays in one launch. Both compute the
+    # same function, so both are bounded by the lesser work of the one-pop
+    # and two-pop visit orders (the two-pop order tests more nodes).
+    plain = {}
+    for pop2 in (False, True):
+        work = {}
+        p_ms, op = timed_once(lambda: trace_any_multi_plain(
+            scene, origin, dirs, SHADOW_T_MIN, tmaxs, stats=work, pop2=pop2))
+        ops = op.numel() * OPS_RAY + int(work["node_tests"]) * OPS_BVH8_NODE \
+            + int(work["tri_tests"]) * OPS_TRIANGLE
+        plain[pop2] = (p_ms, op, work, ops)
+    least_ops = min(v[3] for v in plain.values())
+    for name, pop2 in (("bvh8_any_multi", False),
+                       ("bvh8_any_multi_pop2", True)):
+        ok = trace_any_bvh8_multi(scene, origin, dirs, SHADOW_T_MIN, tmaxs,
+                                  pop2=pop2)
+        plain_ms, op, work, _ = plain[pop2]
+        mism_plain = int((ok != op).sum())
+        mism_k2 = int((ok != solo).sum())
+        ms = cuda_ms(lambda: trace_any_bvh8_multi(
+            scene, origin, dirs, SHADOW_T_MIN, tmaxs, pop2=pop2), 10,
+            warmup=3)
+        moved = nbytes(scene["nodes8"], scene["tris"], origin, dirs, tmaxs) \
+            + ok.numel()
+        b_ms, b_by = bound(moved, least_ops)
+        log(f"[{label}] {name}: {ok.shape[0]} lights x {ok.shape[1]} rays, "
+            f"occluded {float(ok.float().mean()):.4f}, mismatches vs plain "
+            f"{mism_plain}, vs K2 per light {mism_k2}, node pops "
+            f"{int(work['node_pops'])} (slab groups "
+            f"{int(work['node_tests'])}), triangle tests "
+            f"{int(work['tri_tests'])}, max stack {work['max_stack']}, "
+            f"kernel {ms:.4f} ms, plain (once) {plain_ms:.2f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        require(mism_plain == 0 and mism_k2 == 0,
+                f"[{label}] {name} differs from plain or from K2")
+        out[name] = dict(max_abs_err=float(mism_plain), ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # K7b closest: the primary rays, two pops per iteration; bounded, as
+    # K5p is, by the lesser work of the two visit orders
+    hp2 = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, pop2=True)
+    work, work1 = {}, {}
+    plain_ms, pp2 = timed_once(lambda: trace_closest_plain(
+        scene, o, d, T_MIN, T_MAX, stats=work, pop2=True))
+    trace_closest_plain(scene, o, d, T_MIN, T_MAX, stats=work1)
+    mism = {k: int((hp2[k].view(torch.int32) != pp2[k].view(torch.int32))
+                   .sum()) for k in ("t", "tri", "u", "v")}
+    t_vs_k1 = int((hp2["t"].view(torch.int32) != hk["t"].view(torch.int32))
+                  .sum())
+    ties = int((hp2["tri"] != hk["tri"]).sum())
+    ms = cuda_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
+                                            pop2=True), 10, warmup=3)
+    primary = (o, d, torch.empty(w * h))
+    moved, ops = trace_work(scene, "nodes8", primary, 16, work, OPS_BVH8_NODE)
+    ops = min(ops, trace_work(scene, "nodes8", primary, 16, work1,
+                              OPS_BVH8_NODE)[1])
+    b_ms, b_by = bound(moved, ops)
+    log(f"[{label}] bvh8_closest_pop2: bit mismatches vs plain {mism}, t "
+        f"bits differing from K1 {t_vs_k1}, tri differing from K1 (equal-t "
+        f"ties) {ties}, node pops {int(work['node_pops'])} (one pop: "
+        f"{int(work1['node_pops'])}), max stack {work['max_stack']}, kernel "
+        f"{ms:.4f} ms, plain (once) {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    require(sum(mism.values()) == 0 and t_vs_k1 == 0,
+            f"[{label}] K7b closest differs from plain or from K1's t")
+    out["bvh8_closest_pop2"] = dict(max_abs_err=0.0, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by)
+
+    # K7b any: every light's shadow rays
+    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, mism=0)
+    for i, (so, sd, st) in enumerate(rays):
+        ok = trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st, pop2=True)
+        work, work1 = {}, {}
+        p_ms, op = timed_once(lambda: trace_any_plain(
+            scene, so, sd, SHADOW_T_MIN, st, stats=work, pop2=True))
+        trace_any_plain(scene, so, sd, SHADOW_T_MIN, st, stats=work1)
+        n_mis = int((ok != op).sum()) + int((ok != solo[i]).sum())
+        k_ms = cuda_ms(lambda: trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st,
+                                              pop2=True), 10, warmup=3)
+        moved, ops = trace_work(scene, "nodes8", (so, sd, st), 1, work,
+                                OPS_BVH8_NODE)
+        ops = min(ops, trace_work(scene, "nodes8", (so, sd, st), 1, work1,
+                                  OPS_BVH8_NODE)[1])
+        tot["mism"] += n_mis
+        tot["ms"] += k_ms
+        tot["plain_ms"] += p_ms
+        tot["bytes"] += moved
+        tot["ops"] += ops
+    b_ms, b_by = bound(tot["bytes"], tot["ops"])
+    log(f"[{label}] bvh8_any_pop2, 3 lights: mismatches vs plain and K2 "
+        f"{tot['mism']}, kernel {tot['ms']:.4f} ms, plain (once) "
+        f"{tot['plain_ms']:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+    require(tot["mism"] == 0, f"[{label}] K7b any differs")
+    out["bvh8_any_pop2"] = dict(max_abs_err=0.0, ms=tot["ms"],
+                                plain_ms=tot["plain_ms"], bound_ms=b_ms,
+                                bound_by=b_by)
+
+    # K7c: the primary rays with the uv payload
+    hu = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, uv_payload=True)
+    work = {}
+    plain_ms, pu = timed_once(lambda: trace_closest_plain(
+        scene, o, d, T_MIN, T_MAX, stats=work, uv_payload=True))
+    mism = {k: int((hu[k].view(torch.int32) != pu[k].view(torch.int32))
+                   .sum()) for k in hu}
+    same_hits = all(torch.equal(hu[k], hk[k]) for k in hk)
+    ms = cuda_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
+                                            uv_payload=True), 10, warmup=3)
+    moved, ops = trace_work(scene, "nodes8", (o, d, torch.empty(w * h)), 36,
+                            work, OPS_BVH8_NODE)
+    hits = int((hu["tri"] >= 0).sum())
+    b_ms, b_by = bound(moved + nbytes(scene["uvp"]), ops + hits * OPS_PAYLOAD)
+    log(f"[{label}] bvh8_closest_uvp: bit mismatches vs plain {mism}, hits "
+        f"equal to K1's {same_hits}, kernel {ms:.4f} ms, plain (once) "
+        f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+    require(sum(mism.values()) == 0 and same_hits,
+            f"[{label}] K7c differs from plain or from K1")
+    out["bvh8_closest_uvp"] = dict(max_abs_err=0.0, ms=ms,
+                                   plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by)
+    return out
+
+
+def phase7_frames(r, label):
+    """Frames of each traversal variant: launches checked per frame,
+    ms/frame, and the image against the default frame's."""
+    import torch
+
+    from tpurt_torch.engine.frame import render_frame_fused
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels import traverse_bvh8 as tb
+
+    c = r.config
+    shadow = r.stats()["shadow_casting_lights"]
+    rays = r.stats()["rays_per_frame"]
+    cam, lights, gtao = frame_inputs(r)
+    r._frame_idx = 0
+    base = r.render()["image"]
+
+    def rendered(noise):
+        r._frame_idx = noise
+        return r.render(block=False)
+
+    def fused(noise):
+        return render_frame_fused(r.scene_device, cam, lights, gtao, r._lpm,
+                                  noise, width=c.width, height=c.height,
+                                  gtao_settings=c.gtao)
+
+    ao_launches = dict(gtao_main=1, gtao_denoise=1)
+    variants = (
+        ("pop2", dict(POP2_DEFAULT=True), rendered,
+         dict(bvh8_closest_pop2=1, bvh8_any_pop2=shadow)),
+        ("uvp", dict(UVP_DEFAULT=True), rendered,
+         dict(bvh8_closest_uvp=1, bvh8_any=shadow)),
+        ("fused", {}, fused, dict(bvh8_closest=1, bvh8_any_multi=1)),
+        ("fused_pop2", dict(POP2_DEFAULT=True), fused,
+         dict(bvh8_closest_pop2=1, bvh8_any_multi_pop2=1)),
+    )
+    counts = build.launch_counts
+    out = {}
+    for name, flags, frame, launches in variants:
+        want = dict(ALL_ZERO, **ao_launches, **launches)
+        try:
+            for key, val in flags.items():
+                setattr(tb, key, val)
+            for i in range(WARMUP_FRAMES):
+                frame(i)
+            torch.cuda.synchronize()
+            build.reset_counts()
+            t0 = time.perf_counter()
+            for i in range(FRAMES):
+                before = dict(counts)
+                frame(i % 64)
+                step = {k: counts[k] - before[k] for k in counts}
+                require(step == want, f"[{label}] {name} frame launched "
+                        f"{step}, want {want}")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1000.0 / FRAMES
+            total = dict(counts)
+            img = frame(0)["image"]
+            torch.cuda.synchronize()
+        finally:
+            tb.POP2_DEFAULT = tb.UVP_DEFAULT = False
+        diff = (img.int() - base.int()).abs().amax(dim=-1)
+        eq = float((diff == 0).float().mean())
+        far = float((diff > 2).float().mean())
+        log(f"[{label}] {name} frames {FRAMES}: launches {total}, "
+            f"{ms:.3f} ms/frame, {rays / ms / 1e3:.2f} Mrays/s, image vs the "
+            f"default frame: equal pixels {eq:.6f}, off by > 2 {far:.6f}, "
+            f"max diff {int(diff.max())}")
+        if name in ("uvp", "fused"):
+            require(torch.equal(img, base),
+                    f"[{label}] {name} image differs from the default frame")
+        else:
+            require(eq >= 0.999 and far <= 1e-3,
+                    f"[{label}] {name} image outside budget")
+        require(bool((img.amax(dim=-1) > 0).float().mean() > 0.2),
+                f"[{label}] {name} frame is black")
+        out[name] = dict(ms_per_frame=ms, mrays_per_s=rays / ms / 1e3,
+                         launches=total, equal_pixels=eq, off_by_gt2=far)
+    return out
+
+
+def card_line():
+    """The card's `name, power.limit` as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else "nvidia-smi: no output")
+
+
 def main():
     import torch
 
@@ -647,11 +918,7 @@ def main():
     sys.path.insert(0, REPO)
     from tpurt_torch.kernels import build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-        else "nvidia-smi: no output")
+    log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -674,7 +941,10 @@ def main():
             f = phase2(r, label)
             k.update(phase4(r, label))
             dyn = phase5(r, label)
-            results[label] = dict(kernels=k, frame=f, dynamic=dyn)
+            k.update(phase7_kernels(r, label))
+            var = phase7_frames(r, label)
+            results[label] = dict(kernels=k, frame=f, dynamic=dyn,
+                                  variants=var)
             del r
             torch.cuda.empty_cache()
         phase3()
@@ -689,9 +959,14 @@ def main():
     for name, source, replaces in KERNELS:
         k, k_hd = head["kernels"][name], hd["kernels"][name]
         # launches on the main path that runs the kernel: the static frames
-        # for K1-K4, the dynamic rebuild frames for K6
-        runs = head["dynamic"]["rebuild"] if name.startswith("bvh2") \
-            else head["frame"]
+        # for K1-K4, the dynamic rebuild frames for K6, the variant frames
+        # for K5, K5p, K7b and K7c
+        if name in VARIANT_OF:
+            runs = head["variants"][VARIANT_OF[name]]
+        elif name.startswith("bvh2"):
+            runs = head["dynamic"]["rebuild"]
+        else:
+            runs = head["frame"]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=runs["launches"][name],
@@ -702,10 +977,13 @@ def main():
             bound_ms_1080p=k_hd["bound_ms"],
             max_abs_err_1080p=k_hd["max_abs_err"]))
     log(json.dumps(dict(frames={k: v["frame"] for k, v in results.items()},
+                        variants={k: v["variants"]
+                                  for k, v in results.items()},
                         dynamic={k: v["dynamic"]
                                  for k, v in results.items()},
                         lbvh={k: v["kernels"]["lbvh"]
                               for k, v in results.items()})))
+    log(card_line())
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps(dict(ok=True, device=dict(
         platform="gpu", kind=torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 (``--noconftest`` because the repository's conftest.py sets up JAX, which
 the machine with the card need not have.)
 
-Budgets (as chip_smoke.py holds them): K1, K2 and K6 bit-identical; the
+Budgets (as chip_smoke.py holds them): K1, K2, K5, K5p, K7b, K7c and K6
+bit-identical with their plain versions (K5/K5p also with K2 per set, K7b's
+t with K1's); the
 LBVH and the BVH8 refit built on the card equal to the same built on the
 host; K3 edges
 equal and AO within 1 u8 step on <= 0.1% of pixels; K4 within 1 step on
@@ -22,6 +24,13 @@ import pytest
 import torch
 
 pytestmark = pytest.mark.gpu
+
+
+def _counts(**nonzero):
+    """A full launch-count dict: every kernel 0 but `nonzero`."""
+    from tpurt_torch.kernels import build
+
+    return {k: nonzero.get(k, 0) for k in build.launch_counts}
 
 
 @pytest.fixture(scope="module")
@@ -108,9 +117,8 @@ def test_frame_on_card_matches_host(cuda_frame):
     host._frame_idx = r._frame_idx  # the same GTAO noise index
     build.reset_counts()
     img_gpu = r.render_image()
-    assert build.launch_counts == dict(bvh8_closest=1, bvh8_any=3,
-                                       gtao_main=1, gtao_denoise=1,
-                                       bvh2_closest=0, bvh2_any=0)
+    assert build.launch_counts == _counts(bvh8_closest=1, bvh8_any=3,
+                                          gtao_main=1, gtao_denoise=1)
     img_cpu = host.render_image()
     # the host's pow/cos/log2 come from another math library than the
     # card's: a sample can move to another mip or a shading term by an ulp
@@ -201,10 +209,10 @@ def test_dynamic_frames_on_card_match_host(cuda_frame):
         Renderer(RendererConfig(width=96, height=80, device="cpu")),
         field=dict(nx=4, nz=4, subdiv=3), cubes=4)
     t = _dynamic_inputs(r)[0]
-    want = {True: dict(bvh8_closest=1, bvh8_any=3, gtao_main=1,
-                       gtao_denoise=1, bvh2_closest=0, bvh2_any=0),
-            False: dict(bvh8_closest=0, bvh8_any=0, gtao_main=1,
-                        gtao_denoise=1, bvh2_closest=1, bvh2_any=3)}
+    want = {True: _counts(bvh8_closest=1, bvh8_any=3, gtao_main=1,
+                          gtao_denoise=1),
+            False: _counts(gtao_main=1, gtao_denoise=1, bvh2_closest=1,
+                           bvh2_any=3)}
     for refit in (True, False):
         host._frame_idx = r._frame_idx
         build.reset_counts()
@@ -213,3 +221,135 @@ def test_dynamic_frames_on_card_match_host(cuda_frame):
         img_cpu = host.render_dynamic(t, refit=refit)["image"].numpy()
         d = np.abs(img_gpu.astype(int) - img_cpu.astype(int)).max(-1)
         assert (d == 0).mean() >= 0.999 and (d > 2).mean() <= 1e-3
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
+    """K7b (closest and any) and K7c against their plain versions on the
+    frame's rays; K7b's t equals K1's, and its tri differs only on ties."""
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
+                                                   trace_any_plain,
+                                                   trace_closest_bvh8,
+                                                   trace_closest_plain)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
+
+    r = cuda_frame
+    cam, lights, _ = _inputs(r)
+    sc = r.scene_device
+    o, d = camera_rays(cam, r.config.width, r.config.height)
+    build.reset_counts()
+    k1 = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX)
+    hk = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, pop2=True)
+    hp = trace_closest_plain(sc, o, d, T_MIN, T_MAX, pop2=True)
+    for k in ("t", "tri", "u", "v"):
+        assert torch.equal(_bits(hk[k]), _bits(hp[k])), k
+    assert torch.equal(_bits(hk["t"]), _bits(k1["t"]))
+    assert bool((hk["tri"] >= 0).any())
+    uk = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, uv_payload=True)
+    up = trace_closest_plain(sc, o, d, T_MIN, T_MAX, uv_payload=True)
+    assert set(uk) == set(up) == {"t", "tri", "u", "v", "texu", "texv",
+                                  "img", "texh", "texw"}
+    for k in uk:
+        assert torch.equal(_bits(uk[k]), _bits(up[k])), k
+    for so, sd, stmax in shadow_rays(sc, cam, lights, k1):
+        assert torch.equal(trace_any_bvh8(sc, so, sd, SHADOW_T_MIN, stmax,
+                                          pop2=True),
+                           trace_any_plain(sc, so, sd, SHADOW_T_MIN, stmax,
+                                           pop2=True))
+    assert build.launch_counts == _counts(bvh8_closest=1,
+                                          bvh8_closest_pop2=1,
+                                          bvh8_closest_uvp=1,
+                                          bvh8_any_pop2=3)
+
+
+@pytest.mark.parametrize("pop2", [False, True])
+def test_multi_kernels_bit_identical(cuda_frame, pop2):
+    """K5 / K5p against the plain version and against K2 per set, for S = 1,
+    the frame's 3 lights, and S = 6 (above the per-launch cap: two
+    launches)."""
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.traverse_bvh8 import (MULTI_SETS_MAX,
+                                                   trace_any_bvh8,
+                                                   trace_any_bvh8_multi,
+                                                   trace_any_multi_plain,
+                                                   trace_closest_bvh8)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
+
+    r = cuda_frame
+    cam, lights, _ = _inputs(r)
+    sc = r.scene_device
+    o, d = camera_rays(cam, r.config.width, r.config.height)
+    rays = shadow_rays(sc, cam, lights, trace_closest_bvh8(sc, o, d, T_MIN,
+                                                           T_MAX))
+    origin = rays[0][0]
+    solo = [trace_any_bvh8(sc, so, sd, SHADOW_T_MIN, stmax)
+            for so, sd, stmax in rays]
+    assert any(bool(x.any()) for x in solo)
+    kind = "bvh8_any_multi_pop2" if pop2 else "bvh8_any_multi"
+    for sets in ([0], [0, 1, 2], [0, 1, 2, 2, 1, 0]):
+        dirs = torch.stack([rays[i][1] for i in sets])
+        tmax = torch.stack([rays[i][2] for i in sets])
+        build.reset_counts()
+        got = trace_any_bvh8_multi(sc, origin, dirs, SHADOW_T_MIN, tmax,
+                                   pop2=pop2)
+        launches = -(-len(sets) // MULTI_SETS_MAX)
+        assert build.launch_counts == _counts(**{kind: launches})
+        assert got.shape == (len(sets), o.shape[0])
+        assert torch.equal(got, trace_any_multi_plain(
+            sc, origin, dirs, SHADOW_T_MIN, tmax, pop2=pop2))
+        for row, i in zip(got, sets):
+            assert torch.equal(row, solo[i])
+
+
+def test_variant_frames_on_card(cuda_frame):
+    """The frames with the two-pop kernels, the uv payload and the fused
+    shadows: their launches, and their images against the default frame's
+    (bit-identical for the payload and fused frames)."""
+    from tpurt_torch.engine.frame import render_frame_fused
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels import traverse_bvh8 as tb
+
+    r = cuda_frame
+    c = r.config
+    cam, lights, gtao = _inputs(r)
+
+    def fused():
+        return render_frame_fused(r.scene_device, cam, lights, gtao, r._lpm,
+                                  0, width=c.width, height=c.height,
+                                  gtao_settings=c.gtao)
+
+    def render():
+        r._frame_idx = 0
+        return r.render()
+
+    base = render()["image"]
+    cases = [("uvp", dict(UVP_DEFAULT=True), render,
+              _counts(bvh8_closest_uvp=1, bvh8_any=3)),
+             ("fused", {}, fused, _counts(bvh8_closest=1, bvh8_any_multi=1)),
+             ("pop2", dict(POP2_DEFAULT=True), render,
+              _counts(bvh8_closest_pop2=1, bvh8_any_pop2=3)),
+             ("fused_pop2", dict(POP2_DEFAULT=True), fused,
+              _counts(bvh8_closest_pop2=1, bvh8_any_multi_pop2=1))]
+    for name, flags, frame, want in cases:
+        try:
+            for k, val in flags.items():
+                setattr(tb, k, val)
+            build.reset_counts()
+            img = frame()["image"]
+            counts = dict(build.launch_counts)
+        finally:
+            tb.POP2_DEFAULT = tb.UVP_DEFAULT = False
+        want = dict(want, gtao_main=1, gtao_denoise=1)
+        assert counts == want, name
+        diff = (img.int() - base.int()).abs().amax(-1)
+        if name in ("uvp", "fused"):
+            assert torch.equal(img, base), name
+        else:
+            assert float((diff == 0).float().mean()) >= 0.999, name
+            assert float((diff > 2).float().mean()) <= 1e-3, name

@@ -1,7 +1,8 @@
 """The port stands alone: with ``import tpurt`` and ``import jax`` made to
 fail by a meta-path hook, every module of tpurt_torch and chip_smoke.py
 import, and 32x32 CPU frames render through Renderer.render() and
-Renderer.render_dynamic() (refit and rebuild). Each check runs in a fresh
+Renderer.render_dynamic() (refit and rebuild), as do a fused-shadow frame
+with two pops and a uv-payload frame. Each check runs in a fresh
 subprocess: the test session itself has both packages loaded.
 """
 import os
@@ -54,6 +55,28 @@ CHECKS = {
         for out in (a, b):
             assert out["image"].shape == (32, 32, 3)
             assert int(out["image"].max()) > 0
+    """,
+    "variants": """
+        import torch
+        from tpurt_torch.app.bench_scene import build_bench_scene
+        from tpurt_torch.engine import Renderer, RendererConfig
+        from tpurt_torch.engine.frame import render_frame_fused
+        from tpurt_torch.kernels import traverse_bvh8 as tb
+        r = build_bench_scene(Renderer(RendererConfig(
+            width=32, height=32, device="cpu")),
+            field=dict(nx=2, nz=2, subdiv=1), cubes=2)
+        base = r.render()["image"]
+        cam, lights, gtao = r._frame_inputs()
+        tb.POP2_DEFAULT = True
+        fused = render_frame_fused(r.scene_device, cam, lights, gtao, r._lpm,
+                                   0, width=32, height=32,
+                                   gtao_settings=r.config.gtao)["image"]
+        tb.POP2_DEFAULT, tb.UVP_DEFAULT = False, True
+        r._frame_idx = 0
+        uvp = r.render()["image"]
+        assert "uvp" in r.scene_device
+        assert torch.equal(uvp, base) and int(fused.max()) > 0
+        assert (fused.int() - base.int()).abs().max() <= 2
     """,
 }
 

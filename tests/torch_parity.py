@@ -10,6 +10,8 @@ box mask).
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -183,3 +185,51 @@ def classify_occlusion(cls: HitClassifier, ref, got, o, d, t_min, t_max):
         else:
             kinds["other"] += 1
     return kinds
+
+
+@contextlib.contextmanager
+def recording_ref_multi():
+    """Record the shadow rays and the occlusion of every call of tpurt's
+    fused ``trace_any_bvh8_multi`` (its shade pass imports it at call
+    time) into the yielded list, one dict (o, d, t_min, tm, occ) each."""
+    from tpurt.kernels import traverse_bvh8 as tb
+
+    calls = []
+    ref_multi = tb.trace_any_bvh8_multi
+
+    def recorded(bvh, geom, origin, dirs, t_min, t_maxs, **kw):
+        occ = ref_multi(bvh, geom, origin, dirs, t_min, t_maxs, **kw)
+        calls.append(dict(o=np.asarray(origin), t_min=t_min,
+                          d=np.stack([np.asarray(x) for x in dirs]),
+                          tm=np.stack([np.asarray(x) for x in t_maxs]),
+                          occ=np.asarray(occ)))
+        return occ
+
+    tb.trace_any_bvh8_multi = recorded
+    try:
+        yield calls
+    finally:
+        tb.trace_any_bvh8_multi = ref_multi
+
+
+def fused_grazing_lanes(cls: HitClassifier, rays: dict, port_scene):
+    """Lanes where tpurt's fused occlusion (`rays`, recorded above) differs
+    from the port's on the same rays; asserts that each is grazing.
+
+    tpurt's fused kernel pushes a child when any lane of any set hits it,
+    with no per-set box mask, so on a grazing lane it can find an occluder
+    that its own per-light trace does not reach; the port's fused trace
+    equals its per-light trace."""
+    import torch
+
+    from tpurt_torch.kernels.traverse_bvh8 import trace_any_bvh8_multi
+
+    got = trace_any_bvh8_multi(port_scene, torch.tensor(rays["o"]),
+                               torch.tensor(rays["d"]), rays["t_min"],
+                               torch.tensor(rays["tm"])).numpy()
+    for s in range(len(got)):
+        kinds = classify_occlusion(cls, rays["occ"][s], got[s], rays["o"],
+                                   rays["d"][s], rays["t_min"],
+                                   rays["tm"][s])
+        assert kinds["other"] == 0, (s, kinds)
+    return (got != rays["occ"]).any(0)

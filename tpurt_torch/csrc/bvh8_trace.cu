@@ -1,11 +1,17 @@
 // BVH8 closest-hit and any-hit traversal, one thread per ray.
 //
-// Replaces tpurt/kernels/traverse_bvh8.py::_kernel_bvh8_single, both modes:
-// any_hit=False (K1, trace_closest_bvh8) and any_hit=True (K2,
-// trace_any_bvh8). It computes what that kernel computes, not how: the TPU
-// kernel traverses a 32x32 ray packet behind one scalar stack (Mosaic has no
-// per-lane gather), with a Batcher sort on scalars and speculative DMAs.
-// Here each thread owns its ray and its stack.
+// Replaces tpurt/kernels/traverse_bvh8.py in three forms, each a template
+// variant of one kernel:
+//   K1/K2  _kernel_bvh8_single, any_hit=False (trace_closest_bvh8) and
+//          any_hit=True (trace_any_bvh8);
+//   K7b    _kernel_bvh8_pop2 (pop2=True), closest and any: two stack
+//          entries per iteration;
+//   K7c    the uv-payload outputs of _kernel_bvh8_single (uv_payload=True):
+//          the closest hit plus texture uv, image slot and extents.
+// It computes what those kernels compute, not how: the TPU kernels traverse
+// a 32x32 ray packet behind one scalar stack (Mosaic has no per-lane
+// gather), with a Batcher sort on scalars and speculative DMAs. Here each
+// thread owns its ray and its stack.
 //
 // What bounds it on an H100: divergent, latency-bound loads. Every step
 // reads one 512-byte node row (72 of its floats) or up to 32 triangle rows
@@ -15,56 +21,128 @@
 // path, the stack (code + entry distance) lives in local memory, popped
 // entries whose entry distance lies beyond the current hit are skipped
 // without a fetch, and children are pushed far-to-near so the nearest pops
-// first and the shrinking hit distance culls the rest.
+// first and the shrinking hit distance culls the rest. The two-pop variant
+// gives each thread two independent entries per iteration: their leaf work
+// runs first, nearer entry first, then both node rows are read and
+// slab-tested together (two independent row loads in flight), and the far
+// entry's children are pushed first, tpurt's order (traverse_bvh8.py:
+// 502-519). That doubles the stack growth per iteration (+14 against +7):
+// stack_entries(depth, pops=2) = 14 * depth - 6, checked by the wrapper.
 //
-// Exactness: the slab test and Moller-Trumbore use the operation order of
-// tpurt's _Rays.slab / _Rays.mt; min/max propagate NaN like jnp.minimum;
-// the library is built with --fmad=false, so nothing contracts into an FMA.
-// The plain PyTorch version (kernels/traverse_bvh8.py) visits entries in the
-// same order and gives bit-identical t/tri/u/v/occ.
+// Traversal order, shared with the plain version (kernels/traverse_bvh8.py):
+// the root is pushed first; popping a node tests its 8 child boxes with the
+// slab test (tfar = the current hit distance, or t_max for any-hit) and
+// pushes the hit children sorted by (entry distance, slot), far first.
+// Popping a leaf runs Moller-Trumbore on its triangles in order (strict
+// t < tfar, so the first of equal distances wins). A closest-hit entry
+// whose entry distance exceeds the current hit when popped is dropped.
+// Any-hit stops at the first hit; a ray with t_max <= t_min retires at once.
 //
-// Node row layout (bvh/wide.py): lanes k*6..k*6+5 child box, 48+k internal
-// child index (-1 if none), 56+k leaf first triangle, 64+k leaf count.
-// Triangle rows (engine/convert.pack_tris): v0, e1, e2, global id, 0, 0.
-// Stack codes: node id >= 0, leaf -(first * 128 + count) - 1.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// The payload (K7c) is read once, at the end, from the winner's row of the
+// (T, 9) uvp table (three corner uvs, image slot, tex_h, tex_w, in BVH
+// leaf order): uv0 * w + uv1 * u + uv2 * v with w = 1 - u - v, the
+// association of tpurt's per-update payload (:458-463) and of the shade
+// pass's tex_coord, so all three are bit-equal. Miss lanes get 0, 0, 0, 1, 1.
+#include "bvh8_common.cuh"
 
-#define STACK_SIZE 192
-#define LEAF_CODE_BASE 128
-#define NODE_FLOATS 128
-#define TRI_FLOATS 12
+namespace {
 
-// NaN-propagating min/max (jnp.minimum / torch.minimum semantics)
-__device__ __forceinline__ float nmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
+using namespace bvh8;
+
+// slab-test the 8 children of node `code`; the hit ones in (entry
+// distance, slot) order (stable insertion), returns how many
+__device__ __forceinline__ int node_children(const float* __restrict__ nodes,
+                                             int code, const Ray& r,
+                                             float t_min, float tfar,
+                                             float keys[8], int codes[8]) {
+  float lanes[NODE_LANES];
+  load_node(nodes, code, lanes);
+  int nh = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float tnear;
+    if (slab(lanes, k, r, t_min, tfar, &tnear) && child_valid(lanes, k)) {
+      const int c = child_code(lanes, k);
+      int j = nh;
+      while (j > 0 && keys[j - 1] > tnear) {
+        keys[j] = keys[j - 1];
+        codes[j] = codes[j - 1];
+        --j;
+      }
+      keys[j] = tnear;
+      codes[j] = c;
+      ++nh;
+    }
+  }
+  return nh;
 }
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
+
+// far-to-near pushes: the nearest child ends on top
+__device__ __forceinline__ int push_children(int* code_stack,
+                                             float* near_stack, int sp,
+                                             const float keys[8],
+                                             const int codes[8], int nh) {
+  for (int j = nh - 1; j >= 0; --j) {
+    code_stack[sp] = codes[j];
+    near_stack[sp] = keys[j];
+    ++sp;
+  }
+  return sp;
 }
 
-template <bool ANY_HIT>
+// closest-hit leaf: sequential strict-less updates of t/u/v/tri/row
+__device__ __forceinline__ void leaf_closest(const float* __restrict__ tris,
+                                             int code, const Ray& r,
+                                             float t_min, float* t, float* u,
+                                             float* v, int* tri, int* row) {
+  int first, count;
+  leaf_range(code, &first, &count);
+  for (int j = first; j < first + count; ++j) {
+    const Tri q = load_tri(tris, j);
+    float tk, uk, vk;
+    if (moller_trumbore(q, r, t_min, *t, &tk, &uk, &vk)) {
+      *t = tk;
+      *u = uk;
+      *v = vk;
+      *tri = (int)q.id;
+      *row = j;
+    }
+  }
+}
+
+// any-hit leaf: true at the first hit
+__device__ __forceinline__ bool leaf_any(const float* __restrict__ tris,
+                                         int code, const Ray& r, float t_min,
+                                         float t_max0) {
+  int first, count;
+  leaf_range(code, &first, &count);
+  for (int j = first; j < first + count; ++j) {
+    float tk, uk, vk;
+    if (moller_trumbore(load_tri(tris, j), r, t_min, t_max0, &tk, &uk, &vk))
+      return true;
+  }
+  return false;
+}
+
+template <bool ANY_HIT, bool POP2, bool UVP>
 __global__ void __launch_bounds__(128)
 bvh8_trace_kernel(const float* __restrict__ nodes,
                   const float* __restrict__ tris,
+                  const float* __restrict__ uvp,
                   const float* __restrict__ origin,
                   const float* __restrict__ direction,
                   float t_min, const float* __restrict__ t_max_arr, int n,
                   float* __restrict__ t_out, int* __restrict__ tri_out,
                   float* __restrict__ u_out, float* __restrict__ v_out,
-                  uint8_t* __restrict__ occ_out) {
+                  float* __restrict__ pay_out, uint8_t* __restrict__ occ_out) {
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   if (ray >= n) return;
-  const float ox = origin[3 * ray], oy = origin[3 * ray + 1],
-              oz = origin[3 * ray + 2];
-  const float dx = direction[3 * ray], dy = direction[3 * ray + 1],
-              dz = direction[3 * ray + 2];
-  const float inv_x = 1.0f / dx, inv_y = 1.0f / dy, inv_z = 1.0f / dz;
+  const Ray r = make_ray(origin[3 * ray], origin[3 * ray + 1],
+                         origin[3 * ray + 2], direction + 3 * ray);
   const float t_max0 = t_max_arr[ray];
 
   float t = t_max0, u = 0.0f, v = 0.0f;
-  int tri = -1;
+  int tri = -1, row = -1;
   bool occ = false;
 
   int code_stack[STACK_SIZE];
@@ -78,114 +156,98 @@ bvh8_trace_kernel(const float* __restrict__ nodes,
   }
 
   while (sp > 0) {
-    --sp;
-    const int code = code_stack[sp];
-    // the entry's box was entered at near_stack[sp]; a closer hit found
-    // since makes the parent's slab test fail for it now
-    if (!ANY_HIT && near_stack[sp] > t) continue;
-    const float tfar = ANY_HIT ? t_max0 : t;
-    if (code >= 0) {
-      const float4* row =
-          reinterpret_cast<const float4*>(nodes + (size_t)code * NODE_FLOATS);
-      float lanes[72];
-#pragma unroll
-      for (int i = 0; i < 18; ++i) {
-        const float4 q = __ldg(row + i);
-        lanes[4 * i] = q.x;
-        lanes[4 * i + 1] = q.y;
-        lanes[4 * i + 2] = q.z;
-        lanes[4 * i + 3] = q.w;
-      }
-      // hit children in (entry distance, slot) order: stable insertion
-      float keys[8];
-      int codes[8];
-      int nh = 0;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float* b = lanes + 6 * k;
-        const float tx0 = (b[0] - ox) * inv_x;
-        const float tx1 = (b[3] - ox) * inv_x;
-        const float ty0 = (b[1] - oy) * inv_y;
-        const float ty1 = (b[4] - oy) * inv_y;
-        const float tz0 = (b[2] - oz) * inv_z;
-        const float tz1 = (b[5] - oz) * inv_z;
-        const float tnear = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
-                                 nmax(nmin(tz0, tz1), t_min));
-        const float tfar_ = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
-                                 nmin(nmax(tz0, tz1), tfar));
-        const float child = lanes[48 + k];
-        const float count = lanes[64 + k];
-        if (tnear <= tfar_ && (child >= 0.0f || count > 0.0f)) {
-          const int c = child >= 0.0f
-              ? (int)child
-              : -((int)lanes[56 + k] * LEAF_CODE_BASE + (int)count) - 1;
-          int j = nh;
-          while (j > 0 && keys[j - 1] > tnear) {
-            keys[j] = keys[j - 1];
-            codes[j] = codes[j - 1];
-            --j;
-          }
-          keys[j] = tnear;
-          codes[j] = c;
-          ++nh;
-        }
-      }
-      // far-to-near pushes: the nearest child ends on top
-      for (int j = nh - 1; j >= 0; --j) {
-        code_stack[sp] = codes[j];
-        near_stack[sp] = keys[j];
-        ++sp;
-      }
-    } else {
-      const int dec = -(code + 1);
-      const int first = dec / LEAF_CODE_BASE;
-      const int count = dec - first * LEAF_CODE_BASE;
-      for (int j = first; j < first + count; ++j) {
-        const float4* r =
-            reinterpret_cast<const float4*>(tris + (size_t)j * TRI_FLOATS);
-        const float4 a = __ldg(r), b = __ldg(r + 1), c = __ldg(r + 2);
-        const float v0x = a.x, v0y = a.y, v0z = a.z;
-        const float e1x = a.w, e1y = b.x, e1z = b.y;
-        const float e2x = b.z, e2y = b.w, e2z = c.x;
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const bool valid = fabsf(det) > 1e-12f;
-        const float inv_det = 1.0f / (valid ? det : 1.0f);
-        const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-        const float uk = (tx * px + ty * py + tz * pz) * inv_det;
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float vk = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float tk = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const float lim = ANY_HIT ? t_max0 : t;
-        const bool hit = valid && uk >= 0.0f && vk >= 0.0f &&
-                         uk + vk <= 1.0f && tk > t_min && tk < lim;
-        if (hit) {
-          if (ANY_HIT) {
-            occ = true;
-            break;
-          }
-          t = tk;
-          u = uk;
-          v = vk;
-          tri = (int)c.y;
-        }
-      }
-      if (ANY_HIT && occ) break;
+    // pop the top entry (near) and, two-pop, the one below it (far)
+    const int c0 = code_stack[sp - 1];
+    const float n0 = near_stack[sp - 1];
+    int c1 = 0;
+    float n1 = 0.0f;
+    bool has1 = false;
+    if (POP2 && sp >= 2) {
+      c1 = code_stack[sp - 2];
+      n1 = near_stack[sp - 2];
+      has1 = true;
     }
+    sp -= has1 ? 2 : 1;
+    // an entry's box was entered at its near distance; a closer hit found
+    // since makes the parent's slab test fail for it now
+    const bool live0 = ANY_HIT || n0 <= t;
+    const bool live1 = has1 && (ANY_HIT || n1 <= t);
+
+    // leaf phase, the nearer entry first so its hit culls the other's tests
+    if (live0 && c0 < 0) {
+      if (ANY_HIT) {
+        if (leaf_any(tris, c0, r, t_min, t_max0)) {
+          occ = true;
+          break;
+        }
+      } else {
+        leaf_closest(tris, c0, r, t_min, &t, &u, &v, &tri, &row);
+      }
+    }
+    if (POP2 && live1 && c1 < 0) {
+      if (ANY_HIT) {
+        if (leaf_any(tris, c1, r, t_min, t_max0)) {
+          occ = true;
+          break;
+        }
+      } else {
+        leaf_closest(tris, c1, r, t_min, &t, &u, &v, &tri, &row);
+      }
+    }
+
+    // node phase: both rows tested against the hit distance after the
+    // leaf phase; the far entry's children go below the near entry's
+    const float tfar = ANY_HIT ? t_max0 : t;
+    float keys1[8], keys0[8];
+    int codes1[8], codes0[8];
+    int nh1 = 0, nh0 = 0;
+    if (POP2 && live1 && c1 >= 0)
+      nh1 = node_children(nodes, c1, r, t_min, tfar, keys1, codes1);
+    if (live0 && c0 >= 0)
+      nh0 = node_children(nodes, c0, r, t_min, tfar, keys0, codes0);
+    if (POP2) sp = push_children(code_stack, near_stack, sp, keys1, codes1,
+                                 nh1);
+    sp = push_children(code_stack, near_stack, sp, keys0, codes0, nh0);
   }
   if (ANY_HIT) {
     occ_out[ray] = occ ? 1 : 0;
-  } else {
-    t_out[ray] = t;
-    tri_out[ray] = tri;
-    u_out[ray] = u;
-    v_out[ray] = v;
+    return;
+  }
+  t_out[ray] = t;
+  tri_out[ray] = tri;
+  u_out[ray] = u;
+  v_out[ray] = v;
+  if (UVP) {
+    float tu = 0.0f, tv = 0.0f, im = 0.0f, th = 1.0f, tw = 1.0f;
+    if (tri >= 0) {
+      const float* p = uvp + (size_t)row * 9;
+      const float w = 1.0f - u - v;
+      tu = p[0] * w + p[2] * u + p[4] * v;
+      tv = p[1] * w + p[3] * u + p[5] * v;
+      im = p[6];
+      th = p[7];
+      tw = p[8];
+    }
+    pay_out[ray] = tu;
+    pay_out[n + ray] = tv;
+    pay_out[2 * n + ray] = im;
+    pay_out[3 * n + ray] = th;
+    pay_out[4 * n + ray] = tw;
   }
 }
+
+template <bool ANY_HIT, bool POP2, bool UVP>
+void launch(const float* nodes, const float* tris, const float* uvp,
+            const float* origin, const float* direction, float t_min,
+            const float* t_max, int n, float* t_out, int* tri_out,
+            float* u_out, float* v_out, float* pay_out, uint8_t* occ_out,
+            cudaStream_t stream) {
+  bvh8_trace_kernel<ANY_HIT, POP2, UVP><<<(n + 127) / 128, 128, 0, stream>>>(
+      nodes, tris, uvp, origin, direction, t_min, t_max, n, t_out, tri_out,
+      u_out, v_out, pay_out, occ_out);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -193,27 +255,44 @@ const char* tpurt_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// closest hit: pop2 selects K7b, uvp (with pay_out (5, n) f32: texu, texv,
+// img, texh, texw) K7c; the two do not compose
 int tpurt_bvh8_closest(const float* nodes, const float* tris,
-                       const float* origin, const float* direction,
-                       float t_min, const float* t_max, int n, float* t_out,
-                       int* tri_out, float* u_out, float* v_out,
-                       cudaStream_t stream) {
+                       const float* uvp, const float* origin,
+                       const float* direction, float t_min,
+                       const float* t_max, int n, int pop2, int payload,
+                       float* t_out, int* tri_out, float* u_out,
+                       float* v_out, float* pay_out, cudaStream_t stream) {
+  if (pop2 && payload) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    bvh8_trace_kernel<false><<<(n + 127) / 128, 128, 0, stream>>>(
-        nodes, tris, origin, direction, t_min, t_max, n, t_out, tri_out,
-        u_out, v_out, nullptr);
+    if (pop2)
+      launch<false, true, false>(nodes, tris, uvp, origin, direction, t_min,
+                                 t_max, n, t_out, tri_out, u_out, v_out,
+                                 pay_out, nullptr, stream);
+    else if (payload)
+      launch<false, false, true>(nodes, tris, uvp, origin, direction, t_min,
+                                 t_max, n, t_out, tri_out, u_out, v_out,
+                                 pay_out, nullptr, stream);
+    else
+      launch<false, false, false>(nodes, tris, uvp, origin, direction, t_min,
+                                  t_max, n, t_out, tri_out, u_out, v_out,
+                                  pay_out, nullptr, stream);
   }
   return (int)cudaGetLastError();
 }
 
-int tpurt_bvh8_any(const float* nodes, const float* tris,
-                   const float* origin, const float* direction, float t_min,
-                   const float* t_max, int n, uint8_t* occ_out,
-                   cudaStream_t stream) {
+int tpurt_bvh8_any(const float* nodes, const float* tris, const float* origin,
+                   const float* direction, float t_min, const float* t_max,
+                   int n, int pop2, uint8_t* occ_out, cudaStream_t stream) {
   if (n > 0) {
-    bvh8_trace_kernel<true><<<(n + 127) / 128, 128, 0, stream>>>(
-        nodes, tris, origin, direction, t_min, t_max, n, nullptr, nullptr,
-        nullptr, nullptr, occ_out);
+    if (pop2)
+      launch<true, true, false>(nodes, tris, nullptr, origin, direction,
+                                t_min, t_max, n, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, occ_out, stream);
+    else
+      launch<true, false, false>(nodes, tris, nullptr, origin, direction,
+                                 t_min, t_max, n, nullptr, nullptr, nullptr,
+                                 nullptr, nullptr, occ_out, stream);
   }
   return (int)cudaGetLastError();
 }

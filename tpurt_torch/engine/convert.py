@@ -3,7 +3,7 @@
 Each function takes what the reference builds on the host (and feeds to its
 jitted frame) and returns the port's tensors on an explicit device:
 
-  scene_tensors   FlatScene.as_pytree()            (either package's)
+  scene_tensors   FlatScene.as_pytree()            (either package's; uvp too)
   object_tensors  FlatScene.as_object_pytree()     (the dynamic scene)
   refit_tensors   engine/dynamic.make_refit_data() (the refit frames)
   bvh2_tensors    a binary BVH + its triangles     (K6's tables)
@@ -129,10 +129,14 @@ def _quad_tensors(quad48, device) -> dict:
 
 def scene_tensors(pt: dict, device) -> dict:
     """Static scene tables on `device`. Raises when the BVH8 could overflow
-    the traversal stack or a leaf is wider than the kernels' leaf loop."""
+    the one-pop traversal stack or a leaf is wider than the kernels' leaf
+    loop (the two-pop kernels check their own bound when called). When the
+    geometry carries the uv payload (``geom["uvp"]``, (T, 9) f32 in BVH
+    leaf order), it is uploaded as its own table ``uvp`` beside the 48-byte
+    ``tris`` rows; only the payload kernel reads it."""
     nodes8 = np.asarray(pt["bvh"]["nodes8"], np.float32)
     depth8 = _check_bvh8(nodes8)
-    return dict(
+    out = dict(
         nodes8=_t(nodes8, device),
         tris=_t(pack_tris(pt["geom"]), device),
         num_tris=int(pt["geom"]["v0"].shape[0]),
@@ -140,6 +144,9 @@ def scene_tensors(pt: dict, device) -> dict:
         tri_attr=_t(np.asarray(pt["tri_attr"], np.float32), device),
         **_quad_tensors(pt["tex_quad48"], device),
     )
+    if "uvp" in pt["geom"]:
+        out["uvp"] = _t(np.asarray(pt["geom"]["uvp"], np.float32), device)
+    return out
 
 
 def object_tensors(pt: dict, device) -> dict:

@@ -6,6 +6,17 @@ camera rays -> closest hit (K1) -> shade with one shadow trace per light
 GTAO (prefilter, K3, K4) -> LPM tonemap -> sRGB u8. PyTorch runs eagerly:
 the passes are ordinary calls on the frame's device. ``finish_frame`` is
 the pass tail that the dynamic frames (``engine/dynamic.py``) share.
+
+The traversal switches are tpurt's module constants, read at call time:
+with ``kernels.traverse_bvh8.POP2_DEFAULT = True`` the primary and shadow
+traces run the two-pop kernels (K7b), with ``UVP_DEFAULT = True`` the
+primary trace emits the uv payload (K7c) that the shade pass reads.
+``render_frame`` passes neither, so both reach ``Renderer.render()``.
+
+tpurt's frame never fuses the shadow traces; ``render_frame_fused`` (one
+K5 launch for all lights) composes the same passes with
+``shade(fuse_shadows=True)``, as tpurt's ``tools/shadow_fusion_probe.py``
+composes its fused frame.
 """
 from __future__ import annotations
 
@@ -44,15 +55,27 @@ def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
     return dict(image=image, color=color, depth=depth, normal=normal, ao=ao)
 
 
-def render_frame(scene: dict, camera: dict, lights: dict, gtao: dict,
-                 lpm: dict, noise_index: int, *, width: int, height: int,
-                 gtao_settings: GtaoSettings = GtaoSettings(),
-                 enable_gtao: bool = True, enable_tonemap: bool = True):
-    """Render one frame (the outputs of ``finish_frame``)."""
+def _frame(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
+           gtao: dict, lpm: dict, noise_index: int, *, width: int,
+           height: int, gtao_settings: GtaoSettings = GtaoSettings(),
+           enable_gtao: bool = True, enable_tonemap: bool = True) -> dict:
     origin, direction = camera_rays(camera, width, height)
     hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX)
-    g = shade(scene, camera, lights, hits)
+    g = shade(scene, camera, lights, hits, fuse_shadows=fuse_shadows)
     return finish_frame(g, gtao, lpm, noise_index, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,
                         enable_tonemap=enable_tonemap)
+
+
+def render_frame(*args, **kwargs) -> dict:
+    """Render one frame: (scene, camera, lights, gtao, lpm, noise_index, *,
+    width, height, gtao_settings, enable_gtao, enable_tonemap) -> the
+    outputs of ``finish_frame``."""
+    return _frame(False, *args, **kwargs)
+
+
+def render_frame_fused(*args, **kwargs) -> dict:
+    """``render_frame`` with every light's shadow rays in one fused trace
+    (``shade(fuse_shadows=True)``); the same image bit for bit."""
+    return _frame(True, *args, **kwargs)

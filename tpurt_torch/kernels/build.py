@@ -36,7 +36,10 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
 
 # one plain integer per kernel entry point, bumped only where it launches
 launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_main": 0,
-                 "gtao_denoise": 0, "bvh2_closest": 0, "bvh2_any": 0}
+                 "gtao_denoise": 0, "bvh2_closest": 0, "bvh2_any": 0,
+                 "bvh8_any_multi": 0, "bvh8_any_multi_pop2": 0,
+                 "bvh8_closest_pop2": 0, "bvh8_any_pop2": 0,
+                 "bvh8_closest_uvp": 0}
 
 _LOCK = threading.Lock()
 _LIB = None

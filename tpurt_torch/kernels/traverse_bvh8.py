@@ -1,22 +1,42 @@
-"""BVH8 closest-hit (K1) and any-hit (K2) traversal.
+"""BVH8 traversal: closest hit (K1), any hit (K2), their two-pop variants
+(K7b), the closest hit with the uv payload (K7c) and the fused multi-set
+any hit (K5, two-pop K5p).
 
-``trace_closest_bvh8`` and ``trace_any_bvh8`` replace tpurt's entry points
-of the same names (``tpurt/kernels/traverse_bvh8.py``). On CUDA tensors they
-launch ``csrc/bvh8_trace.cu``; on CPU tensors they run the plain PyTorch
-version below, which visits stack entries in the kernel's order and gives
-bit-identical results. There is no fallback between the two.
+``trace_closest_bvh8``, ``trace_any_bvh8`` and ``trace_any_bvh8_multi``
+replace tpurt's entry points of the same names
+(``tpurt/kernels/traverse_bvh8.py``). On CUDA tensors they launch
+``csrc/bvh8_trace.cu`` / ``csrc/bvh8_multi.cu``; on CPU tensors they run the
+plain PyTorch versions below, which visit stack entries in the kernels'
+order and give bit-identical results. There is no fallback between the two.
 
 Contract (tpurt's): ``t = t_max``, ``tri = -1``, ``u = v = 0`` on a miss;
 ``tri`` is the global triangle id; a ray with ``t_max <= t_min`` is never
-occluded.
+occluded. The payload planes are 0, 0, 0, 1, 1 on a miss.
 
-Traversal order, shared by kernel and plain version: the root is pushed
+Traversal order, shared by kernels and plain versions: the root is pushed
 first; popping a node tests its 8 child boxes with the slab test (``tfar``
 = the current hit distance, or ``t_max`` for any-hit) and pushes the hit
 children far-to-near — sorted by (entry distance, slot) with the nearest on
 top. Popping a leaf runs Moller-Trumbore on its triangles in order (strict
 ``t < tfar``, so the first of equal distances wins). A closest-hit entry
 whose entry distance exceeds the current hit is dropped when popped.
+
+Two pops (``pop2``, K7b/K5p): each iteration pops the top entry and the one
+below it; leaf work for both, top first; then both nodes' children, tested
+against the hit distance after the leaf work, the lower entry's pushed
+first. Closest hits equal the one-pop trace up to equal-t ties, occlusion
+exactly.
+
+Multi-set any hit (K5/K5p): S ray sets with shared origins traverse one
+stack whose entries carry the mask of the sets whose own slab tests reached
+them, so each set's occlusion equals K2's bit for bit; pushes are unsorted,
+slot 0 on top. At most ``MULTI_SETS_MAX`` sets go into one launch; the
+wrapper splits larger S.
+
+``pop2=None`` and ``uv_payload=None`` resolve at call time to the module
+constants ``POP2_DEFAULT`` and ``UVP_DEFAULT`` under tpurt's conditions
+(``tpurt/kernels/traverse_bvh8.py:1209-1214, 1696-1711, 1757-1760``), so
+flipping a constant here reaches ``Renderer.render()``.
 """
 from __future__ import annotations
 
@@ -27,16 +47,40 @@ import torch
 from ..bvh.wide import LEAF8_MAX
 from . import build
 
+# the two-pop kernels (K7b, K5p) when a caller passes pop2=None
+POP2_DEFAULT = False
+# the closest-hit uv payload (K7c) when a caller passes uv_payload=None and
+# the scene carries "uvp"
+UVP_DEFAULT = False
+# ray sets per fused any-hit launch (MULTI_SETS_MAX in csrc/bvh8_multi.cu)
+MULTI_SETS_MAX = 4
 LEAF_CODE_BASE = 128
-# the per-thread stack of csrc/bvh8_trace.cu (STACK_SIZE there). A node pop
-# pushes at most 8 entries (net +7), so a tree of D wide levels needs
-# 7 * D + 1 entries; engine/convert.scene_tensors refuses deeper trees.
+# the per-thread stack of the CUDA kernels (STACK_SIZE in
+# csrc/bvh8_common.cuh); the wrappers refuse trees that could need more
 STACK_SIZE = 192
+PAYLOAD_KEYS = ("texu", "texv", "img", "texh", "texw")
 
 
-def stack_entries(depth8: int) -> int:
-    """Stack entries a BVH8 of `depth8` wide levels can need."""
-    return 7 * depth8 + 1
+def stack_entries(depth8: int, pops: int = 1) -> int:
+    """Stack entries a BVH8 of `depth8` wide levels (root = 1) can need.
+
+    One pop: a node pop pushes at most 8 entries (net +7), so 7 * D + 1.
+    Two pops: the stack holds one level per depth; a level is filled by one
+    iteration (up to 16 entries, two popped nodes' children) and loses two
+    at its first pop, so it holds at most 14 while deeper levels exist, and
+    the root's level at most 6: 6 + 14 * (D - 2) + 16 = 14 * D - 6 (8 for
+    a lone root)."""
+    if pops == 1:
+        return 7 * depth8 + 1
+    return max(8, 14 * depth8 - 6)
+
+
+def _check_stack(name, scene, pops):
+    need = stack_entries(scene["depth8"], pops)
+    if need > STACK_SIZE:
+        raise ValueError(f"{name}: BVH8 depth {scene['depth8']} needs {need} "
+                         f"stack entries with {pops} pop(s) per iteration; "
+                         f"the kernels hold {STACK_SIZE}")
 
 
 def _t_max_tensor(t_max, n, like):
@@ -46,69 +90,181 @@ def _t_max_tensor(t_max, n, like):
                       device=like.device)
 
 
-def _check_inputs(name, scene, origin, direction, t_max):
-    if origin.dtype != torch.float32 or direction.dtype != torch.float32:
-        raise TypeError(f"{name}: rays must be float32")
-    if origin.shape != direction.shape or origin.ndim != 2 \
-            or origin.shape[1] != 3:
-        raise ValueError(f"{name}: rays must be (N, 3), got "
-                         f"{tuple(origin.shape)} / {tuple(direction.shape)}")
+def _check_tables(name, scene):
     nodes, tris = scene["nodes8"], scene["tris"]
     if nodes.dtype != torch.float32 or nodes.ndim != 2 \
             or nodes.shape[1] != 128:
         raise ValueError(f"{name}: nodes8 must be (M, 128) float32")
     if tris.dtype != torch.float32 or tris.ndim != 2 or tris.shape[1] != 12:
         raise ValueError(f"{name}: tris must be (T, 12) float32")
-    tensors = dict(nodes8=nodes, tris=tris, origin=origin,
+
+
+def _check_device(name, tensors, device):
+    if device.type == "cuda":
+        build.require_cuda(name, tensors, device)
+        return
+    for key, t in tensors.items():
+        if t.device.type != "cpu":
+            raise ValueError(f"{name}: {key} is on {t.device}; the plain "
+                             f"version runs on CPU tensors only")
+
+
+def _check_inputs(name, scene, origin, direction, t_max, uvp=False):
+    if origin.dtype != torch.float32 or direction.dtype != torch.float32:
+        raise TypeError(f"{name}: rays must be float32")
+    if origin.shape != direction.shape or origin.ndim != 2 \
+            or origin.shape[1] != 3:
+        raise ValueError(f"{name}: rays must be (N, 3), got "
+                         f"{tuple(origin.shape)} / {tuple(direction.shape)}")
+    _check_tables(name, scene)
+    tensors = dict(nodes8=scene["nodes8"], tris=scene["tris"], origin=origin,
                    direction=direction, t_max=t_max)
-    if origin.is_cuda:
-        build.require_cuda(name, tensors, origin.device)
-    else:
-        for key, t in tensors.items():
-            if t.device.type != "cpu":
-                raise ValueError(f"{name}: {key} is on {t.device}; the plain "
-                                 f"version runs on CPU tensors only")
+    if uvp:
+        if scene["uvp"].shape != (scene["tris"].shape[0], 9) \
+                or scene["uvp"].dtype != torch.float32:
+            raise ValueError(f"{name}: uvp must be (T, 9) float32")
+        tensors["uvp"] = scene["uvp"]
+    _check_device(name, tensors, origin.device)
 
 
-def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max):
-    """Closest hit for (N, 3) rays. Returns dict(t, tri, u, v), each (N,)."""
+def _resolve_pop2(pop2):
+    return POP2_DEFAULT if pop2 is None else bool(pop2)
+
+
+def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
+                       pop2=None, uv_payload=None):
+    """Closest hit for (N, 3) rays. Returns dict(t, tri, u, v), each (N,),
+    plus texu, texv, img, texh, texw (N,) f32 with the uv payload.
+
+    pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b; uv_payload
+    (default: UVP_DEFAULT when the scene carries "uvp" and the trace is
+    one-pop) takes K7c. The two do not compose (tpurt's rule)."""
+    name = "trace_closest_bvh8"
+    pop2 = _resolve_pop2(pop2)
+    if uv_payload is None:
+        uv_payload = UVP_DEFAULT and "uvp" in scene and not pop2
+    if uv_payload and pop2:
+        raise ValueError(f"{name}: uv_payload composes only with the "
+                         f"one-pop closest-hit trace (pop2=False)")
+    if uv_payload and "uvp" not in scene:
+        raise ValueError(f"{name}: uv_payload needs scene['uvp'] "
+                         f"(flatten_scene builds it)")
     n = origin.shape[0]
     tmx = _t_max_tensor(t_max, n, origin)
-    _check_inputs("trace_closest_bvh8", scene, origin, direction, tmx)
+    _check_inputs(name, scene, origin, direction, tmx, uvp=uv_payload)
+    pops = 2 if pop2 else 1
+    _check_stack(name, scene, pops)
     if not origin.is_cuda:
-        return trace_closest_plain(scene, origin, direction, t_min, tmx)
-    fn = build.function("tpurt_bvh8_closest", [ctypes.c_void_p] * 4 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int] + [
-        ctypes.c_void_p] * 5)
-    t = torch.empty(n, dtype=torch.float32, device=origin.device)
-    tri = torch.empty(n, dtype=torch.int32, device=origin.device)
+        return _trace_plain(scene, origin, direction, float(t_min), tmx,
+                            any_hit=False, pops=pops, uv_payload=uv_payload)
+    fn = build.function("tpurt_bvh8_closest", [ctypes.c_void_p] * 5 + [
+        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 6)
+    dev = origin.device
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
+    pay = torch.empty((5, n), dtype=torch.float32, device=dev) \
+        if uv_payload else None
     p = build.ptr
-    build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
-                   p(direction), float(t_min), p(tmx), n, p(t), p(tri),
-                   p(u), p(v), build.stream_of(origin)),
-                "tpurt_bvh8_closest")
-    build.launch_counts["bvh8_closest"] += 1
-    return dict(t=t, tri=tri, u=u, v=v)
+    build.check(fn(p(scene["nodes8"]), p(scene["tris"]),
+                   p(scene["uvp"]) if uv_payload else None, p(origin),
+                   p(direction), float(t_min), p(tmx), n, int(pop2),
+                   int(uv_payload), p(t), p(tri), p(u), p(v),
+                   p(pay) if uv_payload else None,
+                   build.stream_of(origin)), name)
+    kind = "bvh8_closest_pop2" if pop2 else \
+        "bvh8_closest_uvp" if uv_payload else "bvh8_closest"
+    build.launch_counts[kind] += 1
+    out = dict(t=t, tri=tri, u=u, v=v)
+    if uv_payload:
+        out.update(zip(PAYLOAD_KEYS, pay.unbind(0)))
+    return out
 
 
-def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max):
-    """Any hit (occlusion) for (N, 3) rays. Returns a (N,) bool mask."""
+def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max,
+                   pop2=None):
+    """Any hit (occlusion) for (N, 3) rays. Returns a (N,) bool mask.
+    pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b."""
+    name = "trace_any_bvh8"
+    pop2 = _resolve_pop2(pop2)
     n = origin.shape[0]
     tmx = _t_max_tensor(t_max, n, origin)
-    _check_inputs("trace_any_bvh8", scene, origin, direction, tmx)
+    _check_inputs(name, scene, origin, direction, tmx)
+    pops = 2 if pop2 else 1
+    _check_stack(name, scene, pops)
     if not origin.is_cuda:
-        return trace_any_plain(scene, origin, direction, t_min, tmx)
+        return _trace_plain(scene, origin, direction, float(t_min), tmx,
+                            any_hit=True, pops=pops)
     fn = build.function("tpurt_bvh8_any", [ctypes.c_void_p] * 4 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int] + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
         ctypes.c_void_p] * 2)
     occ = torch.empty(n, dtype=torch.uint8, device=origin.device)
     p = build.ptr
     build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
-                   p(direction), float(t_min), p(tmx), n, p(occ),
-                   build.stream_of(origin)), "tpurt_bvh8_any")
-    build.launch_counts["bvh8_any"] += 1
+                   p(direction), float(t_min), p(tmx), n, int(pop2), p(occ),
+                   build.stream_of(origin)), name)
+    build.launch_counts["bvh8_any_pop2" if pop2 else "bvh8_any"] += 1
+    return occ.bool()
+
+
+def _multi_inputs(origin, dirs, t_maxs):
+    """(S, N, 3) directions and (S, N) f32 t_max from a list of S (N, 3)
+    arrays or a stack, and a list of S t_max values (tensors or floats) or
+    an (S, N) stack."""
+    n = origin.shape[0]
+    d = dirs if isinstance(dirs, torch.Tensor) else torch.stack(list(dirs))
+    if isinstance(t_maxs, torch.Tensor) and t_maxs.ndim == 2:
+        tm = t_maxs.to(torch.float32)
+    else:
+        tm = torch.stack([_t_max_tensor(x, n, origin) for x in t_maxs])
+    if d.ndim != 3 or d.shape[1:] != (n, 3) or tm.shape != (d.shape[0], n):
+        raise ValueError(f"trace_any_bvh8_multi: dirs must be (S, {n}, 3) "
+                         f"and t_maxs (S, {n}), got {tuple(d.shape)} / "
+                         f"{tuple(tm.shape)}")
+    if d.dtype != torch.float32 or origin.dtype != torch.float32:
+        raise TypeError("trace_any_bvh8_multi: rays must be float32")
+    return d.contiguous(), tm.contiguous()
+
+
+def trace_any_bvh8_multi(scene: dict, origin, dirs, t_min: float, t_maxs,
+                         pop2=None):
+    """Occlusion of S ray sets sharing the (N, 3) origins: dirs a list of S
+    (N, 3) directions or an (S, N, 3) stack, t_maxs S (N,) values or an
+    (S, N) stack. Returns (S, N) bool, bit-equal to S trace_any_bvh8 calls.
+    pop2 (default POP2_DEFAULT) takes the two-pop kernel K5p. More than
+    MULTI_SETS_MAX sets run as several launches of at most that many."""
+    name = "trace_any_bvh8_multi"
+    pop2 = _resolve_pop2(pop2)
+    if origin.ndim != 2 or origin.shape[1] != 3:
+        raise ValueError(f"{name}: origin must be (N, 3)")
+    d, tm = _multi_inputs(origin, dirs, t_maxs)
+    _check_tables(name, scene)
+    _check_device(name, dict(nodes8=scene["nodes8"], tris=scene["tris"],
+                             origin=origin, dirs=d, t_maxs=tm),
+                  origin.device)
+    pops = 2 if pop2 else 1
+    _check_stack(name, scene, pops)
+    s, n = tm.shape
+    chunks = [(a, min(a + MULTI_SETS_MAX, s))
+              for a in range(0, s, MULTI_SETS_MAX)]
+    if not origin.is_cuda:
+        return torch.cat([trace_any_multi_plain(scene, origin, d[a:b],
+                                                t_min, tm[a:b], pop2=pop2)
+                          for a, b in chunks])
+    fn = build.function("tpurt_bvh8_any_multi", [ctypes.c_void_p] * 4 + [
+        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 2)
+    occ = torch.empty((s, n), dtype=torch.uint8, device=origin.device)
+    p = build.ptr
+    kind = "bvh8_any_multi_pop2" if pop2 else "bvh8_any_multi"
+    for a, b in chunks:
+        build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
+                       p(d[a:b]), float(t_min), p(tm[a:b]), n, b - a,
+                       int(pop2), p(occ[a:b]), build.stream_of(origin)),
+                    name)
+        build.launch_counts[kind] += 1
     return occ.bool()
 
 
@@ -157,33 +313,44 @@ def _moller_trumbore(rows, o, d, t_min, tfar):
 
 
 def trace_closest_plain(scene, origin, direction, t_min, t_max,
-                        stats=None):
-    """Plain PyTorch version of K1 on any device. `stats`, a dict, gets
-    the traversal work (see count_work)."""
+                        stats=None, pop2=False, uv_payload=False):
+    """Plain PyTorch version of K1 (K7b with pop2, K7c with uv_payload) on
+    any device. `stats`, a dict, gets the traversal work (see count_work)
+    and the deepest stack (max_stack)."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), any_hit=False,
+                        pops=2 if pop2 else 1, uv_payload=uv_payload,
                         stats=stats)
 
 
-def trace_any_plain(scene, origin, direction, t_min, t_max, stats=None):
-    """Plain PyTorch version of K2 on any device (`stats` as above)."""
+def trace_any_plain(scene, origin, direction, t_min, t_max, stats=None,
+                    pop2=False):
+    """Plain PyTorch version of K2 (K7b with pop2) on any device (`stats`
+    as above)."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), any_hit=True,
-                        stats=stats)
+                        pops=2 if pop2 else 1, stats=stats)
 
 
-def count_work(stats, node_pops, leaf_pops, tri_tests):
+def count_work(stats, node_pops, leaf_pops, tri_tests, node_tests=None):
     """Add one iteration's work to `stats` (device tensors; read them with
     int() after the traversal): node_pops and leaf_pops count popped
     entries that are visited, tri_tests the Moller-Trumbore tests the
-    kernel runs (an any-hit leaf stops at its first hit)."""
+    kernel runs (an any-hit leaf stops at its first hit), node_tests the
+    8-child slab groups (one per node pop and ray set)."""
     if stats is None:
         return
+    node_tests = node_pops if node_tests is None else node_tests
     for key, val in (("node_pops", node_pops), ("leaf_pops", leaf_pops),
-                     ("tri_tests", tri_tests)):
+                     ("tri_tests", tri_tests), ("node_tests", node_tests)):
         stats[key] = stats.get(key, 0) + val
+
+
+def _note_stack(stats, sp):
+    if stats is not None and sp.numel():
+        stats["max_stack"] = max(stats.get("max_stack", 0), int(sp.max()))
 
 
 def leaf_tests(hit, count, any_hit: bool):
@@ -191,23 +358,78 @@ def leaf_tests(hit, count, any_hit: bool):
     and `count` triangles each: all of them, or up to the first hit."""
     if not any_hit:
         return count.sum()
-    first = hit.to(torch.int8).argmax(dim=1) + 1
-    return torch.where(hit.any(1), first, count).sum()
+    return _per_row_tests(hit, count).sum()
+
+
+def _leaf_rows(tris, code):
+    """Triangle rows (A, LEAF8_MAX, 12) of leaf codes, their first row and
+    count, and the in-range mask of each slot."""
+    dec = -(code.long() + 1)
+    first = dec // LEAF_CODE_BASE
+    count = dec - first * LEAF_CODE_BASE
+    k = torch.arange(LEAF8_MAX, device=code.device)
+    idx = torch.clamp(first[:, None] + k[None, :], max=tris.shape[0] - 1)
+    return tris[idx], first, count, k[None, :] < count[:, None]
+
+
+def _node_children(nodes, code):
+    """Node rows of codes, each slot's validity and stack code."""
+    rows = nodes[code.long()]
+    valid = (rows[:, 48:56] >= 0.0) | (rows[:, 64:72] > 0.0)
+    child_code = torch.where(
+        rows[:, 48:56] >= 0.0, rows[:, 48:56].to(torch.int32),
+        -(rows[:, 56:64].to(torch.int32) * LEAF_CODE_BASE
+          + rows[:, 64:72].to(torch.int32)) - 1)
+    return rows, valid, child_code
+
+
+def _push(stacks, sp, rows_of, hit, keys, values, sink):
+    """Push each ray's hit children sorted by `keys` (stable, slot order on
+    equal keys), the first on top. stacks/values: matching lists of (N, S+1)
+    tables and (A, 8) entries."""
+    keys = torch.where(hit, keys, torch.full_like(keys, float("inf")))
+    keys, perm = torch.sort(keys, dim=1, stable=True)
+    nh = hit.sum(1)
+    base = sp[rows_of]
+    slot = torch.arange(8, device=hit.device)
+    pos = base[:, None] + nh[:, None] - 1 - slot[None, :]
+    pos = torch.where(slot[None, :] < nh[:, None], pos,
+                      torch.full_like(pos, sink))
+    rows_i = rows_of[:, None].expand(-1, 8)
+    for table, val in zip(stacks, values):
+        table[rows_i, pos] = keys if val is None else torch.gather(val, 1,
+                                                                  perm)
+    sp[rows_of] = base + nh
+
+
+def _pop(sp, a, pops, *tables):
+    """Pop the top entry of rays `a` and, with two pops, the one below it:
+    ((has1, entries of the top, entries below), ...) per table."""
+    spa = sp[a]
+    top0 = spa - 1
+    if pops == 2:
+        has1 = spa >= 2
+    else:
+        has1 = torch.zeros_like(spa, dtype=torch.bool)
+    top1 = torch.clamp_min(spa - 2, 0)
+    sp[a] = spa - 1 - has1.long()
+    return has1, [(tb[a, top0], tb[a, top1]) for tb in tables]
 
 
 def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
-                 stats=None):
-    """The plain PyTorch traversal: every live ray pops one stack entry per
-    iteration, over (N, S) stacks of codes and entry distances."""
+                 pops: int = 1, uv_payload: bool = False, stats=None):
+    """The plain PyTorch traversal: every live ray pops `pops` stack entries
+    per iteration, over (N, S) stacks of codes and entry distances."""
     nodes, tris = scene["nodes8"], scene["tris"]
     dev = origin.device
     n = origin.shape[0]
-    s = stack_entries(scene["depth8"])
+    s = stack_entries(scene["depth8"], pops)
     inv = 1.0 / direction
     tmin_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
 
     t = t_max.clone()
     tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    row = torch.zeros(n, dtype=torch.int64, device=dev)
     u = torch.zeros(n, dtype=torch.float32, device=dev)
     v = torch.zeros(n, dtype=torch.float32, device=dev)
     occ = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -219,73 +441,56 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
     active = torch.arange(n, device=dev)
     if any_hit:
         active = active[t_max > t_min]
-    slot = torch.arange(8, device=dev)
-    leaf_k = torch.arange(LEAF8_MAX, device=dev)
+
+    def leaf(la, code):
+        rows, first, count, in_range = _leaf_rows(tris, code)
+        tfar = t_max[la] if any_hit else t[la]
+        hit, tk, uk, vk = _moller_trumbore(rows, origin[la], direction[la],
+                                           t_min, tfar)
+        hit &= in_range
+        count_work(stats, 0, la.numel(), leaf_tests(hit, count, any_hit))
+        if any_hit:
+            occ[la] |= hit.any(1)
+            return
+        # sequential strict-less updates == first minimum
+        tk = torch.where(hit, tk, torch.full_like(tk, float("inf")))
+        j = torch.argmin(tk, dim=1, keepdim=True)
+        upd = hit.any(1)
+        lu = la[upd]
+        t[lu] = torch.gather(tk, 1, j)[upd, 0]
+        u[lu] = torch.gather(uk, 1, j)[upd, 0]
+        v[lu] = torch.gather(vk, 1, j)[upd, 0]
+        tri[lu] = torch.gather(rows[..., 9], 1, j)[upd, 0].to(torch.int32)
+        row[lu] = (first[:, None] + j)[upd, 0]
+
+    def node(na, code):
+        rows, valid, child_code = _node_children(nodes, code)
+        tfar = t_max[na] if any_hit else t[na]
+        tnear, hit = _slab(rows, origin[na], inv[na], tmin_t, tfar)
+        _push((nears, codes), sp, na, hit & valid, tnear, (None, child_code),
+              s)
+        count_work(stats, na.numel(), 0, 0)
 
     while active.numel():
         a = active
-        top = sp[a] - 1
-        sp[a] = top
-        code = codes[a, top]
-        live = torch.ones_like(code, dtype=torch.bool) if any_hit \
-            else nears[a, top] <= t[a]
-
-        # ---- node pops: slab-test 8 children, push hits far-to-near
-        sel = live & (code >= 0)
-        na = a[sel]
-        if na.numel():
-            rows = nodes[code[sel].long()]
-            tfar = t_max[na] if any_hit else t[na]
-            tnear, hit = _slab(rows, origin[na], inv[na], tmin_t, tfar)
-            hit &= (rows[:, 48:56] >= 0.0) | (rows[:, 64:72] > 0.0)
-            child_code = torch.where(
-                rows[:, 48:56] >= 0.0, rows[:, 48:56].to(torch.int32),
-                -(rows[:, 56:64].to(torch.int32) * LEAF_CODE_BASE
-                  + rows[:, 64:72].to(torch.int32)) - 1)
-            keys = torch.where(hit, tnear, torch.full_like(tnear,
-                                                           float("inf")))
-            keys, perm = torch.sort(keys, dim=1, stable=True)
-            child_code = torch.gather(child_code, 1, perm)
-            nh = hit.sum(1)
-            base = sp[na]
-            pos = base[:, None] + nh[:, None] - 1 - slot[None, :]
-            pos = torch.where(slot[None, :] < nh[:, None], pos,
-                              torch.full_like(pos, s))
-            rows_i = na[:, None].expand(-1, 8)
-            codes[rows_i, pos] = child_code
-            nears[rows_i, pos] = keys
-            sp[na] = base + nh
-            count_work(stats, na.numel(), 0, 0)
-
-        # ---- leaf pops: Moller-Trumbore over the leaf's triangles
-        sel = live & (code < 0)
-        la = a[sel]
-        if la.numel():
-            dec = -(code[sel].long() + 1)
-            first = dec // LEAF_CODE_BASE
-            count = dec - first * LEAF_CODE_BASE
-            idx = torch.clamp(first[:, None] + leaf_k[None, :],
-                              max=tris.shape[0] - 1)
-            rows = tris[idx]
-            tfar = t_max[la] if any_hit else t[la]
-            hit, tk, uk, vk = _moller_trumbore(rows, origin[la],
-                                               direction[la], t_min, tfar)
-            hit &= leaf_k[None, :] < count[:, None]
-            count_work(stats, 0, la.numel(), leaf_tests(hit, count, any_hit))
+        has1, ((c0, c1), (n0, n1)) = _pop(sp, a, pops, codes, nears)
+        if any_hit:
+            live0 = torch.ones_like(has1)
+            live1 = has1
+        else:
+            ta = t[a]
+            live0 = n0 <= ta
+            live1 = has1 & (n1 <= ta)
+        # leaf phase, the top entry first; node phase, the lower entry's
+        # children pushed first
+        for live, code, want_leaf in ((live0, c0, True), (live1, c1, True),
+                                      (live1, c1, False), (live0, c0, False)):
+            sel = live & ((code < 0) if want_leaf else (code >= 0))
             if any_hit:
-                occ[la] |= hit.any(1)
-            else:
-                # sequential strict-less updates == first minimum
-                tk = torch.where(hit, tk, torch.full_like(tk, float("inf")))
-                j = torch.argmin(tk, dim=1, keepdim=True)
-                upd = hit.any(1)
-                lu = la[upd]
-                t[lu] = torch.gather(tk, 1, j)[upd, 0]
-                u[lu] = torch.gather(uk, 1, j)[upd, 0]
-                v[lu] = torch.gather(vk, 1, j)[upd, 0]
-                tri[lu] = torch.gather(rows[..., 9], 1, j)[upd, 0].to(
-                    torch.int32)
-
+                sel &= ~occ[a]
+            if bool(sel.any()):
+                (leaf if want_leaf else node)(a[sel], code[sel])
+        _note_stack(stats, sp[a])
         keep = sp[a] > 0
         if any_hit:
             keep &= ~occ[a]
@@ -293,4 +498,101 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
 
     if any_hit:
         return occ
-    return dict(t=t, tri=tri, u=u, v=v)
+    out = dict(t=t, tri=tri, u=u, v=v)
+    if uv_payload:
+        out.update(_payload(scene["uvp"], tri >= 0, row, u, v))
+    return out
+
+
+def _payload(uvp, hit, row, u, v):
+    """The K7c planes from the winners' uvp rows: uv0 * w + uv1 * u +
+    uv2 * v with w = 1 - u - v (the shade pass's association); 0, 0, 0, 1, 1
+    on a miss."""
+    p = uvp[row]
+    w = 1.0 - u - v
+    vals = (p[:, 0] * w + p[:, 2] * u + p[:, 4] * v,
+            p[:, 1] * w + p[:, 3] * u + p[:, 5] * v,
+            p[:, 6], p[:, 7], p[:, 8])
+    return {k: torch.where(hit, val, torch.full_like(val, miss))
+            for k, val, miss in zip(PAYLOAD_KEYS, vals, (0, 0, 0, 1, 1))}
+
+
+def trace_any_multi_plain(scene, origin, dirs, t_min, t_maxs, stats=None,
+                          pop2=False):
+    """Plain PyTorch version of K5 (K5p with pop2) on any device: dirs
+    (S, N, 3), t_maxs (S, N) -> (S, N) bool. Every stack entry carries the
+    bit mask of the sets that reached it (see csrc/bvh8_multi.cu); `stats`
+    as trace_closest_plain's, node_tests counting one 8-child slab group
+    per node pop and set."""
+    nodes, tris = scene["nodes8"], scene["tris"]
+    dev = origin.device
+    n_sets, n = t_maxs.shape
+    pops = 2 if pop2 else 1
+    s = stack_entries(scene["depth8"], pops)
+    inv = 1.0 / dirs
+    tmin_t = torch.tensor(float(t_min), dtype=torch.float32, device=dev)
+    bits = 1 << torch.arange(n_sets, device=dev, dtype=torch.int64)
+
+    # sets not yet occluded with t_max > t_min, as a bit mask per ray
+    live = ((t_maxs > t_min).long() * bits[:, None]).sum(0)
+    occ = torch.zeros(n, dtype=torch.int64, device=dev)
+    codes = torch.zeros((n, s + 1), dtype=torch.int32, device=dev)
+    masks = torch.zeros((n, s + 1), dtype=torch.int64, device=dev)
+    masks[:, 0] = live
+    sp = (live != 0).long()
+    active = torch.nonzero(live != 0)[:, 0]
+
+    def set_of(m, i):
+        return (m >> i) & 1 == 1
+
+    def leaf(la, code, m):
+        rows, _, count, in_range = _leaf_rows(tris, code)
+        hit_sets = torch.zeros_like(m)
+        tests = 0
+        for i in range(n_sets):
+            hit, _, _, _ = _moller_trumbore(rows, origin[la], dirs[i, la],
+                                            t_min, t_maxs[i, la])
+            hit &= in_range & set_of(m, i)[:, None]
+            tests = tests + torch.where(set_of(m, i),
+                                        _per_row_tests(hit, count),
+                                        torch.zeros_like(count)).sum()
+            hit_sets |= hit.any(1).long() << i
+        count_work(stats, 0, la.numel(), tests, 0)
+        occ[la] |= hit_sets
+        live[la] &= ~hit_sets
+
+    def node(na, code, m):
+        rows, valid, child_code = _node_children(nodes, code)
+        child_sets = torch.zeros_like(rows[:, :8], dtype=torch.int64)
+        for i in range(n_sets):
+            _, hit = _slab(rows, origin[na], inv[i, na], tmin_t,
+                           t_maxs[i, na])
+            hit &= valid & set_of(m, i)[:, None]
+            child_sets |= hit.long() << i
+        hit = child_sets != 0
+        _push((codes, masks), sp, na, hit, torch.zeros_like(rows[:, :8]),
+              (child_code, child_sets), s)
+        count_work(stats, na.numel(), 0, 0,
+                   sum(set_of(m, i).sum() for i in range(n_sets)))
+
+    while active.numel():
+        a = active
+        has1, ((c0, c1), (m0, m1)) = _pop(sp, a, pops, codes, masks)
+        m1 = torch.where(has1, m1, torch.zeros_like(m1))
+        for code, m, want_leaf in ((c0, m0, True), (c1, m1, True),
+                                   (c1, m1, False), (c0, m0, False)):
+            m = m & live[a]
+            sel = (m != 0) & ((code < 0) if want_leaf else (code >= 0))
+            if bool(sel.any()):
+                (leaf if want_leaf else node)(a[sel], code[sel], m[sel])
+        _note_stack(stats, sp[a])
+        active = a[(sp[a] > 0) & (live[a] != 0)]
+
+    return (occ[None, :] >> torch.arange(n_sets, device=dev)[:, None]) & 1 \
+        == 1
+
+
+def _per_row_tests(hit, count):
+    """Per-row any-hit Moller-Trumbore tests: up to the first hit."""
+    first = hit.to(torch.int8).argmax(dim=1) + 1
+    return torch.where(hit.any(1), first, count)

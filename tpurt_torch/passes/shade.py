@@ -1,25 +1,39 @@
-"""Primary-hit shading — port of the main-path branch of
-``tpurt/passes/shade.py:shade`` (the ``tri_attr`` + ``tex_quad48`` tables,
-``light_eval="loop"``).
+"""Primary-hit shading — port of ``tpurt/passes/shade.py:shade`` on its
+``tri_attr`` + ``tex_quad48`` tables, with its per-light and fused shadows.
 
 Per hit: one ``tri_attr`` row gives the three corners' position, uv,
 normal and tangent; barycentric interpolation; Gram-Schmidt TBN; one quad
-row gives the whole 2x2 bilinear footprint of albedo, ORM and normal map;
-then per light the GGX + Burley BRDF, one any-hit shadow trace with
-inactive lanes at ``t_max = 0``, and the radiance accumulation. Outputs the
+row gives the whole 2x2 bilinear footprint of albedo, ORM and normal map.
+When the closest-hit trace emitted the uv payload (hit keys ``texu``,
+``texv``, ``img``, ``texh``, ``texw``: ``trace_closest_bvh8(uv_payload=
+True)``), the quad index reads them instead of the ``tri_attr`` row
+(tpurt ``shade.py:703-708``); the values are bit-equal. Outputs the
 unquantized G-buffer: color, view depth, encoded view normal.
+
+The light schedule (tpurt ``shade.py:747-804``): a pre-pass builds every
+light's L vector and shadow ray (lanes that need no ray get ``t_max = 0``);
+then, per light, the GGX + Burley BRDF math, the any-hit trace and the
+radiance accumulation. With ``fuse_shadows=True``, the BVH8 tables and
+more than one light, one fused multi-set trace (K5,
+``trace_any_bvh8_multi``) covers every light instead of the per-light
+traces, bit-equal to them. tpurt's frame never sets it; a fused frame is
+``engine/frame.render_frame_fused``. tpurt's ``light_eval="hoist"`` /
+``"batch"`` schedules, which only steer XLA's scheduling and give the
+loop's bits, are not ported.
 
 ``tables`` picks the shadow tracer as tpurt's ``pallas_tables`` /
 ``max_leaf`` do (``tpurt/passes/shade.py:526-528, 867-872``): "bvh8" for
 the BVH8 rows (K2: static and refit frames), "bvh2" for a binary BVH (K6
-any-hit, leaves of up to ``max_leaf`` triangles: the rebuild frames).
+any-hit, leaves of up to ``max_leaf`` triangles: the rebuild frames, which
+never fuse). tpurt's sharded-geometry hook ``shadow_trace_multi_fn`` is not
+ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.traverse_bvh2 import trace_any_bvh2
-from ..kernels.traverse_bvh8 import trace_any_bvh8
+from ..kernels.traverse_bvh8 import trace_any_bvh8, trace_any_bvh8_multi
 from . import brdf
 from .encodings import divide
 from .light import get_light_radiance, get_unnormalized_L_vec
@@ -85,8 +99,14 @@ def surface(scene: dict, camera: dict, hits: dict) -> dict:
     uv0, uv1, uv2 = attr[:, 3:5], attr[:, 15:17], attr[:, 27:29]
     n0, n1, n2 = attr[:, 5:8], attr[:, 17:20], attr[:, 29:32]
     t0, t1, t2 = attr[:, 8:12], attr[:, 20:24], attr[:, 32:36]
-    tex_hw = attr[:, 37:39]
-    img = attr[:, 39].to(torch.int32)
+    if "texu" in hits:
+        # the closest-hit trace's uv payload: the quad gather no longer
+        # waits on the tri_attr row
+        tex_hw = torch.stack([hits["texh"], hits["texw"]], dim=-1)
+        img = hits["img"].to(torch.int32)
+    else:
+        tex_hw = attr[:, 37:39]
+        img = attr[:, 39].to(torch.int32)
 
     world_pos = p0 * w + p1 * u + p2 * v
     tex_coord = uv0 * w + uv1 * u + uv2 * v
@@ -98,8 +118,10 @@ def surface(scene: dict, camera: dict, hits: dict) -> dict:
     world_binormal = torch.linalg.cross(world_normal, world_tangent) \
         * t0[:, 3:4]
 
+    quad_uv = torch.stack([hits["texu"], hits["texv"]], dim=-1) \
+        if "texu" in hits else tex_coord
     packed = sample_bilinear_quad(scene["tex_quad"], scene["tex_quad_shape"],
-                                  tex_hw, img, tex_coord)
+                                  tex_hw, img, quad_uv)
 
     def fetch(layer):
         return packed[:, layer * 4:layer * 4 + 4]
@@ -153,13 +175,20 @@ def shadow_tracer(tables: str, max_leaf: int = 1):
     raise ValueError(f"unknown shadow tables {tables!r}")
 
 
+def _light(lights: dict, i: int) -> dict:
+    return {k: arr[i] for k, arr in lights.items()}
+
+
 def shade(scene: dict, camera: dict, lights: dict, hits: dict,
-          tables: str = "bvh8", max_leaf: int = 1):
+          tables: str = "bvh8", max_leaf: int = 1,
+          fuse_shadows: bool = False):
     """Shade one batch of primary hits; returns dict(color (N, 3),
-    depth (N,), normal_enc (N, 3))."""
+    depth (N,), normal_enc (N, 3)). fuse_shadows as in the module
+    docstring (tpurt's parameter and default)."""
     trace_any = shadow_tracer(tables, max_leaf)
     surf = surface(scene, camera, hits)
     N, V, albedo = surf["N"], surf["V"], surf["albedo"]
+    world_pos = surf["world_pos"]
     metallic = surf["metallic"]
     F0 = 0.04 * (1.0 - metallic[:, None]) + albedo * metallic[:, None]
     corrected_roughness = surf["roughness"] * surf["roughness"]
@@ -167,10 +196,20 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     nc_NdotV = _dot(N, V)
     NdotV = torch.clamp(nc_NdotV, 1e-5, 1.0)
 
+    # pre-pass: every light's L vector and shadow ray, so that all shadow
+    # rays can go out in one fused launch
+    num_lights = lights["pos"].shape[0]
+    pre = [light_ray(surf, _light(lights, i)) for i in range(num_lights)]
+
+    occ_all = None
+    if fuse_shadows and tables == "bvh8" and num_lights > 1:
+        occ_all = trace_any_bvh8_multi(scene, world_pos,
+                                       [p["L"] for p in pre], SHADOW_T_MIN,
+                                       [p["t_max"] for p in pre])
+
     rho = torch.zeros_like(albedo)
-    for i in range(lights["pos"].shape[0]):
-        light = {k: arr[i] for k, arr in lights.items()}
-        lr = light_ray(surf, light)
+    for i, lr in enumerate(pre):
+        light = _light(lights, i)
         L, nc_NdotL = lr["L"], lr["nc_NdotL"]
         H = _normalize(V + L)
 
@@ -186,16 +225,16 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
             corrected_roughness, NdotV, nc_NdotV, nc_NdotL, LdotH,
             LOCAL_SSS_RATIO)[..., None]
 
-        occluded = trace_any(scene, surf["world_pos"], L, SHADOW_T_MIN,
-                             lr["t_max"])
+        occluded = occ_all[i] if occ_all is not None else trace_any(
+            scene, world_pos, L, SHADOW_T_MIN, lr["t_max"])
         attenuation = torch.where(lr["wants_shadow"] & occluded,
                                   torch.full_like(NdotL, SHADOW_ATTENUATION),
                                   torch.ones_like(NdotL))
-        radiance = get_light_radiance(light, surf["world_pos"], L)
+        radiance = get_light_radiance(light, world_pos, L)
         rho = rho + ((rho_s + rho_d) * radiance
                      * (attenuation * NdotL * light["active"])[..., None])
 
-    return _shade_outputs(rho, surf["valid"], camera, surf["world_pos"], N)
+    return _shade_outputs(rho, surf["valid"], camera, world_pos, N)
 
 
 def _shade_outputs(rho, valid, camera, world_pos, N):

@@ -35,7 +35,7 @@ class FlatScene:
     """The scene tables (host numpy)."""
 
     bvh: dict         # binary FlatBVH arrays + nodes8 (M8, 128) f32
-    geom: dict        # BVH-leaf-order triangles: v0, e1, e2, tri_id
+    geom: dict        # BVH-leaf-order triangles: v0, e1, e2, tri_id, uvp
     tri_attr: np.ndarray    # (T, 40) f32 3x[pos, uv, normal, tangent]
     #                         + [prim, tex_h, tex_w, unique-image id]
     tex_quad48: np.ndarray  # (U, Hmax, Wmax, 64) u8 2x2-footprint rows
@@ -201,6 +201,17 @@ def flatten_scene(models: List) -> FlatScene:
     tex_stack12 = np.concatenate(
         [tex_stack[0::3], tex_stack[1::3], tex_stack[2::3]], axis=3)
     img_of_prim, uniq_prims = dedup_images(tex_stack12, tex_size)
+
+    # the closest-hit uv payload (kernels/traverse_bvh8, uv_payload=True):
+    # the three corner uvs + [unique-image slot, tex_h, tex_w] per triangle
+    # in BVH leaf order, so the winning triangle's row is the one its
+    # traversal row sits in
+    geom["uvp"] = np.concatenate(
+        [vtx_uv[tri_vertex[:, 0]], vtx_uv[tri_vertex[:, 1]],
+         vtx_uv[tri_vertex[:, 2]],
+         img_of_prim[tri_prim][:, None].astype(np.float32),
+         tex_size[tri_prim].astype(np.float32)],
+        axis=1).astype(np.float32)[order]
 
     corners = [np.concatenate([vtx_pos[tri_vertex[:, k]],
                                vtx_uv[tri_vertex[:, k]],
