@@ -6,7 +6,8 @@
 Builds the CUDA kernels from tpurt_torch/csrc into tpurt_torch/_build, prints
 the card's `name, power.limit`, and for the bench scene (43,200-tri box
 field + ground + 8 textured cubes, 3 shadow-casting lights, GTAO ULTRA 9x3
-with sharp denoise, LPM) at 800x800 and at 1920x1080 runs:
+with sharp denoise, LPM) at 800x800 and at 1920x1080 runs (phases 3 and 6
+once, at 64x64):
 
   phase 1  each kernel against its plain PyTorch version on the card, at the
            main path's shapes: primary rays (K1); the shadow rays of each
@@ -47,11 +48,38 @@ with sharp denoise, LPM) at 800x800 and at 1920x1080 runs:
            default frame's
            (bit-identical for the payload and fused frames, >= 99.9% equal
            and <= 0.1% off by > 2 for the two-pop frames).
+  phase 8  the diagnostics path. The steps probe
+           (tpurt_torch/tools/steps_probe.py) on the frame's rays with the
+           counts at 0: K7a closest 1 and K7a any 3 (one per light). For
+           each push order (sort, nearlast, none) the counted closest and
+           any kernels against their plain versions (t, tri, counts,
+           occlusion bit-exact), t and occlusion equal to K1/K2's, tri
+           differing only on equal-t ties (none for sort), the counts' sums
+           equal to the plain traversal's work; ms with and without
+           counting; the probe's steps per ray and per warp and SIMT
+           efficiency. The transcendental probe
+           (tpurt_torch/tools/trans_equiv_probe.py, one P1 launch): P1
+           within its tolerance of its plain version (cos/sin 2e-6 absolute,
+           pow 2e-6 relative), bit mismatches and ULPs of kernel, plain and
+           float64. render() and render_stream ms/frame at depth 1 and 3
+           over 10 frames each; profile_frame(r, 3) (render()'s launches
+           per frame). Last, after every other phase of both sizes (launches
+           after torch.profiler run slower): device_profile(r), kernel time
+           per pass, the device-busy share (sum of device_profile / sum of
+           profile_frame) and render() ms/frame right after it.
+
+Phases 1-7 time a kernel by CUDA events around back-to-back calls of its
+wrapper (cuda_ms); phase 8 times K7a and P1 on the card alone
+(tpurt_torch/kernels/build.device_ms: the least of 3 runs, each queued
+behind a spin kernel), as the steps probe does. The probes' full reports
+come from the probes themselves, run with --out.
 
 Every kernel's bound_ms is the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its float
 operations at 67 TFLOP/s (H100 SXM peaks); traversal work is counted by
-the plain versions on this run's rays, GTAO work from the kernels' source.
+the plain versions on this run's rays (K7a: K1's/K2's work, with 8 bytes
+of counts per shadow ray; the closest hit's counts replace u and v), GTAO
+and P1 work from the kernels' source.
 Any failed check exits non-zero before the last line. The line before the
 last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -94,6 +122,14 @@ KERNELS = (
     # the uv-payload outputs of _kernel_bvh8_single
     ("bvh8_closest_uvp", "tpurt_torch/csrc/bvh8_trace.cu",
      "tpurt/kernels/traverse_bvh8.py:118"),
+    # K7a: step counts (and push orders), run by the steps probe
+    ("bvh8_closest_steps", "tpurt_torch/csrc/bvh8_trace.cu",
+     "tpurt/kernels/traverse_bvh8.py:1226"),
+    ("bvh8_any_steps", "tpurt_torch/csrc/bvh8_trace.cu",
+     "tpurt/kernels/traverse_bvh8.py:1226"),
+    # P1, run by the transcendental probe
+    ("trans_equiv", "tpurt_torch/csrc/trans_equiv.cu",
+     "tools/trans_equiv_probe.py:104"),
 )
 # the frames whose launches each new kernel's summary entry reports
 VARIANT_OF = {"bvh8_any_multi": "fused", "bvh8_any_multi_pop2": "fused_pop2",
@@ -116,6 +152,9 @@ OPS_PAYLOAD = 12       # w = 1 - u - v and the two interpolated uvs, per hit
 # sample 45; gtao_denoise.cu per pixel and pass: 100
 GTAO_MAIN_OPS = (125, 137, 23, 45)
 GTAO_DENOISE_OPS = 100
+# trans_equiv.cu per element: per slice 5 (add, divide, multiply, cos,
+# sin), per step 8 (3 for the step's base, add, fmod, add, divide, pow)
+TRANS_EQUIV_OPS = (5, 8)
 # K3/K4 budget on the card: u8 steps and the share of pixels that may differ
 AO_MAX_STEP = 1
 AO_MAX_FRACTION = 1e-3
@@ -896,6 +935,228 @@ def phase7_frames(r, label):
     return out
 
 
+def phase8_kernels(r, label):
+    """K7a (step counts, push orders) and P1 against their plain versions
+    on the frame's real rays and tpurt's probe noise, with times and
+    bounds; each probe's path launched with the counts at 0."""
+    import torch
+
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.trans_equiv import trans_equiv, trans_equiv_plain
+    from tpurt_torch.kernels.traverse_bvh8 import (PUSH_ORDERS,
+                                                   trace_any_plain,
+                                                   trace_closest_plain)
+    from tpurt_torch.tools import steps_probe, trans_equiv_probe
+
+    scene = r.scene_device
+    primary, shadow = steps_probe.frame_rays(r)
+    o, d = primary[:2]
+    k1 = steps_probe.trace(scene, primary, False)
+    k2 = [steps_probe.trace(scene, rays, True) for rays in shadow]
+    out = {}
+
+    # the steps probe's path: one counted frame, K7a closest 1, any 3
+    build.reset_counts()
+    steps_probe.step_counts(scene, primary, shadow)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    want = dict(ALL_ZERO, bvh8_closest_steps=1, bvh8_any_steps=len(shadow))
+    require(launches == want, f"[{label}] steps probe launched {launches}")
+
+    # the probe's report: counts per ray and warp, ms of each order with
+    # and without counting (CUDA events)
+    report = steps_probe.run(r)
+    orders = {}
+    for order in PUSH_ORDERS:
+        rep = report["push_orders"][order]
+        sets = list(rep.values())
+        # closest hit: counted kernel = plain, t = K1's, tri only on ties
+        hk = steps_probe.trace(scene, primary, False, count_steps=True,
+                               push_order=order)
+        work = {}
+        plain_ms, hp = timed_once(lambda: trace_closest_plain(
+            scene, o, d, *primary[2:], stats=work, count_steps=True,
+            push_order=order))
+        mism = sum(int((hk[k].view(torch.int32) != hp[k].view(torch.int32))
+                       .sum()) for k in ("t", "tri", "u", "v"))
+        t_vs_k1 = int((hk["t"].view(torch.int32)
+                       != k1["t"].view(torch.int32)).sum())
+        differ = hk["tri"] != k1["tri"]
+        ties = int(differ.sum())
+        not_ties = int((differ & ((hk["tri"] < 0) | (k1["tri"] < 0))).sum())
+        sums_ok = int(hk["u"].sum()) == int(work["node_pops"]) \
+            and int(hk["v"].sum()) == int(work["leaf_pops"])
+        require(mism == 0 and t_vs_k1 == 0 and not_ties == 0 and sums_ok
+                and (order != "sort" or ties == 0),
+                f"[{label}] K7a closest ({order}): {mism} mismatches, t vs "
+                f"K1 {t_vs_k1}, tri {ties} ({not_ties} not ties), sums "
+                f"{sums_ok}")
+        if order == "sort":
+            b_ms, b_by = bound(*trace_work(scene, "nodes8", (
+                o, d, torch.empty(o.shape[0])), 16, work, OPS_BVH8_NODE))
+            out["bvh8_closest_steps"] = dict(
+                max_abs_err=float(mism), ms=sets[0]["ms_counting"],
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                launches=launches["bvh8_closest_steps"])
+
+        # any hit per light: counted kernel = plain, occlusion = K2's; the
+        # bound adds 8 bytes of counts per ray to K2's
+        tot = dict(plain_ms=0.0, bytes=0, ops=0)
+        for rays, occ2 in zip(shadow, k2):
+            ok, node, leaf = steps_probe.trace(scene, rays, True,
+                                               count_steps=True,
+                                               push_order=order)
+            work = {}
+            p_ms, (op, p_node, p_leaf) = timed_once(lambda: trace_any_plain(
+                scene, *rays, stats=work, count_steps=True,
+                push_order=order))
+            n_mis = int((ok != op).sum()) + int((ok != occ2).sum()) \
+                + int((node != p_node).sum()) + int((leaf != p_leaf).sum())
+            sums_ok = int(node.sum()) == int(work["node_pops"]) \
+                and int(leaf.sum()) == int(work["leaf_pops"])
+            require(n_mis == 0 and sums_ok,
+                    f"[{label}] K7a any ({order}): {n_mis} mismatches vs "
+                    f"plain and K2, sums {sums_ok}")
+            moved, ops = trace_work(scene, "nodes8", (rays[0], rays[1],
+                                                      rays[3]), 1 + 8, work,
+                                    OPS_BVH8_NODE)
+            tot["plain_ms"] += p_ms
+            tot["bytes"] += moved
+            tot["ops"] += ops
+        row = dict(closest_ms=sets[0]["ms"],
+                   closest_ms_counting=sets[0]["ms_counting"],
+                   any_ms=sum(x["ms"] for x in sets[1:]),
+                   any_ms_counting=sum(x["ms_counting"] for x in sets[1:]),
+                   closest_plain_ms=plain_ms, any_plain_ms=tot["plain_ms"],
+                   closest_ties=ties)
+        if order == "sort":
+            b_ms, b_by = bound(tot["bytes"], tot["ops"])
+            out["bvh8_any_steps"] = dict(
+                max_abs_err=0.0, ms=row["any_ms_counting"],
+                plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                launches=launches["bvh8_any_steps"])
+        log(f"[{label}] K7a {order}: bit-exact vs plain, t and occlusion "
+            f"equal to K1/K2's, tri ties vs K1 {ties}; closest "
+            f"{row['closest_ms']:.4f} ms ({row['closest_ms_counting']:.4f} "
+            f"counting), any over {len(shadow)} lights {row['any_ms']:.4f} "
+            f"ms ({row['any_ms_counting']:.4f} counting); plain (once) "
+            f"{plain_ms:.2f} / {tot['plain_ms']:.2f} ms")
+        for name, x in rep.items():
+            log(f"[{label}]   {name}: node pops {x['node_pops']}, leaf "
+                f"pops {x['leaf_pops']}, warp steps {x['warp_steps']} (sum "
+                f"{x['warp_steps_sum']}), SIMT efficiency "
+                f"{x['simt_efficiency']:.4f}, {x['ms']:.4f} ms, "
+                f"{x['ns_per_warp_step']:.3f} ns per warp step")
+        orders[order] = row
+    out["k7a_orders"] = orders
+
+    # P1: the transcendental probe's path, one launch; kernel vs plain
+    build.reset_counts()
+    probe = trans_equiv_probe.run("cuda")
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    require(launches == dict(ALL_ZERO, trans_equiv=1),
+            f"[{label}] transcendental probe launched {launches}")
+    tol = probe["tolerance"]
+    log(f"[{label}] P1: kernel vs plain {probe['kernel_vs_plain']}, kernel "
+        f"vs float64 {probe['kernel_vs_float64']}, plain vs float64 "
+        f"{probe['plain_vs_float64']}, tolerance {tol}, arguments equal to "
+        f"the host's {probe['arguments_equal_to_host']}")
+    require(all(tol[op]["outside"] == 0 for op in ("cos", "sin", "pow"))
+            and probe["arguments_equal_to_host"],
+            f"[{label}] P1 outside its tolerance")
+    planes = trans_equiv_probe.noise_planes().cuda()
+    args = (planes, trans_equiv_probe.SDP, trans_equiv_probe.SLICES,
+            trans_equiv_probe.STEPS)
+    n = planes[0].numel()
+    rows = trans_equiv_probe.SLICES * (2 + trans_equiv_probe.STEPS)
+    per_slice, per_step = TRANS_EQUIV_OPS
+    b_ms, b_by = bound(nbytes(planes) + rows * n * 4, n * trans_equiv_probe
+                       .SLICES * (per_slice + trans_equiv_probe.STEPS
+                                  * per_step))
+    out["trans_equiv"] = dict(
+        max_abs_err=max(tol[op]["max_abs_err"] for op in ("cos", "sin",
+                                                           "pow")),
+        ms=build.device_ms(lambda: trans_equiv(*args), 20),
+        plain_ms=cuda_ms(lambda: trans_equiv_plain(*args), 5),
+        bound_ms=b_ms, bound_by=b_by, launches=launches["trans_equiv"])
+    return out
+
+
+def frames_ms(r):
+    """ms/frame of FRAMES render(block=False) frames ending in one sync."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FRAMES):
+        r.render(block=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000.0 / FRAMES
+
+
+def phase8_profile(r, label):
+    """Frames in flight and profile_frame: render() and render_stream at
+    depth 1 and 3 ms/frame, then profile_frame's passes."""
+    import torch
+
+    from tpurt_torch.engine import profiler
+    from tpurt_torch.kernels import build
+
+    shadow = r.stats()["shadow_casting_lights"]
+    render_ms = frames_ms(r)
+    stream = {}
+    for depth in (1, 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for out in r.render_stream(FRAMES, depth=depth):
+            pass
+        stream[depth] = (time.perf_counter() - t0) * 1000.0 / FRAMES
+        require(bool((out["image"].amax(dim=-1) > 0).float().mean() > 0.2),
+                f"[{label}] render_stream frame is black")
+    build.reset_counts()
+    pf = profiler.profile_frame(r, 3)
+    launches = dict(build.launch_counts)
+    # one untimed frame and 3 timed ones, each render()'s kernels
+    want = dict(ALL_ZERO, bvh8_closest=4, bvh8_any=4 * shadow,
+                gtao_main=4, gtao_denoise=4)
+    require(launches == want, f"[{label}] profile_frame launched {launches}")
+    require(list(pf.ms_per_pass) == ["rays", "trace", "shade+shadows",
+                                     "gtao", "tonemap"]
+            and all(v > 0 for v in pf.ms_per_pass.values()),
+            f"[{label}] profile_frame passes {pf.ms_per_pass}")
+    log(f"[{label}] {FRAMES} frames each: render() {render_ms:.3f} "
+        f"ms/frame, render_stream depth 1 {stream[1]:.3f}, depth 3 "
+        f"{stream[3]:.3f}")
+    log(f"[{label}] profile_frame (3 frames): {pf.pretty()}")
+    return dict(profile_frame=pf.ms_per_pass, rays_traced=pf.rays_traced,
+                render_ms_per_frame=render_ms,
+                stream_ms_per_frame={str(k): v for k, v in stream.items()})
+
+
+def phase8_device(r, label, prof):
+    """device_profile (torch.profiler), run after every other phase: its
+    kernel time per pass, the device-busy share against profile_frame, and
+    render() ms/frame right after it."""
+    from tpurt_torch.engine import profiler
+
+    c = r.config
+    dp = profiler.device_profile(r)
+    require(list(dp.ms_per_pass) == ["trace", "shade", "gtao", "tonemap"]
+            and all(v > 0 for v in dp.ms_per_pass.values()),
+            f"[{label}] device_profile passes {dp.ms_per_pass}")
+    require(prof["rays_traced"] == dp.rays_traced == c.width * c.height
+            * (1 + r.lights.get_lights_count()),
+            f"[{label}] profiler ray counts")
+    busy = dp.ms_total / sum(prof["profile_frame"].values())
+    after_ms = frames_ms(r)
+    log(f"[{label}] device_profile (8 frames, min of 3): {dp.pretty()}; "
+        f"device-busy share {busy:.4f}; render() right after it "
+        f"{after_ms:.3f} ms/frame")
+    prof.update(device_profile=dp.ms_per_pass, device_busy_share=busy,
+                render_ms_after_profiler=after_ms)
+
+
 def card_line():
     """The card's `name, power.limit` as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -929,7 +1190,7 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
 
-    results = {}
+    results, renderers = {}, {}
     try:
         for w, h in SHAPES:
             label = f"{w}x{h}"
@@ -943,12 +1204,16 @@ def main():
             dyn = phase5(r, label)
             k.update(phase7_kernels(r, label))
             var = phase7_frames(r, label)
+            k.update(phase8_kernels(r, label))
+            prof = phase8_profile(r, label)
             results[label] = dict(kernels=k, frame=f, dynamic=dyn,
-                                  variants=var)
-            del r
-            torch.cuda.empty_cache()
+                                  variants=var, profile=prof)
+            renderers[label] = r
         phase3()
         phase6()
+        # torch.profiler last: launches after it run slower (PERF.md)
+        for label, r in renderers.items():
+            phase8_device(r, label, results[label]["profile"])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -960,16 +1225,18 @@ def main():
         k, k_hd = head["kernels"][name], hd["kernels"][name]
         # launches on the main path that runs the kernel: the static frames
         # for K1-K4, the dynamic rebuild frames for K6, the variant frames
-        # for K5, K5p, K7b and K7c
-        if name in VARIANT_OF:
-            runs = head["variants"][VARIANT_OF[name]]
+        # for K5, K5p, K7b and K7c, the probes' runs for K7a and P1
+        if "launches" in k:
+            launches = k["launches"]
+        elif name in VARIANT_OF:
+            launches = head["variants"][VARIANT_OF[name]]["launches"][name]
         elif name.startswith("bvh2"):
-            runs = head["dynamic"]["rebuild"]
+            launches = head["dynamic"]["rebuild"]["launches"][name]
         else:
-            runs = head["frame"]
+            launches = head["frame"]["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=runs["launches"][name],
+            launches=launches,
             max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=None, ms_1080p=k_hd["ms"],
@@ -982,7 +1249,10 @@ def main():
                         dynamic={k: v["dynamic"]
                                  for k, v in results.items()},
                         lbvh={k: v["kernels"]["lbvh"]
-                              for k, v in results.items()})))
+                              for k, v in results.items()},
+                        profile={k: v["profile"] for k, v in results.items()},
+                        k7a_orders={k: v["kernels"]["k7a_orders"]
+                                    for k, v in results.items()})))
     log(card_line())
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps(dict(ok=True, device=dict(

@@ -8,9 +8,10 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 (``--noconftest`` because the repository's conftest.py sets up JAX, which
 the machine with the card need not have.)
 
-Budgets (as chip_smoke.py holds them): K1, K2, K5, K5p, K7b, K7c and K6
-bit-identical with their plain versions (K5/K5p also with K2 per set, K7b's
-t with K1's); the
+Budgets (as chip_smoke.py holds them): K1, K2, K5, K5p, K7a, K7b, K7c and
+K6 bit-identical with their plain versions (K5/K5p also with K2 per set,
+K7a's and K7b's t with K1's, K7a's occlusion with K2's); P1 within
+ATOL_TRIG / RTOL_POW of its plain version (kernels/trans_equiv.py); the
 LBVH and the BVH8 refit built on the card equal to the same built on the
 host; K3 edges
 equal and AO within 1 u8 step on <= 0.1% of pixels; K4 within 1 step on
@@ -353,3 +354,132 @@ def test_variant_frames_on_card(cuda_frame):
         else:
             assert float((diff == 0).float().mean()) >= 0.999, name
             assert float((diff > 2).float().mean()) <= 1e-3, name
+
+
+@pytest.mark.parametrize("order", ["sort", "nearlast", "none"])
+def test_step_count_kernels_bit_identical(cuda_frame, order):
+    """K7a closest and any hit with step counts against the plain versions
+    on the frame's rays (t, tri, counts, occlusion bit for bit), for each
+    push order; t and occlusion equal to K1/K2's, tri differing only on
+    equal-t ties; the counts' sums equal to the plain traversal's work."""
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
+                                                   trace_any_plain,
+                                                   trace_closest_bvh8,
+                                                   trace_closest_plain)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
+
+    r = cuda_frame
+    cam, lights, _ = _inputs(r)
+    sc = r.scene_device
+    o, d = camera_rays(cam, r.config.width, r.config.height)
+    k1 = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX)
+    rays = shadow_rays(sc, cam, lights, k1)
+    build.reset_counts()
+    hk = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, count_steps=True,
+                            push_order=order)
+    plain = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, push_order=order)
+    work = {}
+    hp = trace_closest_plain(sc, o, d, T_MIN, T_MAX, stats=work,
+                             count_steps=True, push_order=order)
+    for k in ("t", "tri", "u", "v"):
+        assert torch.equal(_bits(hk[k]), _bits(hp[k])), k
+    assert torch.equal(_bits(hk["t"]), _bits(k1["t"]))
+    assert torch.equal(_bits(plain["t"]), _bits(k1["t"]))
+    assert torch.equal(plain["tri"], hk["tri"])
+    assert float((hk["tri"] == k1["tri"]).float().mean()) >= 0.999
+    assert int(hk["u"].sum()) == int(work["node_pops"])
+    assert int(hk["v"].sum()) == int(work["leaf_pops"])
+    for so, sd, stmax in rays:
+        occ, node, leaf = trace_any_bvh8(sc, so, sd, SHADOW_T_MIN, stmax,
+                                         count_steps=True, push_order=order)
+        work = {}
+        p_occ, p_node, p_leaf = trace_any_plain(
+            sc, so, sd, SHADOW_T_MIN, stmax, stats=work, count_steps=True,
+            push_order=order)
+        assert torch.equal(occ, p_occ) and torch.equal(node, p_node) \
+            and torch.equal(leaf, p_leaf)
+        assert torch.equal(occ, trace_any_bvh8(sc, so, sd, SHADOW_T_MIN,
+                                               stmax))
+        assert int(node.sum()) == int(work["node_pops"])
+        assert int(leaf.sum()) == int(work["leaf_pops"])
+        assert not bool(node[stmax <= SHADOW_T_MIN].any())
+    # the uncounted K7a closest launch runs only for a push order of its own
+    want = _counts(bvh8_closest_steps=1 if order == "sort" else 2,
+                   bvh8_closest=1 if order == "sort" else 0,
+                   bvh8_any_steps=3, bvh8_any=3)
+    assert build.launch_counts == want
+
+
+def test_k7a_entries_refuse_other_traces():
+    """The K7a C entries take a counted trace or a push order of its own:
+    an uncounted "sort" trace (K1/K2's) and an unknown order come back as
+    cudaErrorInvalidValue (1) before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import ctypes
+
+    from tpurt_torch.kernels import build
+
+    vp = ctypes.c_void_p
+    for name, outs in (("tpurt_bvh8_closest_k7a", 5),
+                       ("tpurt_bvh8_any_k7a", 4)):
+        fn = build.function(name, [vp] * 4 + [ctypes.c_float, vp]
+                            + [ctypes.c_int] * 3 + [vp] * outs)
+
+        def call(count_steps, order):
+            # n = 0 rays: no pointer is read
+            return fn(None, None, None, None, 0.0, None, 0, count_steps,
+                      order, *[None] * outs)
+
+        assert [call(0, 0), call(1, 3), call(0, -1)] == [1, 1, 1], name
+        assert [call(1, 0), call(0, 1), call(1, 2)] == [0, 0, 0], name
+
+
+def test_trans_equiv_kernel_within_tolerance():
+    """P1 on the card against its plain version (torch on the card): cos
+    and sin within ATOL_TRIG, pow within RTOL_POW; the arguments of both
+    equal to the host's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpurt_torch.kernels import build
+    from tpurt_torch.tools import trans_equiv_probe
+
+    build.reset_counts()
+    report = trans_equiv_probe.run("cuda")
+    assert build.launch_counts == _counts(trans_equiv=1)
+    assert report["arguments_equal_to_host"]
+    for op in ("cos", "sin", "pow"):
+        assert report["tolerance"][op]["outside"] == 0, report
+        assert report["kernel_vs_float64"][op]["max_ulp"] <= 4, report
+
+
+def test_profiler_and_stream_on_card(cuda_frame):
+    """profile_frame and device_profile on the card: render()'s launches,
+    tpurt's pass names, positive device times; render_stream at depth 1
+    and 3 equal to successive render() frames."""
+    from tpurt_torch.engine import profiler
+
+    from tpurt_torch.kernels import build
+
+    r = cuda_frame
+    build.reset_counts()
+    stats = profiler.profile_frame(r, 2)
+    # one untimed and two timed frames of render()'s launches
+    assert build.launch_counts == _counts(bvh8_closest=3, bvh8_any=9,
+                                          gtao_main=3, gtao_denoise=3)
+    assert list(stats.ms_per_pass) == ["rays", "trace", "shade+shadows",
+                                       "gtao", "tonemap"]
+    assert all(v > 0 for v in stats.ms_per_pass.values())
+    dev = profiler.device_profile(r, reps=2, k=2)
+    assert list(dev.ms_per_pass) == ["trace", "shade", "gtao", "tonemap"]
+    assert all(v > 0 for v in dev.ms_per_pass.values())
+    assert dev.ms_total <= stats.ms_total * 1.5
+    for depth in (1, 3):
+        r._frame_idx = 0
+        seq = [r.render()["image"] for _ in range(4)]
+        r._frame_idx = 0
+        got = [out["image"] for out in r.render_stream(4, depth=depth)]
+        assert len(got) == 4
+        assert all(torch.equal(a, b) for a, b in zip(seq, got))

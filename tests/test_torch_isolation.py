@@ -2,8 +2,10 @@
 fail by a meta-path hook, every module of tpurt_torch and chip_smoke.py
 import, and 32x32 CPU frames render through Renderer.render() and
 Renderer.render_dynamic() (refit and rebuild), as do a fused-shadow frame
-with two pops and a uv-payload frame. Each check runs in a fresh
-subprocess: the test session itself has both packages loaded.
+with two pops and a uv-payload frame, and the diagnostics (the profiler,
+render_stream, FrameTimer, the steps and transcendental probes, a counted
+trace). Each check runs in a fresh subprocess: the test session itself has
+both packages loaded.
 """
 import os
 import subprocess
@@ -77,6 +79,29 @@ CHECKS = {
         assert "uvp" in r.scene_device
         assert torch.equal(uvp, base) and int(fused.max()) > 0
         assert (fused.int() - base.int()).abs().max() <= 2
+    """,
+    "diagnostics": """
+        import torch
+        from tpurt_torch.app.bench_scene import build_bench_scene
+        from tpurt_torch.engine import FrameTimer, Renderer, RendererConfig
+        from tpurt_torch.engine import profiler
+        from tpurt_torch.kernels.traverse_bvh8 import trace_any_bvh8
+        from tpurt_torch.tools import steps_probe, trans_equiv_probe
+        r = build_bench_scene(Renderer(RendererConfig(
+            width=32, height=32, device="cpu")),
+            field=dict(nx=2, nz=2, subdiv=1), cubes=2)
+        assert profiler.profile_frame(r, 1).rays_traced == 32 * 32 * 4
+        assert len(profiler.device_profile(r, reps=1, k=1).ms_per_pass) == 4
+        assert len(list(r.render_stream(2, depth=2))) == 2
+        FrameTimer(print_fn=lambda s: None).frame_end()
+        rep = steps_probe.run(r)
+        assert rep["push_orders"]["none"]["primary"]["warp_steps_sum"] > 0
+        primary, shadow = steps_probe.frame_rays(r)
+        occ, node, leaf = trace_any_bvh8(r.scene_device, *shadow[0],
+                                         count_steps=True,
+                                         push_order="nearlast")
+        assert node.shape == occ.shape and int(node.sum()) > 0
+        assert trans_equiv_probe.run("cpu")["arguments_equal_to_host"]
     """,
 }
 

@@ -1,9 +1,12 @@
 // BVH8 closest-hit and any-hit traversal, one thread per ray.
 //
-// Replaces tpurt/kernels/traverse_bvh8.py in three forms, each a template
+// Replaces tpurt/kernels/traverse_bvh8.py in four forms, each a template
 // variant of one kernel:
 //   K1/K2  _kernel_bvh8_single, any_hit=False (trace_closest_bvh8) and
 //          any_hit=True (trace_any_bvh8);
+//   K7a    _kernel_bvh8 (and _kernel_bvh8_single) with count_steps and
+//          push_order: COUNT_STEPS counts the node and leaf entries a ray
+//          visits, ORDER picks the push order of a node's hit children;
 //   K7b    _kernel_bvh8_pop2 (pop2=True), closest and any: two stack
 //          entries per iteration;
 //   K7c    the uv-payload outputs of _kernel_bvh8_single (uv_payload=True):
@@ -38,6 +41,23 @@
 // whose entry distance exceeds the current hit when popped is dropped.
 // Any-hit stops at the first hit; a ray with t_max <= t_min retires at once.
 //
+// Step counts (K7a): tpurt counts per 32x32 (x fat) packet, replicated over
+// the packet's lanes, because its packet shares one stack. Here a thread
+// owns its ray, so the counts are per ray: the node entries whose row the
+// thread reads and the leaf entries whose triangles it tests. A popped
+// entry dropped by the entry-distance test reads nothing and counts
+// nothing. The warp (32 consecutive pixels of a row) plays the packet's
+// part: it runs as long as its busiest lane, which is what the steps probe
+// (tools/steps_probe.py) reads from these counts. They leave as f32 in u/v
+// (closest hit, tpurt's contract) or in two extra planes (any hit);
+// counting composes with one pop only.
+//
+// Push orders (K7a): ORDER_SORT is the order above; ORDER_NEARLAST pushes
+// the hit children in slot order but holds the nearest one (the first slot
+// of least entry distance) back and pushes it last, so it pops first;
+// ORDER_NONE pushes in slot order, slot 7 on top. The closest hit's t and
+// the occlusion do not depend on the order; tri may change on equal-t ties.
+//
 // The payload (K7c) is read once, at the end, from the winner's row of the
 // (T, 9) uvp table (three corner uvs, image slot, tex_h, tex_w, in BVH
 // leaf order): uv0 * w + uv1 * u + uv2 * v with w = 1 - u - v, the
@@ -49,8 +69,12 @@ namespace {
 
 using namespace bvh8;
 
+enum { ORDER_SORT = 0, ORDER_NEARLAST = 1, ORDER_NONE = 2 };
+
 // slab-test the 8 children of node `code`; the hit ones in (entry
-// distance, slot) order (stable insertion), returns how many
+// distance, slot) order (stable insertion), or in slot order when not
+// SORTED; returns how many
+template <bool SORTED>
 __device__ __forceinline__ int node_children(const float* __restrict__ nodes,
                                              int code, const Ray& r,
                                              float t_min, float tfar,
@@ -64,7 +88,7 @@ __device__ __forceinline__ int node_children(const float* __restrict__ nodes,
     if (slab(lanes, k, r, t_min, tfar, &tnear) && child_valid(lanes, k)) {
       const int c = child_code(lanes, k);
       int j = nh;
-      while (j > 0 && keys[j - 1] > tnear) {
+      while (SORTED && j > 0 && keys[j - 1] > tnear) {
         keys[j] = keys[j - 1];
         codes[j] = codes[j - 1];
         --j;
@@ -77,14 +101,38 @@ __device__ __forceinline__ int node_children(const float* __restrict__ nodes,
   return nh;
 }
 
-// far-to-near pushes: the nearest child ends on top
+// push the hit children in ORDER: SORT far-to-near (keys sorted, the
+// nearest child ends on top); NONE in slot order (the last slot on top);
+// NEARLAST in slot order with the first nearest child held back and pushed
+// last
+template <int ORDER>
 __device__ __forceinline__ int push_children(int* code_stack,
                                              float* near_stack, int sp,
                                              const float keys[8],
                                              const int codes[8], int nh) {
-  for (int j = nh - 1; j >= 0; --j) {
+  if (ORDER == ORDER_SORT) {
+    for (int j = nh - 1; j >= 0; --j) {
+      code_stack[sp] = codes[j];
+      near_stack[sp] = keys[j];
+      ++sp;
+    }
+    return sp;
+  }
+  int best = nh;
+  if (ORDER == ORDER_NEARLAST && nh > 0) {
+    best = 0;
+    for (int j = 1; j < nh; ++j)
+      if (keys[j] < keys[best]) best = j;
+  }
+  for (int j = 0; j < nh; ++j) {
+    if (j == best) continue;
     code_stack[sp] = codes[j];
     near_stack[sp] = keys[j];
+    ++sp;
+  }
+  if (best < nh) {
+    code_stack[sp] = codes[best];
+    near_stack[sp] = keys[best];
     ++sp;
   }
   return sp;
@@ -124,7 +172,7 @@ __device__ __forceinline__ bool leaf_any(const float* __restrict__ tris,
   return false;
 }
 
-template <bool ANY_HIT, bool POP2, bool UVP>
+template <bool ANY_HIT, bool POP2, bool UVP, bool COUNT_STEPS, int ORDER>
 __global__ void __launch_bounds__(128)
 bvh8_trace_kernel(const float* __restrict__ nodes,
                   const float* __restrict__ tris,
@@ -144,6 +192,7 @@ bvh8_trace_kernel(const float* __restrict__ nodes,
   float t = t_max0, u = 0.0f, v = 0.0f;
   int tri = -1, row = -1;
   bool occ = false;
+  int node_pops = 0, leaf_pops = 0;
 
   int code_stack[STACK_SIZE];
   float near_stack[STACK_SIZE];
@@ -172,6 +221,10 @@ bvh8_trace_kernel(const float* __restrict__ nodes,
     // since makes the parent's slab test fail for it now
     const bool live0 = ANY_HIT || n0 <= t;
     const bool live1 = has1 && (ANY_HIT || n1 <= t);
+    if (COUNT_STEPS && live0) {
+      if (c0 < 0) ++leaf_pops;
+      else ++node_pops;
+    }
 
     // leaf phase, the nearer entry first so its hit culls the other's tests
     if (live0 && c0 < 0) {
@@ -201,16 +254,26 @@ bvh8_trace_kernel(const float* __restrict__ nodes,
     float keys1[8], keys0[8];
     int codes1[8], codes0[8];
     int nh1 = 0, nh0 = 0;
+    constexpr bool SORTED = ORDER == ORDER_SORT;
     if (POP2 && live1 && c1 >= 0)
-      nh1 = node_children(nodes, c1, r, t_min, tfar, keys1, codes1);
+      nh1 = node_children<SORTED>(nodes, c1, r, t_min, tfar, keys1, codes1);
     if (live0 && c0 >= 0)
-      nh0 = node_children(nodes, c0, r, t_min, tfar, keys0, codes0);
-    if (POP2) sp = push_children(code_stack, near_stack, sp, keys1, codes1,
-                                 nh1);
-    sp = push_children(code_stack, near_stack, sp, keys0, codes0, nh0);
+      nh0 = node_children<SORTED>(nodes, c0, r, t_min, tfar, keys0, codes0);
+    if (POP2)
+      sp = push_children<ORDER>(code_stack, near_stack, sp, keys1, codes1,
+                                nh1);
+    sp = push_children<ORDER>(code_stack, near_stack, sp, keys0, codes0, nh0);
+  }
+  if (COUNT_STEPS) {
+    u = (float)node_pops;
+    v = (float)leaf_pops;
   }
   if (ANY_HIT) {
     occ_out[ray] = occ ? 1 : 0;
+    if (COUNT_STEPS) {
+      u_out[ray] = u;
+      v_out[ray] = v;
+    }
     return;
   }
   t_out[ray] = t;
@@ -236,15 +299,46 @@ bvh8_trace_kernel(const float* __restrict__ nodes,
   }
 }
 
-template <bool ANY_HIT, bool POP2, bool UVP>
+template <bool ANY_HIT, bool POP2, bool UVP, bool COUNT_STEPS = false,
+          int ORDER = ORDER_SORT>
 void launch(const float* nodes, const float* tris, const float* uvp,
             const float* origin, const float* direction, float t_min,
             const float* t_max, int n, float* t_out, int* tri_out,
             float* u_out, float* v_out, float* pay_out, uint8_t* occ_out,
             cudaStream_t stream) {
-  bvh8_trace_kernel<ANY_HIT, POP2, UVP><<<(n + 127) / 128, 128, 0, stream>>>(
-      nodes, tris, uvp, origin, direction, t_min, t_max, n, t_out, tri_out,
-      u_out, v_out, pay_out, occ_out);
+  bvh8_trace_kernel<ANY_HIT, POP2, UVP, COUNT_STEPS, ORDER>
+      <<<(n + 127) / 128, 128, 0, stream>>>(nodes, tris, uvp, origin,
+                                            direction, t_min, t_max, n,
+                                            t_out, tri_out, u_out, v_out,
+                                            pay_out, occ_out);
+}
+
+// K7a: one-pop traversal with step counts and/or another push order; an
+// uncounted "sort" trace is K1/K2 and is not instantiated here
+template <bool ANY_HIT, bool COUNT_STEPS>
+void launch_k7a(int order, const float* nodes, const float* tris,
+                const float* origin, const float* direction, float t_min,
+                const float* t_max, int n, float* t_out, int* tri_out,
+                float* u_out, float* v_out, uint8_t* occ_out,
+                cudaStream_t stream) {
+  if (order == ORDER_NEARLAST)
+    launch<ANY_HIT, false, false, COUNT_STEPS, ORDER_NEARLAST>(
+        nodes, tris, nullptr, origin, direction, t_min, t_max, n, t_out,
+        tri_out, u_out, v_out, nullptr, occ_out, stream);
+  else if (order == ORDER_NONE)
+    launch<ANY_HIT, false, false, COUNT_STEPS, ORDER_NONE>(
+        nodes, tris, nullptr, origin, direction, t_min, t_max, n, t_out,
+        tri_out, u_out, v_out, nullptr, occ_out, stream);
+  else if constexpr (COUNT_STEPS)
+    launch<ANY_HIT, false, false, true, ORDER_SORT>(
+        nodes, tris, nullptr, origin, direction, t_min, t_max, n, t_out,
+        tri_out, u_out, v_out, nullptr, occ_out, stream);
+}
+
+// the orders K7a takes: any with counting, "nearlast" / "none" without
+bool k7a_valid(int count_steps, int order) {
+  return order >= ORDER_SORT && order <= ORDER_NONE &&
+         (count_steps || order != ORDER_SORT);
 }
 
 }  // namespace
@@ -293,6 +387,49 @@ int tpurt_bvh8_any(const float* nodes, const float* tris, const float* origin,
       launch<true, false, false>(nodes, tris, nullptr, origin, direction,
                                  t_min, t_max, n, nullptr, nullptr, nullptr,
                                  nullptr, nullptr, occ_out, stream);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K7a, one pop: order 0 sort, 1 nearlast, 2 none; with count_steps the
+// node and leaf pops land in u_out / v_out (f32), for any hit beside occ.
+// An uncounted "sort" trace is refused: it is tpurt_bvh8_closest / _any.
+int tpurt_bvh8_closest_k7a(const float* nodes, const float* tris,
+                           const float* origin, const float* direction,
+                           float t_min, const float* t_max, int n,
+                           int count_steps, int order, float* t_out,
+                           int* tri_out, float* u_out, float* v_out,
+                           cudaStream_t stream) {
+  if (!k7a_valid(count_steps, order)) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    if (count_steps)
+      launch_k7a<false, true>(order, nodes, tris, origin, direction, t_min,
+                              t_max, n, t_out, tri_out, u_out, v_out,
+                              nullptr, stream);
+    else
+      launch_k7a<false, false>(order, nodes, tris, origin, direction, t_min,
+                               t_max, n, t_out, tri_out, u_out, v_out,
+                               nullptr, stream);
+  }
+  return (int)cudaGetLastError();
+}
+
+int tpurt_bvh8_any_k7a(const float* nodes, const float* tris,
+                       const float* origin, const float* direction,
+                       float t_min, const float* t_max, int n,
+                       int count_steps, int order, uint8_t* occ_out,
+                       float* node_out, float* leaf_out,
+                       cudaStream_t stream) {
+  if (!k7a_valid(count_steps, order)) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    if (count_steps)
+      launch_k7a<true, true>(order, nodes, tris, origin, direction, t_min,
+                             t_max, n, nullptr, nullptr, node_out, leaf_out,
+                             occ_out, stream);
+    else
+      launch_k7a<true, false>(order, nodes, tris, origin, direction, t_min,
+                              t_max, n, nullptr, nullptr, nullptr, nullptr,
+                              occ_out, stream);
   }
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """The public renderer API — port of ``tpurt/engine/renderer.py`` for the
-static-scene frame (``render``) and the dynamic-scene frame
-(``render_dynamic``) on one device.
+static-scene frame (``render``, ``render_stream`` with frames in flight)
+and the dynamic-scene frame (``render_dynamic``) on one device.
 
 State kept between frames: the model residency (tpurt's ``Model`` state
 machine), the flattened scene uploaded once per resident-set change (with
@@ -32,7 +32,7 @@ from ..scene.scene import FlatScene, flatten_scene
 from . import convert
 from .dynamic import (REBUILD_SAH_RATIO, make_refit_data,
                       render_frame_dynamic, render_frame_dynamic_refit)
-from .frame import render_frame
+from .frame import no_step, render_frame
 
 
 @dataclass
@@ -139,18 +139,28 @@ class Renderer:
             self.camera.fovy, self.camera.aspect), convert.gtao_tensors)
         return cam, lights, gtao
 
-    def render(self, block: bool = True) -> dict:
-        """Render one frame; returns the output dict of device tensors."""
+    @property
+    def noise_index(self) -> int:
+        """The GTAO noise index of the next render() frame."""
+        return self._frame_idx % 64
+
+    def render_passes(self, noise_index: int, step=no_step) -> dict:
+        """render()'s frame at GTAO noise index `noise_index`, without
+        counting it as rendered; step(name) wraps each pass
+        (engine/frame.py). engine/profiler.py times its frames here."""
         c = self.config
         self._update_models()
         if self._scene is None:
             raise RuntimeError("call prepare_first_frame() first")
         cam, lights, gtao = self._frame_inputs()
-        out = render_frame(self._scene_device, cam, lights, gtao, self._lpm,
-                           self._frame_idx % 64, width=c.width,
-                           height=c.height, gtao_settings=c.gtao,
-                           enable_gtao=c.enable_gtao,
-                           enable_tonemap=c.enable_tonemap)
+        return render_frame(self._scene_device, cam, lights, gtao, self._lpm,
+                            noise_index, width=c.width, height=c.height,
+                            gtao_settings=c.gtao, enable_gtao=c.enable_gtao,
+                            enable_tonemap=c.enable_tonemap, step=step)
+
+    def render(self, block: bool = True) -> dict:
+        """Render one frame; returns the output dict of device tensors."""
+        out = self.render_passes(self.noise_index)
         self._frame_idx += 1
         self.rendered_frames += 1
         if block and self.device.type == "cuda":
@@ -210,6 +220,36 @@ class Renderer:
     def render_image(self) -> np.ndarray:
         """Render and read back the 8-bit sRGB frame."""
         return self.render()["image"].cpu().numpy()
+
+    def render_stream(self, n_frames: int, depth: int = 3):
+        """Yield the outputs of `n_frames` render() frames with up to
+        `depth` in flight — the reference's 3-deep FrameData pipeline
+        (renderer.rs:300-318, 400-466), tpurt's bounded dispatch queue:
+        frame i + depth - 1 is enqueued before frame i is yielded, so the
+        host's launches overlap the card's work. Each frame records one
+        CUDA event after its last pass and is yielded once that event has
+        completed (no device-wide sync)."""
+        from collections import deque
+
+        q: deque = deque()
+
+        def ready():
+            out, done = q.popleft()
+            if done is not None:
+                done.synchronize()
+            return out
+
+        for _ in range(n_frames):
+            out = self.render(block=False)
+            done = None
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            q.append((out, done))
+            if len(q) >= max(depth, 1):
+                yield ready()
+        while q:
+            yield ready()
 
     def stats(self) -> dict:
         c = self.config

@@ -15,7 +15,8 @@ hash of the sources, and is built at first use. Pointers and the stream are
 passed as ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
 :func:`check` raises when it is not 0.
 
-Each kernel wrapper counts its launches in :data:`launch_counts`.
+Each kernel wrapper counts its launches in :data:`launch_counts`;
+:func:`device_ms` times a wrapper's launches on the card.
 """
 from __future__ import annotations
 
@@ -34,12 +35,15 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# one plain integer per kernel entry point, bumped only where it launches
+# one plain integer per kernel entry point, bumped only where it launches;
+# bvh8_closest_steps / bvh8_any_steps count every K7a launch, counted or
+# with another push order
 launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_main": 0,
                  "gtao_denoise": 0, "bvh2_closest": 0, "bvh2_any": 0,
                  "bvh8_any_multi": 0, "bvh8_any_multi_pop2": 0,
                  "bvh8_closest_pop2": 0, "bvh8_any_pop2": 0,
-                 "bvh8_closest_uvp": 0}
+                 "bvh8_closest_uvp": 0, "bvh8_closest_steps": 0,
+                 "bvh8_any_steps": 0, "trans_equiv": 0}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -166,3 +170,34 @@ def require_cuda(name: str, tensors: dict, device):
                              f"{device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+
+
+# cycles of the spin kernel queued ahead of a timed run (about 2.5 ms at
+# the H100's 1.98 GHz): longer than the host takes to enqueue the run
+QUEUE_AHEAD_CYCLES = 5_000_000
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Device ms of fn(), a kernel wrapper's call: CUDA events around
+    `reps` calls, the mean per call, the least of 3 runs (a delay only ever
+    adds time), after 3 warm-up calls. A spin kernel (torch.cuda._sleep)
+    queued first keeps the card busy while the host enqueues each run, so
+    a launch shorter than its wrapper's host path is timed on the card,
+    not at the host's pace."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best

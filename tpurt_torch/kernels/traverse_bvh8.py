@@ -1,6 +1,6 @@
 """BVH8 traversal: closest hit (K1), any hit (K2), their two-pop variants
-(K7b), the closest hit with the uv payload (K7c) and the fused multi-set
-any hit (K5, two-pop K5p).
+(K7b), the closest hit with the uv payload (K7c), step counts and push
+orders (K7a) and the fused multi-set any hit (K5, two-pop K5p).
 
 ``trace_closest_bvh8``, ``trace_any_bvh8`` and ``trace_any_bvh8_multi``
 replace tpurt's entry points of the same names
@@ -33,10 +33,29 @@ them, so each set's occlusion equals K2's bit for bit; pushes are unsorted,
 slot 0 on top. At most ``MULTI_SETS_MAX`` sets go into one launch; the
 wrapper splits larger S.
 
+Step counts and push orders (K7a, one pop): ``count_steps=True`` returns
+each ray's node pops and leaf pops, the popped entries whose node row is
+read or whose triangles are tested (an entry dropped by the entry-distance
+test counts nothing); tpurt counts per 32x32 packet, the port per ray
+(``csrc/bvh8_trace.cu``). ``push_order`` is ``"sort"`` (the order above),
+``"nearlast"`` (slot order, the first nearest hit child pushed last, so it
+pops first) or ``"none"`` (slot order, slot 7 on top). The closest hit's
+``t`` and the occlusion do not depend on the order; ``tri`` may change on
+equal-t ties. ``push_order=None`` is ``"sort"`` for both traces (tpurt's
+any hit defaults to ``"none"``: ROADMAP §3). Where the counts equal
+tpurt's: a packet whose lanes all hold one ray counts that ray's pops, and
+tpurt pops every pushed entry, reading the ones the port drops; its
+"sort" and "nearlast" keys are the child boxes' centroids along the
+packet's mean direction, not the entry distance (ROADMAP §3). So under
+"none" tpurt's counts are the port's plus the dropped pops, and a closest
+hit that misses, or an any hit that is not occluded, has tpurt's counts
+under every order (tests/test_torch_steps.py).
+
 ``pop2=None`` and ``uv_payload=None`` resolve at call time to the module
 constants ``POP2_DEFAULT`` and ``UVP_DEFAULT`` under tpurt's conditions
 (``tpurt/kernels/traverse_bvh8.py:1209-1214, 1696-1711, 1757-1760``), so
-flipping a constant here reaches ``Renderer.render()``.
+flipping a constant here reaches ``Renderer.render()``; neither resolves
+on for a counted trace or a push order other than ``"sort"``.
 """
 from __future__ import annotations
 
@@ -59,6 +78,8 @@ LEAF_CODE_BASE = 128
 # csrc/bvh8_common.cuh); the wrappers refuse trees that could need more
 STACK_SIZE = 192
 PAYLOAD_KEYS = ("texu", "texv", "img", "texh", "texw")
+# K7a's push orders, by their code in csrc/bvh8_trace.cu
+PUSH_ORDERS = ("sort", "nearlast", "none")
 
 
 def stack_entries(depth8: int, pops: int = 1) -> int:
@@ -131,21 +152,48 @@ def _resolve_pop2(pop2):
     return POP2_DEFAULT if pop2 is None else bool(pop2)
 
 
+def _resolve_k7a(name, pop2, count_steps, push_order):
+    """(pop2, push order) of a trace call, with tpurt's refusals: counting
+    and push orders other than "sort" are one-pop only."""
+    order = "sort" if push_order is None else push_order
+    if order not in PUSH_ORDERS:
+        raise ValueError(f"{name}: unknown push_order {push_order!r}, not "
+                         f"one of {PUSH_ORDERS}")
+    k7a = count_steps or order != "sort"
+    pop2 = (POP2_DEFAULT and not k7a) if pop2 is None else bool(pop2)
+    if pop2 and count_steps:
+        raise ValueError(f"{name}: count_steps composes only with the "
+                         f"one-pop trace (pop2=False)")
+    if pop2 and order != "sort":
+        raise ValueError(f"{name}: the two-pop trace has a fixed push "
+                         f"order; push_order={order!r} needs pop2=False")
+    return pop2, order
+
+
 def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
-                       pop2=None, uv_payload=None):
+                       pop2=None, uv_payload=None, count_steps=False,
+                       push_order=None):
     """Closest hit for (N, 3) rays. Returns dict(t, tri, u, v), each (N,),
     plus texu, texv, img, texh, texw (N,) f32 with the uv payload.
 
     pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b; uv_payload
     (default: UVP_DEFAULT when the scene carries "uvp" and the trace is
-    one-pop) takes K7c. The two do not compose (tpurt's rule)."""
+    one-pop) takes K7c. The two do not compose (tpurt's rule).
+    count_steps=True returns each ray's node pops in u and leaf pops in v
+    (f32; t and tri unchanged); it and push_order "nearlast" / "none" take
+    K7a (module docstring)."""
     name = "trace_closest_bvh8"
-    pop2 = _resolve_pop2(pop2)
+    pop2, order = _resolve_k7a(name, pop2, count_steps, push_order)
+    k7a = count_steps or order != "sort"
     if uv_payload is None:
-        uv_payload = UVP_DEFAULT and "uvp" in scene and not pop2
+        uv_payload = UVP_DEFAULT and "uvp" in scene and not pop2 \
+            and not k7a
     if uv_payload and pop2:
         raise ValueError(f"{name}: uv_payload composes only with the "
                          f"one-pop closest-hit trace (pop2=False)")
+    if uv_payload and k7a:
+        raise ValueError(f"{name}: uv_payload composes with neither "
+                         f"count_steps nor push_order={order!r}")
     if uv_payload and "uvp" not in scene:
         raise ValueError(f"{name}: uv_payload needs scene['uvp'] "
                          f"(flatten_scene builds it)")
@@ -156,18 +204,30 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
     _check_stack(name, scene, pops)
     if not origin.is_cuda:
         return _trace_plain(scene, origin, direction, float(t_min), tmx,
-                            any_hit=False, pops=pops, uv_payload=uv_payload)
-    fn = build.function("tpurt_bvh8_closest", [ctypes.c_void_p] * 5 + [
-        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 6)
+                            any_hit=False, pops=pops, uv_payload=uv_payload,
+                            count_steps=count_steps, order=order)
     dev = origin.device
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
+    p = build.ptr
+    out = dict(t=t, tri=tri, u=u, v=v)
+    if k7a:
+        fn = build.function("tpurt_bvh8_closest_k7a", [ctypes.c_void_p] * 4
+                            + [ctypes.c_float, ctypes.c_void_p]
+                            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+        build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
+                       p(direction), float(t_min), p(tmx), n,
+                       int(count_steps), PUSH_ORDERS.index(order), p(t),
+                       p(tri), p(u), p(v), build.stream_of(origin)), name)
+        build.launch_counts["bvh8_closest_steps"] += 1
+        return out
+    fn = build.function("tpurt_bvh8_closest", [ctypes.c_void_p] * 5 + [
+        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 6)
     pay = torch.empty((5, n), dtype=torch.float32, device=dev) \
         if uv_payload else None
-    p = build.ptr
     build.check(fn(p(scene["nodes8"]), p(scene["tris"]),
                    p(scene["uvp"]) if uv_payload else None, p(origin),
                    p(direction), float(t_min), p(tmx), n, int(pop2),
@@ -177,18 +237,19 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
     kind = "bvh8_closest_pop2" if pop2 else \
         "bvh8_closest_uvp" if uv_payload else "bvh8_closest"
     build.launch_counts[kind] += 1
-    out = dict(t=t, tri=tri, u=u, v=v)
     if uv_payload:
         out.update(zip(PAYLOAD_KEYS, pay.unbind(0)))
     return out
 
 
 def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max,
-                   pop2=None):
-    """Any hit (occlusion) for (N, 3) rays. Returns a (N,) bool mask.
-    pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b."""
+                   pop2=None, count_steps=False, push_order=None):
+    """Any hit (occlusion) for (N, 3) rays. Returns a (N,) bool mask, or
+    with count_steps=True (mask, node pops, leaf pops), the counts (N,) f32.
+    pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b; count_steps
+    and push_order "nearlast" / "none" take K7a."""
     name = "trace_any_bvh8"
-    pop2 = _resolve_pop2(pop2)
+    pop2, order = _resolve_k7a(name, pop2, count_steps, push_order)
     n = origin.shape[0]
     tmx = _t_max_tensor(t_max, n, origin)
     _check_inputs(name, scene, origin, direction, tmx)
@@ -196,12 +257,26 @@ def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max,
     _check_stack(name, scene, pops)
     if not origin.is_cuda:
         return _trace_plain(scene, origin, direction, float(t_min), tmx,
-                            any_hit=True, pops=pops)
+                            any_hit=True, pops=pops, count_steps=count_steps,
+                            order=order)
+    occ = torch.empty(n, dtype=torch.uint8, device=origin.device)
+    p = build.ptr
+    if count_steps or order != "sort":
+        fn = build.function("tpurt_bvh8_any_k7a", [ctypes.c_void_p] * 4
+                            + [ctypes.c_float, ctypes.c_void_p]
+                            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+        pops = [torch.empty(n, dtype=torch.float32, device=origin.device)
+                for _ in range(2)] if count_steps else [None, None]
+        build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
+                       p(direction), float(t_min), p(tmx), n,
+                       int(count_steps), PUSH_ORDERS.index(order), p(occ),
+                       *(p(x) if count_steps else None for x in pops),
+                       build.stream_of(origin)), name)
+        build.launch_counts["bvh8_any_steps"] += 1
+        return (occ.bool(), *pops) if count_steps else occ.bool()
     fn = build.function("tpurt_bvh8_any", [ctypes.c_void_p] * 4 + [
         ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
         ctypes.c_void_p] * 2)
-    occ = torch.empty(n, dtype=torch.uint8, device=origin.device)
-    p = build.ptr
     build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
                    p(direction), float(t_min), p(tmx), n, int(pop2), p(occ),
                    build.stream_of(origin)), name)
@@ -313,25 +388,29 @@ def _moller_trumbore(rows, o, d, t_min, tfar):
 
 
 def trace_closest_plain(scene, origin, direction, t_min, t_max,
-                        stats=None, pop2=False, uv_payload=False):
-    """Plain PyTorch version of K1 (K7b with pop2, K7c with uv_payload) on
-    any device. `stats`, a dict, gets the traversal work (see count_work)
-    and the deepest stack (max_stack)."""
+                        stats=None, pop2=False, uv_payload=False,
+                        count_steps=False, push_order="sort"):
+    """Plain PyTorch version of K1 (K7b with pop2, K7c with uv_payload, K7a
+    with count_steps or another push_order) on any device. `stats`, a dict,
+    gets the traversal work (see count_work), the entries dropped unread
+    (see count_dropped) and the deepest stack (max_stack)."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), any_hit=False,
                         pops=2 if pop2 else 1, uv_payload=uv_payload,
-                        stats=stats)
+                        stats=stats, count_steps=count_steps,
+                        order=push_order)
 
 
 def trace_any_plain(scene, origin, direction, t_min, t_max, stats=None,
-                    pop2=False):
-    """Plain PyTorch version of K2 (K7b with pop2) on any device (`stats`
-    as above)."""
+                    pop2=False, count_steps=False, push_order="sort"):
+    """Plain PyTorch version of K2 (K7b with pop2, K7a with count_steps or
+    another push_order) on any device (`stats` as above)."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), any_hit=True,
-                        pops=2 if pop2 else 1, stats=stats)
+                        pops=2 if pop2 else 1, stats=stats,
+                        count_steps=count_steps, order=push_order)
 
 
 def count_work(stats, node_pops, leaf_pops, tri_tests, node_tests=None):
@@ -346,6 +425,17 @@ def count_work(stats, node_pops, leaf_pops, tri_tests, node_tests=None):
     for key, val in (("node_pops", node_pops), ("leaf_pops", leaf_pops),
                      ("tri_tests", tri_tests), ("node_tests", node_tests)):
         stats[key] = stats.get(key, 0) + val
+
+
+def count_dropped(stats, codes):
+    """Add the popped closest-hit entries (`codes`) that the entry-distance
+    test drops unread to `stats`' dropped_node_pops / dropped_leaf_pops
+    (tpurt's packet kernel reads and counts such entries)."""
+    if stats is None:
+        return
+    for key, sel in (("dropped_node_pops", codes >= 0),
+                     ("dropped_leaf_pops", codes < 0)):
+        stats[key] = stats.get(key, 0) + sel.sum()
 
 
 def _note_stack(stats, sp):
@@ -383,12 +473,29 @@ def _node_children(nodes, code):
     return rows, valid, child_code
 
 
+def _order_keys(order, tnear, hit):
+    """(A, 8) push keys of a push order: the hit children sorted by them
+    (stable) end on the stack with the first on top. "sort": the entry
+    distance; "none": slot 7 first; "nearlast": the first nearest hit child,
+    then slot 7 down."""
+    slot = torch.arange(8, device=tnear.device, dtype=tnear.dtype)
+    if order == "sort":
+        return tnear
+    keys = (-slot).expand_as(tnear)
+    if order == "none":
+        return keys
+    inf = torch.full_like(tnear, float("inf"))
+    best = torch.argmin(torch.where(hit, tnear, inf), dim=1, keepdim=True)
+    return torch.where(slot.long()[None, :] == best,
+                       torch.full_like(tnear, -8.0), keys)
+
+
 def _push(stacks, sp, rows_of, hit, keys, values, sink):
     """Push each ray's hit children sorted by `keys` (stable, slot order on
     equal keys), the first on top. stacks/values: matching lists of (N, S+1)
     tables and (A, 8) entries."""
     keys = torch.where(hit, keys, torch.full_like(keys, float("inf")))
-    keys, perm = torch.sort(keys, dim=1, stable=True)
+    _, perm = torch.sort(keys, dim=1, stable=True)
     nh = hit.sum(1)
     base = sp[rows_of]
     slot = torch.arange(8, device=hit.device)
@@ -397,8 +504,7 @@ def _push(stacks, sp, rows_of, hit, keys, values, sink):
                       torch.full_like(pos, sink))
     rows_i = rows_of[:, None].expand(-1, 8)
     for table, val in zip(stacks, values):
-        table[rows_i, pos] = keys if val is None else torch.gather(val, 1,
-                                                                  perm)
+        table[rows_i, pos] = torch.gather(val, 1, perm)
     sp[rows_of] = base + nh
 
 
@@ -417,12 +523,20 @@ def _pop(sp, a, pops, *tables):
 
 
 def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
-                 pops: int = 1, uv_payload: bool = False, stats=None):
+                 pops: int = 1, uv_payload: bool = False, stats=None,
+                 count_steps: bool = False, order: str = "sort"):
     """The plain PyTorch traversal: every live ray pops `pops` stack entries
-    per iteration, over (N, S) stacks of codes and entry distances."""
+    per iteration, over (N, S) stacks of codes and entry distances; with
+    count_steps each ray counts its visited node and leaf entries."""
+    if order not in PUSH_ORDERS:
+        raise ValueError(f"unknown push_order {order!r}")
+    if count_steps and uv_payload:
+        raise ValueError("count_steps and uv_payload do not compose")
     nodes, tris = scene["nodes8"], scene["tris"]
     dev = origin.device
     n = origin.shape[0]
+    # per-ray node and leaf pops (K7a)
+    steps = torch.zeros((2, n), dtype=torch.int32, device=dev)
     s = stack_entries(scene["depth8"], pops)
     inv = 1.0 / direction
     tmin_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
@@ -449,6 +563,7 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
                                            t_min, tfar)
         hit &= in_range
         count_work(stats, 0, la.numel(), leaf_tests(hit, count, any_hit))
+        steps[1, la] += 1
         if any_hit:
             occ[la] |= hit.any(1)
             return
@@ -467,9 +582,11 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
         rows, valid, child_code = _node_children(nodes, code)
         tfar = t_max[na] if any_hit else t[na]
         tnear, hit = _slab(rows, origin[na], inv[na], tmin_t, tfar)
-        _push((nears, codes), sp, na, hit & valid, tnear, (None, child_code),
-              s)
+        hit &= valid
+        _push((nears, codes), sp, na, hit, _order_keys(order, tnear, hit),
+              (tnear, child_code), s)
         count_work(stats, na.numel(), 0, 0)
+        steps[0, na] += 1
 
     while active.numel():
         a = active
@@ -481,6 +598,7 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
             ta = t[a]
             live0 = n0 <= ta
             live1 = has1 & (n1 <= ta)
+            count_dropped(stats, torch.cat([c0[~live0], c1[has1 & ~live1]]))
         # leaf phase, the top entry first; node phase, the lower entry's
         # children pushed first
         for live, code, want_leaf in ((live0, c0, True), (live1, c1, True),
@@ -496,8 +614,11 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
             keep &= ~occ[a]
         active = a[keep]
 
+    node_pops, leaf_pops = steps.to(torch.float32)
     if any_hit:
-        return occ
+        return (occ, node_pops, leaf_pops) if count_steps else occ
+    if count_steps:
+        u, v = node_pops, leaf_pops
     out = dict(t=t, tri=tri, u=u, v=v)
     if uv_payload:
         out.update(_payload(scene["uvp"], tri >= 0, row, u, v))
