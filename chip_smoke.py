@@ -11,24 +11,31 @@ once, at 64x64):
 
   phase 1  each kernel against its plain PyTorch version on the card, at the
            main path's shapes: primary rays (K1); the shadow rays of each
-           light, t_max = 0 lanes included (K2); the frame's depth pyramid
-           and G-buffer (K3); the main pass's AO and edges (K4). Prints the
-           mismatch counts and both times (CUDA events after a warm-up).
+           light, t_max = 0 lanes included, traced as shade() traces them
+           (K2 over nodes8c in 16x8 pixel tiles, also against K7a "none"
+           over the rows and on consecutive rays, all bit-exact); the
+           frame's depth pyramid and G-buffer (K3h + K3 at the frame's
+           preset and at HIGH 3x3; K3h's table within P1's tolerance of its
+           plain version; K3 alone timed apart); the main pass's AO and
+           edges (K4). Prints the mismatch counts and the times.
   phase 2  >= 10 frames through Renderer.render(): launch counts per frame
-           (K1 1, K2 3, K3 1, K4 1), ms/frame, Mrays/s (W*H*(1 + shadow
-           lights) rays per frame), a checksum and the share of lit pixels.
+           (K1 1, K2 3, K3h 1, K3 1, K4 1), ms/frame, Mrays/s (W*H*(1 +
+           shadow lights) rays per frame), a checksum and the share of lit
+           pixels.
   phase 3  a 64x64 frame of the same scene on the card against the same
            frame from the plain versions on the host.
   phase 4  the dynamic scene's kernels at the rebuild path's shapes, with
            the bench animation (every instance rotated about Y by up to
-           0.5 rad): the LBVH and the refit BVH8 built on the card equal the
-           same built on the host; K6 closest hit on the primary rays and
-           K6 any hit on each light's shadow rays (t_max = 0 lanes
-           included) against the plain version (run once per size), with
+           0.5 rad): the LBVH and the refit BVH8 (and its nodes8c) built on
+           the card equal the same built on the host; K6 closest hit on the
+           primary rays and K6 any hit on each light's shadow rays (t_max =
+           0 lanes included) against the plain version (run once per size),
+           with
            both times and the LBVH build and refit times.
   phase 5  >= 8 frames each through Renderer.render_dynamic(): refit frames
-           (K1 1, K2 3, K3 1, K4 1, K6 0 per frame), rebuild frames
-           (refit=False: K6 closest 1, K6 any 3, K3 1, K4 1, K1/K2 0), and a
+           (K1 1, K2 3, K3h 1, K3 1, K4 1, K6 0 per frame, one nodes8c
+           built), rebuild frames (refit=False: K6 closest 1, K6 any 3, K3h
+           1, K3 1, K4 1, K1/K2 0, no nodes8c), and a
            scrambled sequence with check_every=1 whose K6 launches appear
            right after the check frame; ms/frame and Mrays/s per path.
   phase 6  64x64 refit and rebuild frames on the card against the plain
@@ -68,10 +75,11 @@ once, at 64x64):
            per pass, the device-busy share (sum of device_profile / sum of
            profile_frame) and render() ms/frame right after it.
 
-Phases 1-7 time a kernel by CUDA events around back-to-back calls of its
-wrapper (cuda_ms); phase 8 times K7a and P1 on the card alone
-(tpurt_torch/kernels/build.device_ms: the least of 3 runs, each queued
-behind a spin kernel), as the steps probe does. The probes' full reports
+Every kernel is timed twice: on the card alone (`ms`,
+tpurt_torch/kernels/build.device_ms: the least of 3 runs, each queued
+behind a spin kernel) and by CUDA events around back-to-back calls of its
+wrapper after a warm-up (`cuda_ms`, the earlier method, which on short
+launches also counts the wrapper's host path). The probes' full reports
 come from the probes themselves, run with --out.
 
 Every kernel's bound_ms is the larger of the bytes it must move (each
@@ -99,8 +107,11 @@ SHAPES = ((800, 800), (1920, 1080))
 KERNELS = (
     ("bvh8_closest", "tpurt_torch/csrc/bvh8_trace.cu",
      "tpurt/kernels/traverse_bvh8.py:107"),
-    ("bvh8_any", "tpurt_torch/csrc/bvh8_trace.cu",
+    ("bvh8_any", "tpurt_torch/csrc/bvh8_any.cu",
      "tpurt/kernels/traverse_bvh8.py:107"),
+    # K3h, the noise table the main pass reads (_noise_hoist_kernel)
+    ("gtao_noise", "tpurt_torch/csrc/gtao_main.cu",
+     "tpurt/kernels/gtao_main_pallas.py:246"),
     ("gtao_main", "tpurt_torch/csrc/gtao_main.cu",
      "tpurt/kernels/gtao_main_pallas.py:317"),
     ("gtao_denoise", "tpurt_torch/csrc/gtao_denoise.cu",
@@ -148,12 +159,14 @@ OPS_RAY = 3            # the reciprocal direction
 OPS_BVH8_NODE = 8 * OPS_SLAB
 OPS_BVH2_NODE = 2 * OPS_SLAB + 1
 OPS_PAYLOAD = 12       # w = 1 - u - v and the two interpolated uvs, per hit
-# gtao_main.cu per pixel: setup 125, per slice 137, per step 23, per side
-# sample 45; gtao_denoise.cu per pixel and pass: 100
-GTAO_MAIN_OPS = (125, 137, 23, 45)
+# gtao_main.cu's main kernel per pixel: setup 125, per slice 132, per step
+# 15, per side sample 45 (the noise-only work, TRANS_EQUIV_OPS, is K3h's);
+# gtao_denoise.cu per pixel and pass: 100
+GTAO_MAIN_OPS = (125, 132, 15, 45)
 GTAO_DENOISE_OPS = 100
-# trans_equiv.cu per element: per slice 5 (add, divide, multiply, cos,
-# sin), per step 8 (3 for the step's base, add, fmod, add, divide, pow)
+# trans_equiv.cu and gtao_main.cu's noise kernel (K3h) per element: per
+# slice 5 (add, divide, multiply, cos, sin), per step 8 (3 for the step's
+# base, add, fmod, add, divide, pow)
 TRANS_EQUIV_OPS = (5, 8)
 # K3/K4 budget on the card: u8 steps and the share of pixels that may differ
 AO_MAX_STEP = 1
@@ -188,6 +201,28 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps=10):
+    """A kernel wrapper's ms per call by both timers: `ms` on the card
+    alone (kernels/build.device_ms: least of 3 runs queued behind a spin
+    kernel) and `cuda_ms` (CUDA events around back-to-back calls after 3
+    warm-up calls, the earlier method, which on short launches also counts
+    the wrapper's host path)."""
+    from tpurt_torch.kernels.build import device_ms
+
+    return dict(ms=device_ms(fn, reps), cuda_ms=cuda_ms(fn, reps, warmup=3))
+
+
+def add_ms(total, part):
+    """Sum kernel_ms readings (the 3 lights' launches of an any hit)."""
+    for k, v in part.items():
+        total[k] = total.get(k, 0.0) + v
+    return total
+
+
+def fmt_ms(t):
+    return f"{t['ms']:.4f} ms (cuda_ms {t['cuda_ms']:.4f})"
 
 
 def bound(nbytes, ops):
@@ -256,8 +291,12 @@ def phase1(r, label):
 
     from tpurt_torch.kernels.gtao_denoise import (denoise_chain,
                                                   denoise_pass_plain)
-    from tpurt_torch.kernels.gtao_main import gtao_main, main_pass_plain
-    from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
+    from tpurt_torch.kernels.gtao_main import (gtao_main, gtao_noise_table,
+                                               main_kernel, main_pass_plain,
+                                               noise_table_plain)
+    from tpurt_torch.kernels.trans_equiv import ATOL_TRIG
+    from tpurt_torch.kernels.traverse_bvh8 import (any_k7a, any_kernel,
+                                                   trace_any_bvh8,
                                                    trace_any_plain,
                                                    trace_closest_bvh8,
                                                    trace_closest_plain)
@@ -283,82 +322,134 @@ def phase1(r, label):
                    .sum()) for k in ("t", "tri", "u", "v")}
     err = float((hk["t"] - hp["t"]).abs().max())
     hit_share = float((hk["tri"] >= 0).float().mean())
-    ms = cuda_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX), 10,
-                 warmup=3)
+    t = kernel_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX))
     plain_ms = cuda_ms(lambda: trace_closest_plain(scene, o, d, T_MIN,
                                                    T_MAX), 2)
     log(f"[{label}] K1 closest: rays {w * h}, hit share {hit_share:.4f}, "
-        f"bit mismatches {mism}, max |dt| {err}, kernel {ms:.4f} ms, "
+        f"bit mismatches {mism}, max |dt| {err}, kernel {fmt_ms(t)}, "
         f"plain {plain_ms:.2f} ms")
     require(sum(mism.values()) == 0, f"[{label}] K1 differs from plain")
     require(hit_share > 0.05, f"[{label}] K1 hit almost nothing")
-    out["bvh8_closest"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    out["bvh8_closest"] = dict(max_abs_err=err, plain_ms=plain_ms, **t)
     out["bvh8_closest"]["bound_ms"], out["bvh8_closest"]["bound_by"] = \
         bound(*trace_work(scene, "nodes8", (o, d, torch.empty(w * h)), 16,
                           work, OPS_BVH8_NODE))
 
-    # K2: the shadow rays of every light, t_max = 0 lanes included
-    k2_ms = k2_plain_ms = k2_err = 0.0
+    # K2: the shadow rays of every light, t_max = 0 lanes included, traced
+    # as shade() traces them (the frame's shape: 16x8 pixel tiles); K2
+    # reads nodes8c, against its plain version and K7a "none" over the
+    # rows, and beside the same kernel on consecutive rays (bit-exact too)
+    k2 = {}
+    k2_plain_ms = k2_err = 0.0
     k2_mism = 0
     k2_work = [0, 0]      # bytes and operations of the 3 launches
+    variants = dict(rows_of_128=dict())
+    var_ms = {}
     for i, (so, sd, stmax) in enumerate(shadow_rays(scene, cam, lights, hk)):
-        ok = trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, stmax)
+        ok = trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, stmax, height=h,
+                            width=w)
         work = {}
         op = trace_any_plain(scene, so, sd, SHADOW_T_MIN, stmax, stats=work)
+        k7a = any_k7a(scene, so, sd, SHADOW_T_MIN, stmax, "none", False)
+        var_occ = {k: any_kernel(scene, so, sd, SHADOW_T_MIN, stmax, **kw)
+                   for k, kw in variants.items()}
         torch.cuda.synchronize()
-        moved, ops = trace_work(scene, "nodes8", (so, sd, stmax), 1, work,
+        moved, ops = trace_work(scene, "nodes8c", (so, sd, stmax), 1, work,
                                 OPS_BVH8_NODE)
         k2_work[0] += moved
         k2_work[1] += ops
         n_mis = int((ok != op).sum())
+        n_k7a = int((ok != k7a).sum())
+        n_var = {k: int((ok != v).sum()) for k, v in var_occ.items()}
         dead = float((stmax <= SHADOW_T_MIN).float().mean())
-        k_ms = cuda_ms(lambda: trace_any_bvh8(scene, so, sd, SHADOW_T_MIN,
-                                              stmax), 10, warmup=3)
+        t = kernel_ms(lambda: trace_any_bvh8(scene, so, sd, SHADOW_T_MIN,
+                                             stmax, height=h, width=w))
+        for k, kw in variants.items():
+            add_ms(var_ms.setdefault(k, {}), kernel_ms(
+                lambda: any_kernel(scene, so, sd, SHADOW_T_MIN, stmax, **kw)))
+        add_ms(var_ms.setdefault("k7a_none_rows", {}), kernel_ms(
+            lambda: any_k7a(scene, so, sd, SHADOW_T_MIN, stmax, "none",
+                            False)))
         p_ms = cuda_ms(lambda: trace_any_plain(scene, so, sd, SHADOW_T_MIN,
                                                stmax), 2)
         log(f"[{label}] K2 light {i}: occluded {float(ok.float().mean()):.4f},"
-            f" t_max=0 lanes {dead:.4f}, mismatches {n_mis}, kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.2f} ms")
-        k2_mism += n_mis
+            f" t_max=0 lanes {dead:.4f}, mismatches vs plain {n_mis}, vs K7a "
+            f"none {n_k7a}, variants {n_var}, node pops "
+            f"{int(work['node_pops'])}, max stack {work['max_stack']}, "
+            f"kernel {fmt_ms(t)}, plain {p_ms:.2f} ms")
+        k2_mism += n_mis + n_k7a + sum(n_var.values())
         k2_err = max(k2_err, float((ok.int() - op.int()).abs().max()))
-        k2_ms += k_ms
+        add_ms(k2, t)
         k2_plain_ms += p_ms
-    require(k2_mism == 0, f"[{label}] K2 differs from plain")
+    require(k2_mism == 0, f"[{label}] K2 differs from plain, K7a none or "
+            f"its variants")
     b_ms, b_by = bound(*k2_work)
-    out["bvh8_any"] = dict(max_abs_err=k2_err, ms=k2_ms,
-                           plain_ms=k2_plain_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"[{label}] K2, {len(variants)} variants over the 3 lights: "
+        + ", ".join(f"{k} {fmt_ms(v)}" for k, v in var_ms.items()))
+    out["bvh8_any"] = dict(max_abs_err=k2_err, plain_ms=k2_plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, variants=var_ms,
+                           **k2)
 
-    # K3: the frame's real depth pyramid and G-buffer
+    # K3h + K3: the frame's real depth pyramid and G-buffer, at the
+    # frame's preset and at HIGH (another compile-time instantiation)
     g = shade(scene, cam, lights, hk)
     depth = quantize_r16f(g["depth"]).reshape(h, w)
     normal = quantize_r11g11b10f(g["normal_enc"]).reshape(h, w, 3)
     mips = prefilter_depths(depth, gtao["host"])
     noise = noise_maps_64(0, r.device)
+    gvec = gtao["vec"]
     st = c.gtao.slice_count, c.gtao.steps_per_slice
-    kw = dict(slice_count=st[0], steps_per_slice=st[1])
-    ao_k, ed_k = gtao_main(mips, normal, gtao["vec"], noise, **kw)
-    ao_p, ed_p = main_pass_plain(mips, normal, gtao["vec"], noise, **kw)
-    torch.cuda.synchronize()
-    dao = (ao_k.int() - ao_p.int()).abs()
-    ed_mis = int((ed_k != ed_p).sum())
-    frac = float((dao > 0).float().mean())
-    ms = cuda_ms(lambda: gtao_main(mips, normal, gtao["vec"], noise, **kw),
-                 10, warmup=3)
-    plain_ms = cuda_ms(lambda: main_pass_plain(mips, normal, gtao["vec"],
-                                               noise, **kw), 3)
-    log(f"[{label}] K3 main: AO max step {int(dao.max())}, differing "
-        f"{frac:.6f}, edge mismatches {ed_mis}, mean AO "
-        f"{float(ao_k.float().mean()):.2f}, kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms")
-    require(ed_mis == 0, f"[{label}] K3 edges differ")
-    require(int(dao.max()) <= AO_MAX_STEP and frac <= AO_MAX_FRACTION,
-            f"[{label}] K3 AO outside budget")
+    for preset in (st, (3, 3)):
+        kw = dict(slice_count=preset[0], steps_per_slice=preset[1])
+        ao_k, ed_k = gtao_main(mips, normal, gvec, noise, **kw)
+        ao_p, ed_p = main_pass_plain(mips, normal, gvec, noise, **kw)
+        table_k = gtao_noise_table(noise, gvec, **kw)
+        table_p = noise_table_plain(noise, gvec, **kw)
+        torch.cuda.synchronize()
+        dao = (ao_k.int() - ao_p.int()).abs()
+        ed_mis = int((ed_k != ed_p).sum())
+        frac = float((dao > 0).float().mean())
+        tab_err = float((table_k - table_p).abs().max())
+        tab_mis = int((table_k.view(torch.int32)
+                       != table_p.view(torch.int32)).sum())
+        log(f"[{label}] K3h + K3 at {preset[0]}x{preset[1]}: AO max step "
+            f"{int(dao.max())}, differing {frac:.6f}, edge mismatches "
+            f"{ed_mis}, mean AO {float(ao_k.float().mean()):.2f}; K3h table "
+            f"vs plain: {tab_mis} of {table_k.numel()} differ, max abs "
+            f"{tab_err}")
+        require(ed_mis == 0, f"[{label}] K3 edges differ")
+        require(int(dao.max()) <= AO_MAX_STEP and frac <= AO_MAX_FRACTION,
+                f"[{label}] K3 AO outside budget")
+        # P1's cos/sin tolerance: the card's libm gives torch's bits there
+        require(tab_err <= ATOL_TRIG, f"[{label}] K3h table outside "
+                f"{ATOL_TRIG}")
+        if preset == st:
+            ao_main, ed_main, table, kw_main = ao_k, ed_k, table_k, kw
+            dao_main, tab_main = float(dao.max()), tab_err
+    kw = kw_main
+    t_all = kernel_ms(lambda: gtao_main(mips, normal, gvec, noise, **kw))
+    t_h = kernel_ms(lambda: gtao_noise_table(noise, gvec, **kw))
+    t_k3 = kernel_ms(lambda: main_kernel(mips, normal, gvec, table, **kw))
+    plain_ms = cuda_ms(lambda: main_pass_plain(mips, normal, gvec, noise,
+                                               **kw), 3)
+    plain_h_ms = cuda_ms(lambda: noise_table_plain(noise, gvec, **kw), 3)
+    log(f"[{label}] K3h {fmt_ms(t_h)}; K3 {fmt_ms(t_k3)}; gtao_main (both "
+        f"launches) {fmt_ms(t_all)}; plain {plain_ms:.2f} ms (table "
+        f"{plain_h_ms:.2f})")
     setup, per_slice, per_step, per_side = GTAO_MAIN_OPS
     px_ops = setup + st[0] * (per_slice + st[1] * (per_step + 2 * per_side))
-    b_ms, b_by = bound(nbytes(*mips, normal, gtao["vec"], noise)
-                       + 2 * w * h, px_ops * w * h)
-    out["gtao_main"] = dict(max_abs_err=float(dao.max()), ms=ms,
-                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(nbytes(*mips, normal, gvec, table) + 2 * w * h,
+                       px_ops * w * h)
+    out["gtao_main"] = dict(max_abs_err=dao_main, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by,
+                            with_noise_table=t_all, **t_k3)
+    per_slice, per_step = TRANS_EQUIV_OPS
+    b_ms, b_by = bound(nbytes(noise, gvec, table),
+                       noise[0].numel() * st[0] * (per_slice
+                                                   + st[1] * per_step))
+    out["gtao_noise"] = dict(max_abs_err=tab_main, plain_ms=plain_h_ms,
+                             bound_ms=b_ms, bound_by=b_by, **t_h)
+    ao_k, ed_k = ao_main, ed_main
 
     # K4: the main pass's AO and edges through the sharp chain (1 pass)
     n_pass = c.gtao.num_denoise_passes
@@ -377,11 +468,11 @@ def phase1(r, label):
     torch.cuda.synchronize()
     dd = (dk - dp).abs()
     frac = float((dd > 0).float().mean())
-    ms = cuda_ms(lambda: denoise_chain(ao_k, ed_k, n_passes=n_pass,
-                                       blur_beta=beta), 20, warmup=3)
+    t = kernel_ms(lambda: denoise_chain(ao_k, ed_k, n_passes=n_pass,
+                                        blur_beta=beta), 20)
     plain_ms = cuda_ms(plain_chain, 5)
     log(f"[{label}] K4 denoise: max step {int(dd.max())}, differing "
-        f"{frac:.6f}, max AO {int(dk.max())}, kernel {ms:.4f} ms, plain "
+        f"{frac:.6f}, max AO {int(dk.max())}, kernel {fmt_ms(t)}, plain "
         f"{plain_ms:.3f} ms")
     require(int(dd.max()) <= AO_MAX_STEP and frac <= AO_MAX_FRACTION,
             f"[{label}] K4 outside budget")
@@ -389,9 +480,9 @@ def phase1(r, label):
     # last one u16)
     b_ms, b_by = bound(n_pass * 2 * w * h + (n_pass - 1) * w * h
                        + 2 * w * h, n_pass * GTAO_DENOISE_OPS * w * h)
-    out["gtao_denoise"] = dict(max_abs_err=float(dd.max()), ms=ms,
+    out["gtao_denoise"] = dict(max_abs_err=float(dd.max()),
                                plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by)
+                               bound_by=b_by, **t)
     return out
 
 
@@ -422,7 +513,7 @@ def phase2(r, label):
         f"{checksum}, lit share {lit:.4f}")
     shadow = r.stats()["shadow_casting_lights"]
     want = dict(ALL_ZERO, bvh8_closest=FRAMES, bvh8_any=shadow * FRAMES,
-                gtao_main=FRAMES, gtao_denoise=FRAMES)
+                gtao_noise=FRAMES, gtao_main=FRAMES, gtao_denoise=FRAMES)
     require(counts == want, f"[{label}] launch counts {counts} != {want}")
     require(tuple(image.shape) == (c.height, c.width, 3)
             and image.dtype == torch.uint8, f"[{label}] bad image")
@@ -494,6 +585,7 @@ def phase4(r, label):
 
     from tpurt_torch.app.bench_scene import rotation_frames
     from tpurt_torch.bvh.lbvh import build_lbvh
+    from tpurt_torch.bvh.wide import compact_bvh8
     from tpurt_torch.engine.dynamic import build_world_tables, world_vertices
     from tpurt_torch.kernels.traverse_bvh2 import (trace_any_bvh2,
                                                    trace_any_plain,
@@ -517,8 +609,10 @@ def phase4(r, label):
     same = {k: bits_equal(wd["bvh"][k], wh["bvh"][k]) for k in wh["bvh"]}
     same["nodes2"] = bits_equal(wd["nodes2"], wh["nodes2"])
     same["tris"] = bits_equal(wd["tris"], wh["tris"])
-    n8_equal = bits_equal(refit_nodes8(obj, refit, t),
-                          refit_nodes8(obj_h, refit_h, t))
+    n8_card, n8_host = (refit_nodes8(obj, refit, t),
+                        refit_nodes8(obj_h, refit_h, t))
+    n8_equal = bits_equal(n8_card, n8_host) and bits_equal(
+        compact_bvh8(n8_card), compact_bvh8(n8_host))
     tables_ms = cuda_ms(lambda: build_world_tables(obj, t), 5)
     tt = torch.as_tensor(t, device=r.device)
     transform_ms = cuda_ms(lambda: world_vertices(obj, tt), 5)
@@ -531,7 +625,7 @@ def phase4(r, label):
         f"bound {wd['depth2']}, equal to the host build: {same}; world "
         f"tables + LBVH {tables_ms:.3f} ms (vertex transform "
         f"{transform_ms:.3f} ms, LBVH build {lbvh_ms:.3f} ms); refit BVH8 "
-        f"equal to the host: {n8_equal}, transform + refit "
+        f"and its nodes8c equal to the host: {n8_equal}, transform + refit "
         f"{refit_ms:.3f} ms")
     require(all(same.values()) and n8_equal,
             f"[{label}] the card's LBVH or refit differs from the host's")
@@ -550,22 +644,22 @@ def phase4(r, label):
                    .sum()) for k in ("t", "tri", "u", "v")}
     err = float((hk["t"] - hp["t"]).abs().max())
     hit_share = float((hk["tri"] >= 0).float().mean())
-    ms = cuda_ms(lambda: trace_closest_bvh2(wd, o, d, T_MIN, T_MAX), 10,
-                 warmup=3)
+    t6 = kernel_ms(lambda: trace_closest_bvh2(wd, o, d, T_MIN, T_MAX))
     b_ms, b_by = bound(*trace_work(wd, "nodes2", (o, d, torch.empty(w * h)),
                                    16, work, OPS_BVH2_NODE))
     log(f"[{label}] K6 closest: rays {w * h}, hit share {hit_share:.4f}, "
         f"bit mismatches {mism}, max |dt| {err}, node pops "
         f"{int(work['node_pops'])}, triangle tests "
-        f"{int(work['tri_tests'])}, kernel {ms:.4f} ms, plain (once) "
+        f"{int(work['tri_tests'])}, kernel {fmt_ms(t6)}, plain (once) "
         f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
     require(sum(mism.values()) == 0, f"[{label}] K6 closest differs")
     require(hit_share > 0.05, f"[{label}] K6 hit almost nothing")
-    out["bvh2_closest"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=b_by)
+    out["bvh2_closest"] = dict(max_abs_err=err, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, **t6)
 
     # K6 any hit: every light's shadow rays, t_max = 0 lanes included
-    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, mism=0)
+    tot = dict(plain_ms=0.0, bytes=0, ops=0, mism=0)
+    t6 = {}
     for i, (so, sd, stmax) in enumerate(shadow_rays(wd, cam, lights, hk)):
         ok = trace_any_bvh2(wd, so, sd, SHADOW_T_MIN, stmax)
         work = {}
@@ -573,48 +667,65 @@ def phase4(r, label):
             wd, so, sd, SHADOW_T_MIN, stmax, stats=work))
         n_mis = int((ok != op).sum())
         dead = float((stmax <= SHADOW_T_MIN).float().mean())
-        k_ms = cuda_ms(lambda: trace_any_bvh2(wd, so, sd, SHADOW_T_MIN,
-                                              stmax), 10, warmup=3)
+        t = kernel_ms(lambda: trace_any_bvh2(wd, so, sd, SHADOW_T_MIN,
+                                             stmax))
         moved, ops = trace_work(wd, "nodes2", (so, sd, stmax), 1, work,
                                 OPS_BVH2_NODE)
         log(f"[{label}] K6 any light {i}: occluded "
             f"{float(ok.float().mean()):.4f}, t_max=0 lanes {dead:.4f}, "
             f"mismatches {n_mis}, node pops {int(work['node_pops'])}, "
-            f"kernel {k_ms:.4f} ms, plain (once) {p_ms:.2f} ms, bound "
+            f"kernel {fmt_ms(t)}, plain (once) {p_ms:.2f} ms, bound "
             f"{bound(moved, ops)[0]:.4f} ms ({bound(moved, ops)[1]})")
         tot["mism"] += n_mis
-        tot["ms"] += k_ms
+        add_ms(t6, t)
         tot["plain_ms"] += p_ms
         tot["bytes"] += moved
         tot["ops"] += ops
     require(tot["mism"] == 0, f"[{label}] K6 any differs from plain")
     b_ms, b_by = bound(tot["bytes"], tot["ops"])
-    out["bvh2_any"] = dict(max_abs_err=float(tot["mism"]), ms=tot["ms"],
+    out["bvh2_any"] = dict(max_abs_err=float(tot["mism"]),
                            plain_ms=tot["plain_ms"], bound_ms=b_ms,
-                           bound_by=b_by)
+                           bound_by=b_by, **t6)
     return out
 
 
 def run_frames(r, transforms, label, path, want, **kw):
     """Frames through Renderer.render_dynamic with the launches of every
-    frame checked against `want`; returns ms/frame and the counts."""
+    frame checked against `want`, and the compact node tables it built
+    (one per refit frame, none on a rebuild frame); returns ms/frame and
+    the counts."""
     import torch
 
+    from tpurt_torch.engine import dynamic
     from tpurt_torch.kernels import build
 
     counts = build.launch_counts
     build.reset_counts()
+    compact, tables = dynamic.compact_bvh8, []
+
+    def counted_compact(nodes8):
+        tables.append(compact(nodes8))
+        return tables[-1]
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in transforms:
-        before = dict(counts)
-        out = r.render_dynamic(t, block=False, **kw)
-        step = {k: counts[k] - before[k] for k in counts}
-        took = "refit" if "refit_sah_ratio" in out else "rebuild"
-        require(step == want and took == path,
-                f"[{label}] {path} frame launched {step} on the {took} "
-                f"path, want {want}")
-    torch.cuda.synchronize()
+    dynamic.compact_bvh8 = counted_compact
+    try:
+        for t in transforms:
+            before = dict(counts)
+            n_tables = len(tables)
+            out = r.render_dynamic(t, block=False, **kw)
+            step = {k: counts[k] - before[k] for k in counts}
+            took = "refit" if "refit_sah_ratio" in out else "rebuild"
+            built = len(tables) - n_tables
+            require(step == want and took == path
+                    and built == (path == "refit"),
+                    f"[{label}] {path} frame launched {step} on the {took} "
+                    f"path and built {built} compact node tables, want "
+                    f"{want}")
+        torch.cuda.synchronize()
+    finally:
+        dynamic.compact_bvh8 = compact
     ms = (time.perf_counter() - t0) * 1000.0 / len(transforms)
     total = dict(counts)
     require(total == {k: v * len(transforms) for k, v in want.items()},
@@ -642,9 +753,9 @@ def phase5(r, label):
     r.render_dynamic(frames[0])                    # warm-up, both paths
     r.render_dynamic(frames[0], refit=False)
     refit_want = dict(ALL_ZERO, bvh8_closest=1, bvh8_any=shadow,
-                      gtao_main=1, gtao_denoise=1)
+                      gtao_noise=1, gtao_main=1, gtao_denoise=1)
     rebuild_want = dict(ALL_ZERO, bvh2_closest=1, bvh2_any=shadow,
-                        gtao_main=1, gtao_denoise=1)
+                        gtao_noise=1, gtao_main=1, gtao_denoise=1)
     out = {}
     for path, want, kw in (("refit", refit_want, {}),
                            ("rebuild", rebuild_want, dict(refit=False))):
@@ -751,9 +862,8 @@ def phase7_kernels(r, label):
         plain_ms, op, work, _ = plain[pop2]
         mism_plain = int((ok != op).sum())
         mism_k2 = int((ok != solo).sum())
-        ms = cuda_ms(lambda: trace_any_bvh8_multi(
-            scene, origin, dirs, SHADOW_T_MIN, tmaxs, pop2=pop2), 10,
-            warmup=3)
+        t = kernel_ms(lambda: trace_any_bvh8_multi(
+            scene, origin, dirs, SHADOW_T_MIN, tmaxs, pop2=pop2))
         moved = nbytes(scene["nodes8"], scene["tris"], origin, dirs, tmaxs) \
             + ok.numel()
         b_ms, b_by = bound(moved, least_ops)
@@ -763,12 +873,12 @@ def phase7_kernels(r, label):
             f"{int(work['node_pops'])} (slab groups "
             f"{int(work['node_tests'])}), triangle tests "
             f"{int(work['tri_tests'])}, max stack {work['max_stack']}, "
-            f"kernel {ms:.4f} ms, plain (once) {plain_ms:.2f} ms, bound "
+            f"kernel {fmt_ms(t)}, plain (once) {plain_ms:.2f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
         require(mism_plain == 0 and mism_k2 == 0,
                 f"[{label}] {name} differs from plain or from K2")
-        out[name] = dict(max_abs_err=float(mism_plain), ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        out[name] = dict(max_abs_err=float(mism_plain), plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, **t)
 
     # K7b closest: the primary rays, two pops per iteration; bounded, as
     # K5p is, by the lesser work of the two visit orders
@@ -782,8 +892,8 @@ def phase7_kernels(r, label):
     t_vs_k1 = int((hp2["t"].view(torch.int32) != hk["t"].view(torch.int32))
                   .sum())
     ties = int((hp2["tri"] != hk["tri"]).sum())
-    ms = cuda_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
-                                            pop2=True), 10, warmup=3)
+    t = kernel_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
+                                             pop2=True))
     primary = (o, d, torch.empty(w * h))
     moved, ops = trace_work(scene, "nodes8", primary, 16, work, OPS_BVH8_NODE)
     ops = min(ops, trace_work(scene, "nodes8", primary, 16, work1,
@@ -793,16 +903,16 @@ def phase7_kernels(r, label):
         f"bits differing from K1 {t_vs_k1}, tri differing from K1 (equal-t "
         f"ties) {ties}, node pops {int(work['node_pops'])} (one pop: "
         f"{int(work1['node_pops'])}), max stack {work['max_stack']}, kernel "
-        f"{ms:.4f} ms, plain (once) {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
+        f"{fmt_ms(t)}, plain (once) {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
         f"({b_by})")
     require(sum(mism.values()) == 0 and t_vs_k1 == 0,
             f"[{label}] K7b closest differs from plain or from K1's t")
-    out["bvh8_closest_pop2"] = dict(max_abs_err=0.0, ms=ms,
-                                    plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by)
+    out["bvh8_closest_pop2"] = dict(max_abs_err=0.0, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=b_by, **t)
 
     # K7b any: every light's shadow rays
-    tot = dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, mism=0)
+    tot = dict(plain_ms=0.0, bytes=0, ops=0, mism=0)
+    t7 = {}
     for i, (so, sd, st) in enumerate(rays):
         ok = trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st, pop2=True)
         work, work1 = {}, {}
@@ -810,25 +920,23 @@ def phase7_kernels(r, label):
             scene, so, sd, SHADOW_T_MIN, st, stats=work, pop2=True))
         trace_any_plain(scene, so, sd, SHADOW_T_MIN, st, stats=work1)
         n_mis = int((ok != op).sum()) + int((ok != solo[i]).sum())
-        k_ms = cuda_ms(lambda: trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st,
-                                              pop2=True), 10, warmup=3)
+        add_ms(t7, kernel_ms(lambda: trace_any_bvh8(
+            scene, so, sd, SHADOW_T_MIN, st, pop2=True)))
         moved, ops = trace_work(scene, "nodes8", (so, sd, st), 1, work,
                                 OPS_BVH8_NODE)
         ops = min(ops, trace_work(scene, "nodes8", (so, sd, st), 1, work1,
                                   OPS_BVH8_NODE)[1])
         tot["mism"] += n_mis
-        tot["ms"] += k_ms
         tot["plain_ms"] += p_ms
         tot["bytes"] += moved
         tot["ops"] += ops
     b_ms, b_by = bound(tot["bytes"], tot["ops"])
     log(f"[{label}] bvh8_any_pop2, 3 lights: mismatches vs plain and K2 "
-        f"{tot['mism']}, kernel {tot['ms']:.4f} ms, plain (once) "
+        f"{tot['mism']}, kernel {fmt_ms(t7)}, plain (once) "
         f"{tot['plain_ms']:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
     require(tot["mism"] == 0, f"[{label}] K7b any differs")
-    out["bvh8_any_pop2"] = dict(max_abs_err=0.0, ms=tot["ms"],
-                                plain_ms=tot["plain_ms"], bound_ms=b_ms,
-                                bound_by=b_by)
+    out["bvh8_any_pop2"] = dict(max_abs_err=0.0, plain_ms=tot["plain_ms"],
+                                bound_ms=b_ms, bound_by=b_by, **t7)
 
     # K7c: the primary rays with the uv payload
     hu = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, uv_payload=True)
@@ -838,20 +946,19 @@ def phase7_kernels(r, label):
     mism = {k: int((hu[k].view(torch.int32) != pu[k].view(torch.int32))
                    .sum()) for k in hu}
     same_hits = all(torch.equal(hu[k], hk[k]) for k in hk)
-    ms = cuda_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
-                                            uv_payload=True), 10, warmup=3)
+    t = kernel_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
+                                             uv_payload=True))
     moved, ops = trace_work(scene, "nodes8", (o, d, torch.empty(w * h)), 36,
                             work, OPS_BVH8_NODE)
     hits = int((hu["tri"] >= 0).sum())
     b_ms, b_by = bound(moved + nbytes(scene["uvp"]), ops + hits * OPS_PAYLOAD)
     log(f"[{label}] bvh8_closest_uvp: bit mismatches vs plain {mism}, hits "
-        f"equal to K1's {same_hits}, kernel {ms:.4f} ms, plain (once) "
+        f"equal to K1's {same_hits}, kernel {fmt_ms(t)}, plain (once) "
         f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
     require(sum(mism.values()) == 0 and same_hits,
             f"[{label}] K7c differs from plain or from K1")
-    out["bvh8_closest_uvp"] = dict(max_abs_err=0.0, ms=ms,
-                                   plain_ms=plain_ms, bound_ms=b_ms,
-                                   bound_by=b_by)
+    out["bvh8_closest_uvp"] = dict(max_abs_err=0.0, plain_ms=plain_ms,
+                                   bound_ms=b_ms, bound_by=b_by, **t)
     return out
 
 
@@ -880,7 +987,7 @@ def phase7_frames(r, label):
                                   noise, width=c.width, height=c.height,
                                   gtao_settings=c.gtao)
 
-    ao_launches = dict(gtao_main=1, gtao_denoise=1)
+    ao_launches = dict(gtao_noise=1, gtao_main=1, gtao_denoise=1)
     variants = (
         ("pop2", dict(POP2_DEFAULT=True), rendered,
          dict(bvh8_closest_pop2=1, bvh8_any_pop2=shadow)),
@@ -996,6 +1103,9 @@ def phase8_kernels(r, label):
                 o, d, torch.empty(o.shape[0])), 16, work, OPS_BVH8_NODE))
             out["bvh8_closest_steps"] = dict(
                 max_abs_err=float(mism), ms=sets[0]["ms_counting"],
+                cuda_ms=cuda_ms(lambda: steps_probe.trace(
+                    scene, primary, False, count_steps=True,
+                    push_order=order), 10, warmup=3),
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 launches=launches["bvh8_closest_steps"])
 
@@ -1033,6 +1143,9 @@ def phase8_kernels(r, label):
             b_ms, b_by = bound(tot["bytes"], tot["ops"])
             out["bvh8_any_steps"] = dict(
                 max_abs_err=0.0, ms=row["any_ms_counting"],
+                cuda_ms=sum(cuda_ms(lambda: steps_probe.trace(
+                    scene, rays, True, count_steps=True, push_order=order),
+                    10, warmup=3) for rays in shadow),
                 plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                 launches=launches["bvh8_any_steps"])
         log(f"[{label}] K7a {order}: bit-exact vs plain, t and occlusion "
@@ -1077,7 +1190,7 @@ def phase8_kernels(r, label):
     out["trans_equiv"] = dict(
         max_abs_err=max(tol[op]["max_abs_err"] for op in ("cos", "sin",
                                                            "pow")),
-        ms=build.device_ms(lambda: trans_equiv(*args), 20),
+        **kernel_ms(lambda: trans_equiv(*args), 20),
         plain_ms=cuda_ms(lambda: trans_equiv_plain(*args), 5),
         bound_ms=b_ms, bound_by=b_by, launches=launches["trans_equiv"])
     return out
@@ -1119,7 +1232,7 @@ def phase8_profile(r, label):
     launches = dict(build.launch_counts)
     # one untimed frame and 3 timed ones, each render()'s kernels
     want = dict(ALL_ZERO, bvh8_closest=4, bvh8_any=4 * shadow,
-                gtao_main=4, gtao_denoise=4)
+                gtao_noise=4, gtao_main=4, gtao_denoise=4)
     require(launches == want, f"[{label}] profile_frame launched {launches}")
     require(list(pf.ms_per_pass) == ["rays", "trace", "shade+shadows",
                                      "gtao", "tonemap"]
@@ -1239,7 +1352,8 @@ def main():
             launches=launches,
             max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=None, ms_1080p=k_hd["ms"],
+            bound_by=k["bound_by"], library_ms=None, cuda_ms=k["cuda_ms"],
+            ms_1080p=k_hd["ms"], cuda_ms_1080p=k_hd["cuda_ms"],
             plain_ms_1080p=k_hd["plain_ms"],
             bound_ms_1080p=k_hd["bound_ms"],
             max_abs_err_1080p=k_hd["max_abs_err"]))
@@ -1252,7 +1366,12 @@ def main():
                               for k, v in results.items()},
                         profile={k: v["profile"] for k, v in results.items()},
                         k7a_orders={k: v["kernels"]["k7a_orders"]
-                                    for k, v in results.items()})))
+                                    for k, v in results.items()},
+                        k2_variants={k: v["kernels"]["bvh8_any"]["variants"]
+                                     for k, v in results.items()},
+                        k3_with_noise_table={
+                            k: v["kernels"]["gtao_main"]["with_noise_table"]
+                            for k, v in results.items()})))
     log(card_line())
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps(dict(ok=True, device=dict(

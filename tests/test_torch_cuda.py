@@ -9,12 +9,15 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 the machine with the card need not have.)
 
 Budgets (as chip_smoke.py holds them): K1, K2, K5, K5p, K7a, K7b, K7c and
-K6 bit-identical with their plain versions (K5/K5p also with K2 per set,
-K7a's and K7b's t with K1's, K7a's occlusion with K2's); P1 within
+K6 bit-identical with their plain versions (K2 also with K7a "none" over
+the rows and in its shared-stack and pixel-tile forms, K5/K5p also with K2
+per set, K7a's and K7b's t with K1's, K7a's occlusion with K2's); K3h's
+table within P1's ATOL_TRIG of its plain version; P1 within
 ATOL_TRIG / RTOL_POW of its plain version (kernels/trans_equiv.py); the
 LBVH and the BVH8 refit built on the card equal to the same built on the
 host; K3 edges
-equal and AO within 1 u8 step on <= 0.1% of pixels; K4 within 1 step on
+equal and AO within 1 u8 step on <= 0.1% of pixels (each preset's
+compile-time instantiation and a generic count); K4 within 1 step on
 <= 0.1% (measured equal: the kernels and the plain versions call the same
 device math, but nothing guarantees PyTorch's transcendental kernels keep
 doing so). The frame on the card against the plain frame on the host:
@@ -119,7 +122,8 @@ def test_frame_on_card_matches_host(cuda_frame):
     build.reset_counts()
     img_gpu = r.render_image()
     assert build.launch_counts == _counts(bvh8_closest=1, bvh8_any=3,
-                                          gtao_main=1, gtao_denoise=1)
+                                          gtao_noise=1, gtao_main=1,
+                                          gtao_denoise=1)
     img_cpu = host.render_image()
     # the host's pow/cos/log2 come from another math library than the
     # card's: a sample can move to another mip or a shading term by an ulp
@@ -210,10 +214,10 @@ def test_dynamic_frames_on_card_match_host(cuda_frame):
         Renderer(RendererConfig(width=96, height=80, device="cpu")),
         field=dict(nx=4, nz=4, subdiv=3), cubes=4)
     t = _dynamic_inputs(r)[0]
-    want = {True: _counts(bvh8_closest=1, bvh8_any=3, gtao_main=1,
-                          gtao_denoise=1),
-            False: _counts(gtao_main=1, gtao_denoise=1, bvh2_closest=1,
-                           bvh2_any=3)}
+    want = {True: _counts(bvh8_closest=1, bvh8_any=3, gtao_noise=1,
+                          gtao_main=1, gtao_denoise=1),
+            False: _counts(gtao_noise=1, gtao_main=1, gtao_denoise=1,
+                           bvh2_closest=1, bvh2_any=3)}
     for refit in (True, False):
         host._frame_idx = r._frame_idx
         build.reset_counts()
@@ -346,7 +350,7 @@ def test_variant_frames_on_card(cuda_frame):
             counts = dict(build.launch_counts)
         finally:
             tb.POP2_DEFAULT = tb.UVP_DEFAULT = False
-        want = dict(want, gtao_main=1, gtao_denoise=1)
+        want = dict(want, gtao_noise=1, gtao_main=1, gtao_denoise=1)
         assert counts == want, name
         diff = (img.int() - base.int()).abs().amax(-1)
         if name in ("uvp", "fused"):
@@ -414,8 +418,9 @@ def test_step_count_kernels_bit_identical(cuda_frame, order):
 
 def test_k7a_entries_refuse_other_traces():
     """The K7a C entries take a counted trace or a push order of its own:
-    an uncounted "sort" trace (K1/K2's) and an unknown order come back as
-    cudaErrorInvalidValue (1) before any launch."""
+    an uncounted "sort" closest hit (K1's) and an unknown order come back
+    as cudaErrorInvalidValue (1) before any launch; the any hit takes an
+    uncounted "sort" trace (K2 is bvh8_any.cu's "none")."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import ctypes
@@ -433,8 +438,9 @@ def test_k7a_entries_refuse_other_traces():
             return fn(None, None, None, None, 0.0, None, 0, count_steps,
                       order, *[None] * outs)
 
-        assert [call(0, 0), call(1, 3), call(0, -1)] == [1, 1, 1], name
+        assert [call(1, 3), call(0, -1)] == [1, 1], name
         assert [call(1, 0), call(0, 1), call(1, 2)] == [0, 0, 0], name
+        assert call(0, 0) == (0 if "any" in name else 1), name
 
 
 def test_trans_equiv_kernel_within_tolerance():
@@ -468,7 +474,8 @@ def test_profiler_and_stream_on_card(cuda_frame):
     stats = profiler.profile_frame(r, 2)
     # one untimed and two timed frames of render()'s launches
     assert build.launch_counts == _counts(bvh8_closest=3, bvh8_any=9,
-                                          gtao_main=3, gtao_denoise=3)
+                                          gtao_noise=3, gtao_main=3,
+                                          gtao_denoise=3)
     assert list(stats.ms_per_pass) == ["rays", "trace", "shade+shadows",
                                        "gtao", "tonemap"]
     assert all(v > 0 for v in stats.ms_per_pass.values())
@@ -483,3 +490,81 @@ def test_profiler_and_stream_on_card(cuda_frame):
         got = [out["image"] for out in r.render_stream(4, depth=depth)]
         assert len(got) == 4
         assert all(torch.equal(a, b) for a, b in zip(seq, got))
+
+
+def test_any_hit_kernel_over_compact_table(cuda_frame):
+    """K2 (csrc/bvh8_any.cu, nodes8c) against its plain version and K7a
+    "none" over the rows on the frame's shadow rays, t_max = 0 lanes
+    included, traced as shade() traces them (the frame's shape: 16x8
+    pixel tiles); on consecutive rays it gives the same bits; a frame that
+    is not a multiple of the tile; the deep-tree stack size."""
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.traverse_bvh8 import (any_k7a, any_kernel,
+                                                   any_stack_size,
+                                                   trace_any_bvh8,
+                                                   trace_any_plain,
+                                                   trace_closest_bvh8)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
+
+    r = cuda_frame
+    cam, lights, _ = _inputs(r)
+    sc = r.scene_device
+    w, h = r.config.width, r.config.height
+    o, d = camera_rays(cam, w, h)
+    rays = shadow_rays(sc, cam, lights, trace_closest_bvh8(sc, o, d, T_MIN,
+                                                           T_MAX))
+    assert any_stack_size(sc["depth8"]) == 48
+    assert any_stack_size(27) == 192
+    build.reset_counts()
+    for so, sd, stmax in rays:
+        assert bool((stmax == 0).any())
+        got = trace_any_bvh8(sc, so, sd, SHADOW_T_MIN, stmax, height=h,
+                             width=w)
+        assert torch.equal(got, trace_any_plain(sc, so, sd, SHADOW_T_MIN,
+                                                stmax))
+        assert torch.equal(got, any_k7a(sc, so, sd, SHADOW_T_MIN, stmax,
+                                        "none", False))
+        assert torch.equal(got, any_kernel(sc, so, sd, SHADOW_T_MIN,
+                                           stmax))
+        # 37 of the 80 rows, 96 wide: the last tile row is partial
+        n = 37 * w
+        assert torch.equal(any_kernel(sc, so[:n], sd[:n], SHADOW_T_MIN,
+                                      stmax[:n], tile_w=w), got[:n])
+    assert build.launch_counts == _counts(bvh8_any=9, bvh8_any_steps=3)
+
+
+@pytest.mark.parametrize("preset", [(1, 2), (2, 2), (3, 3), (9, 3), (4, 2)],
+                         ids=lambda p: f"{p[0]}x{p[1]}")
+def test_gtao_main_with_noise_table(cuda_frame, preset):
+    """K3h + K3 against the plain version for each preset's compile-time
+    instantiation and a generic count (4x2): edges equal, AO within 1 u8
+    step on <= 0.1% of pixels; the table within ATOL_TRIG of its plain
+    version; K3 alone on that table gives the same bits; one K3h and one
+    K3 launch per call."""
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.gtao_main import (gtao_main, gtao_noise_table,
+                                               main_kernel, main_pass_plain,
+                                               noise_table_plain)
+    from tpurt_torch.kernels.trans_equiv import ATOL_TRIG
+    from tpurt_torch.passes.gtao import noise_maps_64, prefilter_depths
+
+    r = cuda_frame
+    out = r.render()
+    _, _, gtao = _inputs(r)
+    mips = prefilter_depths(out["depth"], gtao["host"])
+    noise = noise_maps_64(7, r.device)
+    kw = dict(slice_count=preset[0], steps_per_slice=preset[1])
+    build.reset_counts()
+    ao_k, ed_k = gtao_main(mips, out["normal"], gtao["vec"], noise, **kw)
+    assert build.launch_counts == _counts(gtao_noise=1, gtao_main=1)
+    ao_p, ed_p = main_pass_plain(mips, out["normal"], gtao["vec"], noise,
+                                 **kw)
+    assert torch.equal(ed_k, ed_p)
+    d = (ao_k.int() - ao_p.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    table = gtao_noise_table(noise, gtao["vec"], **kw)
+    assert float((table - noise_table_plain(noise, gtao["vec"], **kw))
+                 .abs().max()) <= ATOL_TRIG
+    alone = main_kernel(mips, out["normal"], gtao["vec"], table, **kw)
+    assert torch.equal(alone[0], ao_k) and torch.equal(alone[1], ed_k)

@@ -126,6 +126,7 @@ def test_stack_bounds():
     from test_bvh import random_tris
     from tpurt_torch.bvh import build_bvh_sah, collapse8
     from tpurt_torch.bvh.flat import tri_aabbs
+    from tpurt_torch.bvh.wide import compact_bvh8
     from tpurt_torch.engine import convert
     from tpurt_torch.kernels.traverse_bvh8 import (STACK_SIZE,
                                                    stack_entries,
@@ -145,6 +146,7 @@ def test_stack_bounds():
         geom = dict(v0=v0[order], e1=v1[order] - v0[order],
                     e2=v2[order] - v0[order], tri_id=order.astype(np.int32))
         scene = dict(nodes8=torch.tensor(nodes8), depth8=depth8,
+                     nodes8c=compact_bvh8(torch.tensor(nodes8)),
                      tris=torch.tensor(convert.pack_tris(geom)))
         depths.add(depth8)
         o = torch.tensor(rng.uniform(-6, 6, (2000, 3)), dtype=torch.float32)

@@ -53,6 +53,7 @@ def random_scenes():
     from tpurt.kernels.traverse import make_traversal_geom
     from tpurt_torch.bvh import build_bvh_sah, collapse8
     from tpurt_torch.bvh.flat import tri_aabbs
+    from tpurt_torch.bvh.wide import compact_bvh8
     from tpurt_torch.engine import convert
 
     v0, v1, v2 = random_tris(200, seed=7, spread=3.0, size=1.5)
@@ -68,6 +69,7 @@ def random_scenes():
     geom = dict(v0=v0[order], e1=v1[order] - v0[order],
                 e2=v2[order] - v0[order], tri_id=order.astype(np.int32))
     port = dict(nodes8=torch.tensor(nodes8),
+                nodes8c=compact_bvh8(torch.tensor(nodes8)),
                 tris=torch.tensor(convert.pack_tris(geom)),
                 depth8=depth8, num_tris=len(order))
     assert depth8 == convert.bvh8_depth(nodes8)

@@ -15,6 +15,14 @@ Row layout (f32 lanes; indices as exact small floats < 2^24):
   [56 + k]        leaf first-triangle index (0 if not leaf)
   [64 + k]        leaf triangle count (0 if internal/empty)
 Empty slots carry an inverted box, so every slab test misses them.
+
+The compact table ``nodes8c`` (:func:`compact_bvh8`, read by the any-hit
+kernel K2) holds per node 56 f32 lanes: the 8 child boxes as structure of
+arrays, [a*8 + k] = row lane [k*6 + a] (a = min x, y, z, max x, y, z; the
+same bits), then [48 + k] child k's stack code as int32 bits: the internal
+child's wide index, a leaf's -(first * LEAF_CODE_BASE + count) - 1, or
+EMPTY_CODE (-1, which no leaf gives: a leaf holds at least one triangle)
+for an empty slot. 224 bytes per node.
 """
 from __future__ import annotations
 
@@ -24,6 +32,10 @@ BRANCHING = 8
 LEAF8_MAX = 32
 _EMPTY_MIN = 3.0e37
 _EMPTY_MAX = -3.0e37
+# stack codes of leaves: -(first * LEAF_CODE_BASE + count) - 1
+LEAF_CODE_BASE = 128
+EMPTY_CODE = -1
+COMPACT_LANES = 56
 
 
 def _subtree_ranges(entry, skip, first, count, is_leaf):
@@ -151,6 +163,25 @@ def collapse8(bvh: dict, leaf_max: int = LEAF8_MAX):
                 nodes8[w, base + 3:base + 6] = amax[payload]
                 nodes8[w, 48 + k_slot] = float(wide_of[payload])
     return nodes8, depth
+
+
+def compact_bvh8(nodes8):
+    """The compact table (M, 56) f32 of (M, 128) BVH8 rows (a tensor, on
+    its device; module docstring): the box lanes regrouped by coordinate
+    and the child codes K2 pushes, each slot's code as the traversal
+    kernels' child_code computes it."""
+    import torch
+
+    m = nodes8.shape[0]
+    boxes = nodes8[:, :48].reshape(m, 8, 6).transpose(1, 2).reshape(m, 48)
+    child, first, count = (nodes8[:, a:a + 8].to(torch.int32)
+                           for a in (48, 56, 64))
+    internal = nodes8[:, 48:56] >= 0.0
+    leaf = nodes8[:, 64:72] > 0.0
+    codes = torch.where(internal, child,
+                        torch.where(leaf, -(first * LEAF_CODE_BASE + count)
+                                    - 1, torch.full_like(child, EMPTY_CODE)))
+    return torch.cat([boxes, codes.view(torch.float32)], dim=1).contiguous()
 
 
 # ------------------------------------------------------------------ refit --

@@ -1,5 +1,5 @@
-// Device code shared by the BVH8 traversal kernels (bvh8_trace.cu: K1, K2,
-// K7b, K7c; bvh8_multi.cu: K5, K5p).
+// Device code shared by the BVH8 traversal kernels (bvh8_trace.cu: K1, K7a,
+// K7b, K7c; bvh8_any.cu: K2; bvh8_multi.cu: K5, K5p).
 //
 // Exactness: the slab test and Moller-Trumbore use the operation order of
 // tpurt's _Rays.slab / _Rays.mt; min/max propagate NaN like jnp.minimum;

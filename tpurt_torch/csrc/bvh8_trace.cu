@@ -2,11 +2,12 @@
 //
 // Replaces tpurt/kernels/traverse_bvh8.py in four forms, each a template
 // variant of one kernel:
-//   K1/K2  _kernel_bvh8_single, any_hit=False (trace_closest_bvh8) and
-//          any_hit=True (trace_any_bvh8);
+//   K1     _kernel_bvh8_single, any_hit=False (trace_closest_bvh8); K2, its
+//          any_hit=True form at the default push order, is bvh8_any.cu;
 //   K7a    _kernel_bvh8 (and _kernel_bvh8_single) with count_steps and
 //          push_order: COUNT_STEPS counts the node and leaf entries a ray
-//          visits, ORDER picks the push order of a node's hit children;
+//          visits, ORDER picks the push order of a node's hit children
+//          (any hit: every order, counted or not, over the nodes8 rows);
 //   K7b    _kernel_bvh8_pop2 (pop2=True), closest and any: two stack
 //          entries per iteration;
 //   K7c    the uv-payload outputs of _kernel_bvh8_single (uv_payload=True):
@@ -314,7 +315,7 @@ void launch(const float* nodes, const float* tris, const float* uvp,
 }
 
 // K7a: one-pop traversal with step counts and/or another push order; an
-// uncounted "sort" trace is K1/K2 and is not instantiated here
+// uncounted "sort" closest hit is K1 and is not instantiated here
 template <bool ANY_HIT, bool COUNT_STEPS>
 void launch_k7a(int order, const float* nodes, const float* tris,
                 const float* origin, const float* direction, float t_min,
@@ -329,16 +330,17 @@ void launch_k7a(int order, const float* nodes, const float* tris,
     launch<ANY_HIT, false, false, COUNT_STEPS, ORDER_NONE>(
         nodes, tris, nullptr, origin, direction, t_min, t_max, n, t_out,
         tri_out, u_out, v_out, nullptr, occ_out, stream);
-  else if constexpr (COUNT_STEPS)
-    launch<ANY_HIT, false, false, true, ORDER_SORT>(
+  else if constexpr (COUNT_STEPS || ANY_HIT)
+    launch<ANY_HIT, false, false, COUNT_STEPS, ORDER_SORT>(
         nodes, tris, nullptr, origin, direction, t_min, t_max, n, t_out,
         tri_out, u_out, v_out, nullptr, occ_out, stream);
 }
 
 // the orders K7a takes: any with counting, "nearlast" / "none" without
-bool k7a_valid(int count_steps, int order) {
+// (an uncounted "sort" closest hit is K1); an any hit takes every order
+bool k7a_valid(int count_steps, int order, bool any_hit) {
   return order >= ORDER_SORT && order <= ORDER_NONE &&
-         (count_steps || order != ORDER_SORT);
+         (count_steps || any_hit || order != ORDER_SORT);
 }
 
 }  // namespace
@@ -375,32 +377,29 @@ int tpurt_bvh8_closest(const float* nodes, const float* tris,
   return (int)cudaGetLastError();
 }
 
-int tpurt_bvh8_any(const float* nodes, const float* tris, const float* origin,
-                   const float* direction, float t_min, const float* t_max,
-                   int n, int pop2, uint8_t* occ_out, cudaStream_t stream) {
-  if (n > 0) {
-    if (pop2)
-      launch<true, true, false>(nodes, tris, nullptr, origin, direction,
-                                t_min, t_max, n, nullptr, nullptr, nullptr,
-                                nullptr, nullptr, occ_out, stream);
-    else
-      launch<true, false, false>(nodes, tris, nullptr, origin, direction,
-                                 t_min, t_max, n, nullptr, nullptr, nullptr,
-                                 nullptr, nullptr, occ_out, stream);
-  }
+// K7b any hit: two pops per iteration, sorted pushes
+int tpurt_bvh8_any_pop2(const float* nodes, const float* tris,
+                        const float* origin, const float* direction,
+                        float t_min, const float* t_max, int n,
+                        uint8_t* occ_out, cudaStream_t stream) {
+  if (n > 0)
+    launch<true, true, false>(nodes, tris, nullptr, origin, direction, t_min,
+                              t_max, n, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, occ_out, stream);
   return (int)cudaGetLastError();
 }
 
 // K7a, one pop: order 0 sort, 1 nearlast, 2 none; with count_steps the
 // node and leaf pops land in u_out / v_out (f32), for any hit beside occ.
-// An uncounted "sort" trace is refused: it is tpurt_bvh8_closest / _any.
+// An uncounted "sort" closest hit is refused: it is tpurt_bvh8_closest.
 int tpurt_bvh8_closest_k7a(const float* nodes, const float* tris,
                            const float* origin, const float* direction,
                            float t_min, const float* t_max, int n,
                            int count_steps, int order, float* t_out,
                            int* tri_out, float* u_out, float* v_out,
                            cudaStream_t stream) {
-  if (!k7a_valid(count_steps, order)) return (int)cudaErrorInvalidValue;
+  if (!k7a_valid(count_steps, order, false))
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
     if (count_steps)
       launch_k7a<false, true>(order, nodes, tris, origin, direction, t_min,
@@ -420,7 +419,8 @@ int tpurt_bvh8_any_k7a(const float* nodes, const float* tris,
                        int count_steps, int order, uint8_t* occ_out,
                        float* node_out, float* leaf_out,
                        cudaStream_t stream) {
-  if (!k7a_valid(count_steps, order)) return (int)cudaErrorInvalidValue;
+  if (!k7a_valid(count_steps, order, true))
+    return (int)cudaErrorInvalidValue;
   if (n > 0) {
     if (count_steps)
       launch_k7a<true, true>(order, nodes, tris, origin, direction, t_min,

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..bvh.wide import LEAF8_MAX
+from ..bvh.wide import LEAF8_MAX, compact_bvh8
 from ..kernels.gtao_main import GTAO_VEC
 from ..kernels.traverse_bvh2 import kernel_stack
 from ..kernels.traverse_bvh8 import STACK_SIZE, stack_entries
@@ -130,14 +130,18 @@ def _quad_tensors(quad48, device) -> dict:
 def scene_tensors(pt: dict, device) -> dict:
     """Static scene tables on `device`. Raises when the BVH8 could overflow
     the one-pop traversal stack or a leaf is wider than the kernels' leaf
-    loop (the two-pop kernels check their own bound when called). When the
+    loop (the two-pop kernels check their own bound when called). Beside
+    the (M, 128) rows ``nodes8`` it carries their compact table ``nodes8c``
+    (``bvh/wide.compact_bvh8``), which the any-hit kernel K2 reads. When the
     geometry carries the uv payload (``geom["uvp"]``, (T, 9) f32 in BVH
     leaf order), it is uploaded as its own table ``uvp`` beside the 48-byte
     ``tris`` rows; only the payload kernel reads it."""
     nodes8 = np.asarray(pt["bvh"]["nodes8"], np.float32)
     depth8 = _check_bvh8(nodes8)
+    nodes8 = _t(nodes8, device)
     out = dict(
-        nodes8=_t(nodes8, device),
+        nodes8=nodes8,
+        nodes8c=compact_bvh8(nodes8),
         tris=_t(pack_tris(pt["geom"]), device),
         num_tris=int(pt["geom"]["v0"].shape[0]),
         depth8=depth8,

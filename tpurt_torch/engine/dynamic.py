@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from ..bvh.lbvh import build_lbvh, depth_bound
-from ..bvh.wide import LEAF8_MAX, refit_bvh8, refit_plan, refit_quality
+from ..bvh.wide import (LEAF8_MAX, compact_bvh8, refit_bvh8, refit_plan,
+                        refit_quality)
 from ..kernels.traverse_bvh2 import trace_closest_bvh2
 from ..kernels.traverse_bvh8 import trace_closest_bvh8
 from ..passes.encodings import divide
@@ -132,7 +133,8 @@ def render_frame_dynamic(obj: dict, transforms, camera: dict, lights: dict,
     origin, direction = camera_rays(camera, width, height)
     hits = trace_closest_bvh2(scene, origin, direction, T_MIN, T_MAX,
                               max_leaf=1)
-    g = shade(scene, camera, lights, hits, tables="bvh2", max_leaf=1)
+    g = shade(scene, camera, lights, hits, tables="bvh2", max_leaf=1,
+              height=height, width=width)
     return finish_frame(g, gtao, lpm, noise_index, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,
@@ -165,7 +167,8 @@ def render_frame_dynamic_refit(obj: dict, refit: dict, transforms,
                                enable_gtao: bool = True,
                                enable_tonemap: bool = True) -> dict:
     """One frame with the rest-pose BVH8 refit to the moved triangles, then
-    the static frame's path (K1, K2, pass tail). `refit` is
+    the static frame's path (K1, K2 over the compact table rebuilt from the
+    refit rows, pass tail). `refit` is
     ``convert.refit_tensors(make_refit_data(scene), device)``. The output
     adds ``refit_sah_ratio``: refit_quality over the rest pose's, a 0-dim
     tensor on the device."""
@@ -181,14 +184,16 @@ def render_frame_dynamic_refit(obj: dict, refit: dict, transforms,
                        refit["rest_quality"])
 
     geom = dict(v0=v0, e1=v1 - v0, e2=v2 - v0, tri_id=refit["order"])
-    scene = dict(nodes8=nodes8, tris=pack_tris_device(geom),
+    scene = dict(nodes8=nodes8, nodes8c=compact_bvh8(nodes8),
+                 tris=pack_tris_device(geom),
                  depth8=refit["depth8"],
                  tri_attr=_tri_attr(obj, vtx_pos, vtx_normal, vtx_tangent),
                  tex_quad=obj["tex_quad"],
                  tex_quad_shape=obj["tex_quad_shape"])
     origin, direction = camera_rays(camera, width, height)
     hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX)
-    g = shade(scene, camera, lights, hits, tables="bvh8")
+    g = shade(scene, camera, lights, hits, tables="bvh8", height=height,
+              width=width)
     out = finish_frame(g, gtao, lpm, noise_index, width=width,
                        height=height, gtao_settings=gtao_settings,
                        enable_gtao=enable_gtao,

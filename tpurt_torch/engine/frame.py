@@ -90,7 +90,8 @@ def _frame(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
     with step("trace"):
         hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX)
     with step("shade"):
-        g = shade(scene, camera, lights, hits, fuse_shadows=fuse_shadows)
+        g = shade(scene, camera, lights, hits, fuse_shadows=fuse_shadows,
+                  height=height, width=width)
     return finish_frame(g, gtao, lpm, noise_index, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,

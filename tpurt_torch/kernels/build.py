@@ -38,9 +38,9 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
 # one plain integer per kernel entry point, bumped only where it launches;
 # bvh8_closest_steps / bvh8_any_steps count every K7a launch, counted or
 # with another push order
-launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_main": 0,
-                 "gtao_denoise": 0, "bvh2_closest": 0, "bvh2_any": 0,
-                 "bvh8_any_multi": 0, "bvh8_any_multi_pop2": 0,
+launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_noise": 0,
+                 "gtao_main": 0, "gtao_denoise": 0, "bvh2_closest": 0,
+                 "bvh2_any": 0, "bvh8_any_multi": 0, "bvh8_any_multi_pop2": 0,
                  "bvh8_closest_pop2": 0, "bvh8_any_pop2": 0,
                  "bvh8_closest_uvp": 0, "bvh8_closest_steps": 0,
                  "bvh8_any_steps": 0, "trans_equiv": 0}
@@ -170,6 +170,16 @@ def require_cuda(name: str, tensors: dict, device):
                              f"{device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def pick_stack(need: int, sizes, tree: str, kernel: str) -> int:
+    """The least of the ascending stack instantiations `sizes` that holds
+    `need` entries; refuses a `tree` that needs more than `kernel` holds."""
+    for size in sizes:
+        if need <= size:
+            return size
+    raise ValueError(f"{tree} needs {need} stack entries; {kernel} holds at "
+                     f"most {sizes[-1]}")
 
 
 # cycles of the spin kernel queued ahead of a timed run (about 2.5 ms at

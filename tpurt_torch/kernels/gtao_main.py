@@ -1,16 +1,24 @@
-"""XeGTAO main pass (K3, with the noise hoist K3h computed inline).
+"""XeGTAO main pass (K3) and its noise table (K3h).
 
 ``gtao_main`` replaces tpurt's ``main_pass_pallas``
-(``tpurt/kernels/gtao_main_pallas.py``). On CUDA tensors it launches
-``csrc/gtao_main.cu``; on CPU tensors it runs :func:`main_pass_plain`, the
-PyTorch port of tpurt's XLA ``passes/gtao.py:main_pass`` (full frame, no
-bent normals, f32). Both read the depth pyramid by direct point loads with
-main_pass's mip selection, and compute the slice angle's cos/sin and the
-sample-distribution pow per pixel with main_pass's expressions.
+(``tpurt/kernels/gtao_main_pallas.py``), which runs ``_noise_hoist_kernel``
+(K3h) before its main kernel (K3). On CUDA tensors it launches both kernels
+of ``csrc/gtao_main.cu``: ``gtao_noise_table`` (K3h) builds the per-texel
+table of everything that depends only on the 64x64 noise maps (per slice
+the slice angle's cos and sin, per slice and step the sample-distribution
+pow), then the main kernel reads it per pixel. On CPU tensors it runs
+:func:`main_pass_plain`, the PyTorch port of tpurt's XLA
+``passes/gtao.py:main_pass`` (full frame, no bent normals, f32), split the
+same way: :func:`noise_table_plain` plus the per-pixel body, with
+main_pass's expressions, so its bits are those of main_pass's inline form.
+Both read the depth pyramid by direct point loads with main_pass's mip
+selection.
 
 Inputs: five R16F-valued depth mips (f32), the encoded view normals
 (H, W, 3), the (14,) constants vector of ``engine/convert.gtao_tensors``
 and the two 64x64 noise maps. Outputs: AO u8 and packed LRTB edges u8.
+The table: (slice_count * (2 + steps), 64, 64) f32, per slice the planes
+cos, sin, then the pow of each step.
 """
 from __future__ import annotations
 
@@ -43,48 +51,111 @@ def _mip_meta(mips):
     return offs, [h for h, _ in sizes], [w for _, w in sizes]
 
 
-def _check(name, mips, normal_enc, gvec, noise):
+def _check(name, mips, normal_enc, gvec, noise=None):
     if len(mips) != XE_GTAO_DEPTH_MIP_LEVELS:
         raise ValueError(f"{name}: expected {XE_GTAO_DEPTH_MIP_LEVELS} mips")
     h, w = mips[0].shape
     if normal_enc.shape != (h, w, 3):
         raise ValueError(f"{name}: normal_enc {tuple(normal_enc.shape)} "
                          f"does not match depth ({h}, {w})")
-    if gvec.shape != (len(GTAO_VEC),) or noise.shape != (2, 64, 64):
+    if gvec.shape != (len(GTAO_VEC),) or (
+            noise is not None and noise.shape != (2, 64, 64)):
         raise ValueError(f"{name}: bad constants or noise shape")
-    for t in (*mips, normal_enc, gvec, noise):
+    tensors = dict(normal_enc=normal_enc, gvec=gvec,
+                   **{f"mip{i}": m for i, m in enumerate(mips)})
+    if noise is not None:
+        tensors["noise"] = noise
+    for t in tensors.values():
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: inputs must be float32")
     dev = mips[0].device
-    tensors = dict(normal_enc=normal_enc, gvec=gvec, noise=noise,
-                   **{f"mip{i}": m for i, m in enumerate(mips)})
     if dev.type == "cuda":
         build.require_cuda(name, tensors, dev)
     elif any(t.device.type != "cpu" for t in tensors.values()):
         raise ValueError(f"{name}: mixed devices")
 
 
+def _check_counts(name, slice_count, steps_per_slice):
+    if slice_count < 1 or steps_per_slice < 1:
+        raise ValueError(f"{name}: slice_count and steps_per_slice must be "
+                         f">= 1, got {slice_count}, {steps_per_slice}")
+
+
+def table_planes(slice_count: int, steps_per_slice: int) -> int:
+    """Planes of the noise table: per slice cos, sin and one pow per step."""
+    return slice_count * (2 + steps_per_slice)
+
+
+def gtao_noise_table(noise, gvec, *, slice_count: int, steps_per_slice: int):
+    """K3h: the (planes, 64, 64) f32 noise table of the module docstring.
+    On CUDA tensors it launches csrc/gtao_main.cu's noise kernel, on CPU
+    tensors it runs noise_table_plain."""
+    name = "gtao_noise_table"
+    _check_counts(name, slice_count, steps_per_slice)
+    if noise.shape != (2, 64, 64) or gvec.shape != (len(GTAO_VEC),) \
+            or noise.dtype != torch.float32 or gvec.dtype != torch.float32:
+        raise ValueError(f"{name}: noise must be (2, 64, 64) and the "
+                         f"constants ({len(GTAO_VEC)},), both float32")
+    if not noise.is_cuda:
+        if gvec.device.type != "cpu":
+            raise ValueError(f"{name}: mixed devices")
+        return noise_table_plain(noise, gvec, slice_count=slice_count,
+                                 steps_per_slice=steps_per_slice)
+    build.require_cuda(name, dict(noise=noise, gvec=gvec), noise.device)
+    table = torch.empty((table_planes(slice_count, steps_per_slice), 64, 64),
+                        dtype=torch.float32, device=noise.device)
+    fn = build.function("tpurt_gtao_noise_table", [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+    p = build.ptr
+    build.check(fn(p(noise), p(gvec), slice_count, steps_per_slice, p(table),
+                   build.stream_of(noise)), "tpurt_gtao_noise_table")
+    build.launch_counts["gtao_noise"] += 1
+    return table
+
+
 def gtao_main(mips, normal_enc, gvec, noise, *, slice_count: int,
               steps_per_slice: int):
-    """Returns (ao_u8 (H, W), edges_u8 (H, W))."""
+    """Returns (ao_u8 (H, W), edges_u8 (H, W)): K3h then K3 on CUDA
+    tensors, main_pass_plain on CPU tensors."""
     _check("gtao_main", mips, normal_enc, gvec, noise)
+    _check_counts("gtao_main", slice_count, steps_per_slice)
     if not mips[0].is_cuda:
         return main_pass_plain(mips, normal_enc, gvec, noise,
                                slice_count=slice_count,
                                steps_per_slice=steps_per_slice)
+    table = gtao_noise_table(noise, gvec, slice_count=slice_count,
+                             steps_per_slice=steps_per_slice)
+    return main_kernel(mips, normal_enc, gvec, table,
+                       slice_count=slice_count,
+                       steps_per_slice=steps_per_slice)
+
+
+def main_kernel(mips, normal_enc, gvec, table, *, slice_count: int,
+                steps_per_slice: int):
+    """K3 alone on CUDA tensors, reading K3h's `table` for the same
+    counts."""
+    name = "gtao_main"
+    planes = table_planes(slice_count, steps_per_slice)
+    if table.shape != (planes, 64, 64) or table.dtype != torch.float32:
+        raise ValueError(f"{name}: table must be ({planes}, 64, 64) float32")
+    _check(name, mips, normal_enc, gvec)
     dev = mips[0].device
+    build.require_cuda(name, dict(table=table), dev)
     h, w = mips[0].shape
-    offs, hs, ws = _mip_meta(mips)
-    atlas = torch.cat([m.reshape(-1) for m in mips])
-    meta = torch.tensor(offs + hs + ws, dtype=torch.int32, device=dev)
     ao = torch.empty((h, w), dtype=torch.uint8, device=dev)
     edges = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    levels = (ctypes.c_void_p * XE_GTAO_DEPTH_MIP_LEVELS)(
+        *(m.data_ptr() for m in mips))
+    dims = (ctypes.c_int * (2 * XE_GTAO_DEPTH_MIP_LEVELS))(
+        *(int(m.shape[0]) for m in mips), *(int(m.shape[1]) for m in mips))
     fn = build.function("tpurt_gtao_main", [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
     p = build.ptr
-    build.check(fn(p(atlas), p(meta), p(normal_enc), p(gvec), p(noise),
-                   h, w, slice_count, steps_per_slice, p(ao), p(edges),
-                   build.stream_of(atlas)), "tpurt_gtao_main")
+    build.check(fn(ctypes.cast(levels, ctypes.c_void_p),
+                   ctypes.cast(dims, ctypes.c_void_p), p(normal_enc),
+                   p(gvec), p(table), h, w, slice_count, steps_per_slice,
+                   p(ao), p(edges), build.stream_of(table)),
+                "tpurt_gtao_main")
     build.launch_counts["gtao_main"] += 1
     return ao, edges
 
@@ -107,10 +178,40 @@ def _clip(x, lo, hi):
     return torch.clamp(x, lo, hi)
 
 
+def noise_table_plain(noise, gvec, *, slice_count: int,
+                      steps_per_slice: int):
+    """Plain version of K3h: main_pass's noise-only expressions on the 64x64
+    noise maps. Returns (planes, 64, 64) f32 (module docstring)."""
+    sdp = gvec[GTAO_VEC.index("sample_distribution_power")]
+    planes = []
+    for slice_i in range(slice_count):
+        slice_k = divide(slice_i + noise[0], slice_count)
+        phi = slice_k * PI
+        planes += [torch.cos(phi), torch.sin(phi)]
+        for step in range(steps_per_slice):
+            step_base_noise = ((slice_i + step * steps_per_slice)
+                               * 0.6180339887498948482)
+            step_noise = torch.fmod(noise[1] + step_base_noise, 1.0)
+            s = divide(step + step_noise, steps_per_slice)
+            planes.append(torch.pow(s, sdp))
+    return torch.stack(planes)
+
+
 def main_pass_plain(mips, normal_enc, gvec, noise, *, slice_count: int,
                     steps_per_slice: int):
     """PyTorch port of tpurt's ``passes/gtao.py:main_pass`` (XeGTAO
-    MainPass). Dot products and norms sum left to right."""
+    MainPass): noise_table_plain, then the per-pixel body reading it."""
+    table = noise_table_plain(noise, gvec, slice_count=slice_count,
+                              steps_per_slice=steps_per_slice)
+    return main_body_plain(mips, normal_enc, gvec, table,
+                           slice_count=slice_count,
+                           steps_per_slice=steps_per_slice)
+
+
+def main_body_plain(mips, normal_enc, gvec, table, *, slice_count: int,
+                    steps_per_slice: int):
+    """The per-pixel part of main_pass_plain, reading the noise table of
+    the same counts. Dot products and norms sum left to right."""
     g = {k: gvec[i] for i, k in enumerate(GTAO_VEC)}
     d0 = mips[0]
     h, w = d0.shape
@@ -169,8 +270,11 @@ def main_pass_plain(mips, normal_enc, gvec, noise, *, slice_count: int,
     visibility = _clip(divide(10.0 - ssr, 100.0), 0.0, 1.0) * 0.5
     min_s = rdivide(1.3, ssr)
 
-    noise_slice = noise[0][yi % 64][:, xi % 64]
-    noise_sample = noise[1][yi % 64][:, xi % 64]
+    ty, tx = yi % 64, xi % 64
+
+    def texels(plane):
+        """Plane `plane` of the table at every pixel's noise texel."""
+        return table[plane][ty][:, tx]
 
     def sample(mip, ux, uy):
         hm = hs_t[mip]
@@ -196,11 +300,11 @@ def main_pass_plain(mips, normal_enc, gvec, noise, *, slice_count: int,
         shc = low + (shc - low) * weight
         return torch.maximum(hcos, shc)
 
+    per_slice = 2 + steps_per_slice
     for slice_i in range(slice_count):
-        slice_k = divide(slice_i + noise_slice, slice_count)
-        phi = slice_k * PI
-        cos_phi = torch.cos(phi)
-        sin_phi = torch.sin(phi)
+        plane = slice_i * per_slice
+        cos_phi = texels(plane)
+        sin_phi = texels(plane + 1)
         omega_x = cos_phi * ssr
         omega_y = -sin_phi * ssr
 
@@ -222,11 +326,7 @@ def main_pass_plain(mips, normal_enc, gvec, noise, *, slice_count: int,
         low1 = torch.cos(n_angle - PI_HALF)
         h0c, h1c = low0, low1
         for step in range(steps_per_slice):
-            step_base_noise = ((slice_i + step * steps_per_slice)
-                               * 0.6180339887498948482)
-            step_noise = torch.fmod(noise_sample + step_base_noise, 1.0)
-            s = divide(step + step_noise, steps_per_slice)
-            s = torch.pow(s, g["sample_distribution_power"]) + min_s
+            s = texels(plane + 2 + step) + min_s
 
             so_x = s * omega_x
             so_y = s * omega_y

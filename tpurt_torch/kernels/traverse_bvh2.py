@@ -50,12 +50,8 @@ def stack_entries(depth: int) -> int:
 def kernel_stack(depth: int) -> int:
     """The smallest kernel stack that holds a tree of `depth`; raises for a
     deeper tree (tpurt clamps its stack silently, the port refuses)."""
-    need = stack_entries(depth)
-    for size in STACK_SIZES:
-        if need <= size:
-            return size
-    raise ValueError(f"binary BVH depth {depth} needs {need} stack entries; "
-                     f"the K6 kernel holds at most {STACK_SIZES[-1]}")
+    return build.pick_stack(stack_entries(depth), STACK_SIZES,
+                            f"binary BVH depth {depth}", "the K6 kernel")
 
 
 def _t_max_tensor(t_max, n, like):

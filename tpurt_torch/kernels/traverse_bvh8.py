@@ -5,9 +5,17 @@ orders (K7a) and the fused multi-set any hit (K5, two-pop K5p).
 ``trace_closest_bvh8``, ``trace_any_bvh8`` and ``trace_any_bvh8_multi``
 replace tpurt's entry points of the same names
 (``tpurt/kernels/traverse_bvh8.py``). On CUDA tensors they launch
-``csrc/bvh8_trace.cu`` / ``csrc/bvh8_multi.cu``; on CPU tensors they run the
-plain PyTorch versions below, which visit stack entries in the kernels'
-order and give bit-identical results. There is no fallback between the two.
+``csrc/bvh8_trace.cu`` / ``csrc/bvh8_any.cu`` (K2) / ``csrc/bvh8_multi.cu``;
+on CPU tensors they run the plain PyTorch versions below, which visit stack
+entries in the kernels' order and give bit-identical results. There is no
+fallback between the two.
+
+K2, the any hit at tpurt's default push order "none", reads the scene's
+compact node table ``nodes8c`` (``bvh/wide.compact_bvh8``; 224 bytes per
+node, child codes precomputed); every other trace reads the ``nodes8``
+rows. Its stack (local memory) holds codes only and has
+``ANY_STACK_SIZES`` entries, the least that ``stack_entries(depth8)``
+fits.
 
 Contract (tpurt's): ``t = t_max``, ``tri = -1``, ``u = v = 0`` on a miss;
 ``tri`` is the global triangle id; a ray with ``t_max <= t_min`` is never
@@ -41,12 +49,14 @@ test counts nothing); tpurt counts per 32x32 packet, the port per ray
 ``"nearlast"`` (slot order, the first nearest hit child pushed last, so it
 pops first) or ``"none"`` (slot order, slot 7 on top). The closest hit's
 ``t`` and the occlusion do not depend on the order; ``tri`` may change on
-equal-t ties. ``push_order=None`` is ``"sort"`` for both traces (tpurt's
-any hit defaults to ``"none"``: ROADMAP §3). Where the counts equal
-tpurt's: a packet whose lanes all hold one ray counts that ray's pops, and
-tpurt pops every pushed entry, reading the ones the port drops; its
-"sort" and "nearlast" keys are the child boxes' centroids along the
-packet's mean direction, not the entry distance (ROADMAP §3). So under
+equal-t ties. ``push_order=None`` is tpurt's default: ``"sort"`` for the
+closest hit, ``"none"`` for the any hit (``"sort"``, the two-pop kernel's
+fixed order, when ``pop2`` resolves on). The uncounted one-pop any hit at
+"none" is K2; every other order or a counted any hit is K7a. Where the
+counts equal tpurt's: a packet whose lanes all hold one ray counts that
+ray's pops, and tpurt pops every pushed entry, reading the ones the port
+drops; its "sort" and "nearlast" keys are the child boxes' centroids along
+the packet's mean direction, not the entry distance (ROADMAP §3). So under
 "none" tpurt's counts are the port's plus the dropped pops, and a closest
 hit that misses, or an any hit that is not occluded, has tpurt's counts
 under every order (tests/test_torch_steps.py).
@@ -63,7 +73,7 @@ import ctypes
 
 import torch
 
-from ..bvh.wide import LEAF8_MAX
+from ..bvh.wide import EMPTY_CODE, LEAF8_MAX, LEAF_CODE_BASE
 from . import build
 
 # the two-pop kernels (K7b, K5p) when a caller passes pop2=None
@@ -73,10 +83,12 @@ POP2_DEFAULT = False
 UVP_DEFAULT = False
 # ray sets per fused any-hit launch (MULTI_SETS_MAX in csrc/bvh8_multi.cu)
 MULTI_SETS_MAX = 4
-LEAF_CODE_BASE = 128
 # the per-thread stack of the CUDA kernels (STACK_SIZE in
 # csrc/bvh8_common.cuh); the wrappers refuse trees that could need more
 STACK_SIZE = 192
+# K2's stack instantiations (csrc/bvh8_any.cu), codes only; the wrapper
+# takes the least that holds stack_entries(depth8)
+ANY_STACK_SIZES = (48, STACK_SIZE)
 PAYLOAD_KEYS = ("texu", "texv", "img", "texh", "texw")
 # K7a's push orders, by their code in csrc/bvh8_trace.cu
 PUSH_ORDERS = ("sort", "nearlast", "none")
@@ -109,6 +121,19 @@ def _t_max_tensor(t_max, n, like):
         return t_max.to(torch.float32).expand(n).contiguous()
     return torch.full((n,), float(t_max), dtype=torch.float32,
                       device=like.device)
+
+
+def _check_compact(name, scene):
+    """K2's table: (M, 56) f32, one row per nodes8 row."""
+    nc = scene.get("nodes8c")
+    if nc is None:
+        raise ValueError(f"{name}: the any hit needs scene['nodes8c'] "
+                         f"(bvh/wide.compact_bvh8; convert.scene_tensors "
+                         f"builds it)")
+    if nc.dtype != torch.float32 or nc.ndim != 2 or nc.shape[1] != 56 \
+            or nc.shape[0] != scene["nodes8"].shape[0]:
+        raise ValueError(f"{name}: nodes8c must be (M, 56) float32 beside "
+                         f"(M, 128) nodes8")
 
 
 def _check_tables(name, scene):
@@ -152,15 +177,21 @@ def _resolve_pop2(pop2):
     return POP2_DEFAULT if pop2 is None else bool(pop2)
 
 
-def _resolve_k7a(name, pop2, count_steps, push_order):
-    """(pop2, push order) of a trace call, with tpurt's refusals: counting
-    and push orders other than "sort" are one-pop only."""
-    order = "sort" if push_order is None else push_order
-    if order not in PUSH_ORDERS:
+def _resolve_k7a(name, pop2, count_steps, push_order, any_hit=False):
+    """(pop2, push order) of a trace call, with tpurt's defaults and
+    refusals: counting and push orders other than "sort" are one-pop only;
+    push_order=None is "none" for a one-pop any hit (tpurt's
+    traverse_bvh8.py:1744), else "sort"."""
+    if push_order is not None and push_order not in PUSH_ORDERS:
         raise ValueError(f"{name}: unknown push_order {push_order!r}, not "
                          f"one of {PUSH_ORDERS}")
-    k7a = count_steps or order != "sort"
-    pop2 = (POP2_DEFAULT and not k7a) if pop2 is None else bool(pop2)
+    if pop2 is None:
+        pop2 = POP2_DEFAULT and not count_steps \
+            and push_order in (None, "sort")
+    pop2 = bool(pop2)
+    order = push_order
+    if order is None:
+        order = "none" if any_hit and not pop2 else "sort"
     if pop2 and count_steps:
         raise ValueError(f"{name}: count_steps composes only with the "
                          f"one-pop trace (pop2=False)")
@@ -243,45 +274,110 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
 
 
 def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max,
-                   pop2=None, count_steps=False, push_order=None):
+                   pop2=None, count_steps=False, push_order=None, *,
+                   height: int = 0, width: int = 0):
     """Any hit (occlusion) for (N, 3) rays. Returns a (N,) bool mask, or
     with count_steps=True (mask, node pops, leaf pops), the counts (N,) f32.
-    pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b; count_steps
-    and push_order "nearlast" / "none" take K7a."""
+    pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b; push_order
+    (default "none", tpurt's) "none" without counting takes K2 over the
+    scene's nodes8c, count_steps or "sort" / "nearlast" take K7a.
+    height and width (tpurt's frame shape; 0 when the rays are not a
+    frame's pixels) say that the rays are an H x W frame in row order: K2
+    then runs 16x8 pixel tiles per block. The result does not change."""
     name = "trace_any_bvh8"
-    pop2, order = _resolve_k7a(name, pop2, count_steps, push_order)
+    pop2, order = _resolve_k7a(name, pop2, count_steps, push_order,
+                               any_hit=True)
     n = origin.shape[0]
+    if width and height * width != n:
+        raise ValueError(f"{name}: {n} rays are not a {height} x {width} "
+                         f"frame")
     tmx = _t_max_tensor(t_max, n, origin)
     _check_inputs(name, scene, origin, direction, tmx)
     pops = 2 if pop2 else 1
     _check_stack(name, scene, pops)
+    k2 = _is_k2(pop2, count_steps, order)
     if not origin.is_cuda:
         return _trace_plain(scene, origin, direction, float(t_min), tmx,
                             any_hit=True, pops=pops, count_steps=count_steps,
-                            order=order)
+                            order=order, compact=k2)
+    if k2:
+        return any_kernel(scene, origin, direction, t_min, tmx,
+                          tile_w=width)
+    if not pop2:
+        return any_k7a(scene, origin, direction, t_min, tmx, order,
+                       count_steps)
     occ = torch.empty(n, dtype=torch.uint8, device=origin.device)
-    p = build.ptr
-    if count_steps or order != "sort":
-        fn = build.function("tpurt_bvh8_any_k7a", [ctypes.c_void_p] * 4
-                            + [ctypes.c_float, ctypes.c_void_p]
-                            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
-        pops = [torch.empty(n, dtype=torch.float32, device=origin.device)
-                for _ in range(2)] if count_steps else [None, None]
-        build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
-                       p(direction), float(t_min), p(tmx), n,
-                       int(count_steps), PUSH_ORDERS.index(order), p(occ),
-                       *(p(x) if count_steps else None for x in pops),
-                       build.stream_of(origin)), name)
-        build.launch_counts["bvh8_any_steps"] += 1
-        return (occ.bool(), *pops) if count_steps else occ.bool()
-    fn = build.function("tpurt_bvh8_any", [ctypes.c_void_p] * 4 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
+    fn = build.function("tpurt_bvh8_any_pop2", [ctypes.c_void_p] * 4 + [
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_int] + [
         ctypes.c_void_p] * 2)
+    p = build.ptr
     build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
-                   p(direction), float(t_min), p(tmx), n, int(pop2), p(occ),
+                   p(direction), float(t_min), p(tmx), n, p(occ),
                    build.stream_of(origin)), name)
-    build.launch_counts["bvh8_any_pop2" if pop2 else "bvh8_any"] += 1
+    build.launch_counts["bvh8_any_pop2"] += 1
     return occ.bool()
+
+
+def _is_k2(pop2, count_steps, order) -> bool:
+    """Whether an any-hit trace is K2's: one pop, uncounted, "none"."""
+    return not pop2 and not count_steps and order == "none"
+
+
+def any_stack_size(depth8: int) -> int:
+    """K2's stack instantiation for a BVH8 of `depth8` wide levels."""
+    return build.pick_stack(stack_entries(depth8), ANY_STACK_SIZES,
+                            f"BVH8 depth {depth8}", "K2")
+
+
+def any_kernel(scene: dict, origin, direction, t_min: float, t_max,
+               tile_w: int = 0):
+    """K2 on CUDA tensors (trace_any_bvh8's default path): the (N,) bool
+    occlusion over scene["nodes8c"], t_max an (N,) f32 tensor; tile_w > 0
+    (the frame's width, N a multiple of it) runs 16x8 pixel tiles per
+    block, as trace_any_bvh8 does when given the frame's shape."""
+    name = "trace_any_bvh8"
+    n = origin.shape[0]
+    if tile_w < 0 or (tile_w and n % tile_w):
+        raise ValueError(f"{name}: {n} rays are not rows of {tile_w}")
+    _check_compact(name, scene)
+    build.require_cuda(name, dict(nodes8c=scene["nodes8c"], t_max=t_max),
+                       origin.device)
+    occ = torch.empty(n, dtype=torch.uint8, device=origin.device)
+    fn = build.function("tpurt_bvh8_any", [ctypes.c_void_p] * 4 + [
+        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 2)
+    p = build.ptr
+    build.check(fn(p(scene["nodes8c"]), p(scene["tris"]), p(origin),
+                   p(direction), float(t_min), p(t_max), n,
+                   any_stack_size(scene["depth8"]), tile_w, p(occ),
+                   build.stream_of(origin)), name)
+    build.launch_counts["bvh8_any"] += 1
+    return occ.bool()
+
+
+def any_k7a(scene: dict, origin, direction, t_min: float, t_max,
+            order: str, count_steps: bool):
+    """K7a any hit on CUDA tensors over the nodes8 rows: any push order,
+    counted or not; returns what trace_any_bvh8 returns. trace_any_bvh8
+    sends an uncounted "none" trace to K2 instead; this entry keeps the
+    rows-based "none" kernel reachable for comparisons."""
+    name = "trace_any_bvh8"
+    n = origin.shape[0]
+    dev = origin.device
+    occ = torch.empty(n, dtype=torch.uint8, device=dev)
+    fn = build.function("tpurt_bvh8_any_k7a", [ctypes.c_void_p] * 4
+                        + [ctypes.c_float, ctypes.c_void_p]
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+    pops = [torch.empty(n, dtype=torch.float32, device=dev)
+            for _ in range(2)] if count_steps else [None, None]
+    p = build.ptr
+    build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
+                   p(direction), float(t_min), p(t_max), n,
+                   int(count_steps), PUSH_ORDERS.index(order), p(occ),
+                   *(p(x) if count_steps else None for x in pops),
+                   build.stream_of(origin)), name)
+    build.launch_counts["bvh8_any_steps"] += 1
+    return (occ.bool(), *pops) if count_steps else occ.bool()
 
 
 def _multi_inputs(origin, dirs, t_maxs):
@@ -343,14 +439,14 @@ def trace_any_bvh8_multi(scene: dict, origin, dirs, t_min: float, t_maxs,
     return occ.bool()
 
 
-def _slab(nodes_rows, o, inv, t_min, tfar):
-    """Slab tests of the 8 child boxes of each row: (A, 8) entry distance
-    and hit mask (tpurt _Rays.slab order, NaN-propagating min/max)."""
+def _slab(boxes, o, inv, t_min, tfar):
+    """Slab tests of 8 child boxes per ray, `boxes` the six (A, 8) planes
+    min x, y, z, max x, y, z: (A, 8) entry distance and hit mask (tpurt
+    _Rays.slab order, NaN-propagating min/max)."""
     mn = torch.minimum
     mx = torch.maximum
-    t0 = [(nodes_rows[:, a:48:6] - o[:, a:a + 1]) * inv[:, a:a + 1]
-          for a in range(3)]
-    t1 = [(nodes_rows[:, a + 3:48:6] - o[:, a:a + 1]) * inv[:, a:a + 1]
+    t0 = [(boxes[a] - o[:, a:a + 1]) * inv[:, a:a + 1] for a in range(3)]
+    t1 = [(boxes[a + 3] - o[:, a:a + 1]) * inv[:, a:a + 1]
           for a in range(3)]
     tnear = mx(mx(mn(t0[0], t1[0]), mn(t0[1], t1[1])),
                mx(mn(t0[2], t1[2]), t_min))
@@ -403,14 +499,19 @@ def trace_closest_plain(scene, origin, direction, t_min, t_max,
 
 
 def trace_any_plain(scene, origin, direction, t_min, t_max, stats=None,
-                    pop2=False, count_steps=False, push_order="sort"):
+                    pop2=False, count_steps=False, push_order=None):
     """Plain PyTorch version of K2 (K7b with pop2, K7a with count_steps or
-    another push_order) on any device (`stats` as above)."""
+    another push_order) on any device (`stats` as above). push_order=None
+    is trace_any_bvh8's default ("none"; "sort" with pop2); K2's trace, one
+    pop, uncounted, "none", reads the compact table nodes8c as K2 does."""
     n = origin.shape[0]
+    order = push_order if push_order is not None else \
+        "sort" if pop2 else "none"
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), any_hit=True,
                         pops=2 if pop2 else 1, stats=stats,
-                        count_steps=count_steps, order=push_order)
+                        count_steps=count_steps, order=order,
+                        compact=_is_k2(pop2, count_steps, order))
 
 
 def count_work(stats, node_pops, leaf_pops, tri_tests, node_tests=None):
@@ -462,15 +563,22 @@ def _leaf_rows(tris, code):
     return tris[idx], first, count, k[None, :] < count[:, None]
 
 
-def _node_children(nodes, code):
-    """Node rows of codes, each slot's validity and stack code."""
+def _node_children(nodes, code, compact=False):
+    """The child boxes of nodes `code` (six (A, 8) planes, as _slab takes
+    them), each slot's validity and stack code: from the (M, 128) rows, or
+    with `compact` from the (M, 56) table nodes8c (codes precomputed,
+    EMPTY_CODE in empty slots)."""
     rows = nodes[code.long()]
+    if compact:
+        child_code = rows[:, 48:56].view(torch.int32)
+        return ([rows[:, 8 * a:8 * a + 8] for a in range(6)],
+                child_code != EMPTY_CODE, child_code)
     valid = (rows[:, 48:56] >= 0.0) | (rows[:, 64:72] > 0.0)
     child_code = torch.where(
         rows[:, 48:56] >= 0.0, rows[:, 48:56].to(torch.int32),
         -(rows[:, 56:64].to(torch.int32) * LEAF_CODE_BASE
           + rows[:, 64:72].to(torch.int32)) - 1)
-    return rows, valid, child_code
+    return [rows[:, a:48:6] for a in range(6)], valid, child_code
 
 
 def _order_keys(order, tnear, hit):
@@ -524,15 +632,20 @@ def _pop(sp, a, pops, *tables):
 
 def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
                  pops: int = 1, uv_payload: bool = False, stats=None,
-                 count_steps: bool = False, order: str = "sort"):
+                 count_steps: bool = False, order: str = "sort",
+                 compact: bool = False):
     """The plain PyTorch traversal: every live ray pops `pops` stack entries
     per iteration, over (N, S) stacks of codes and entry distances; with
-    count_steps each ray counts its visited node and leaf entries."""
+    count_steps each ray counts its visited node and leaf entries; with
+    `compact` it reads the node table nodes8c instead of the rows."""
     if order not in PUSH_ORDERS:
         raise ValueError(f"unknown push_order {order!r}")
     if count_steps and uv_payload:
         raise ValueError("count_steps and uv_payload do not compose")
-    nodes, tris = scene["nodes8"], scene["tris"]
+    if compact:
+        _check_compact("the plain any hit", scene)
+    nodes = scene["nodes8c"] if compact else scene["nodes8"]
+    tris = scene["tris"]
     dev = origin.device
     n = origin.shape[0]
     # per-ray node and leaf pops (K7a)
@@ -579,9 +692,9 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
         row[lu] = (first[:, None] + j)[upd, 0]
 
     def node(na, code):
-        rows, valid, child_code = _node_children(nodes, code)
+        boxes, valid, child_code = _node_children(nodes, code, compact)
         tfar = t_max[na] if any_hit else t[na]
-        tnear, hit = _slab(rows, origin[na], inv[na], tmin_t, tfar)
+        tnear, hit = _slab(boxes, origin[na], inv[na], tmin_t, tfar)
         hit &= valid
         _push((nears, codes), sp, na, hit, _order_keys(order, tnear, hit),
               (tnear, child_code), s)
@@ -683,15 +796,15 @@ def trace_any_multi_plain(scene, origin, dirs, t_min, t_maxs, stats=None,
         live[la] &= ~hit_sets
 
     def node(na, code, m):
-        rows, valid, child_code = _node_children(nodes, code)
-        child_sets = torch.zeros_like(rows[:, :8], dtype=torch.int64)
+        boxes, valid, child_code = _node_children(nodes, code)
+        child_sets = torch.zeros_like(child_code, dtype=torch.int64)
         for i in range(n_sets):
-            _, hit = _slab(rows, origin[na], inv[i, na], tmin_t,
+            _, hit = _slab(boxes, origin[na], inv[i, na], tmin_t,
                            t_maxs[i, na])
             hit &= valid & set_of(m, i)[:, None]
             child_sets |= hit.long() << i
         hit = child_sets != 0
-        _push((codes, masks), sp, na, hit, torch.zeros_like(rows[:, :8]),
+        _push((codes, masks), sp, na, hit, torch.zeros_like(boxes[0]),
               (child_code, child_sets), s)
         count_work(stats, na.numel(), 0, 0,
                    sum(set_of(m, i).sum() for i in range(n_sets)))

@@ -167,11 +167,12 @@ def shadow_rays(scene: dict, camera: dict, lights: dict, hits: dict):
 
 def shadow_tracer(tables: str, max_leaf: int = 1):
     """The any-hit tracer of a table kind: (scene, origin, direction,
-    t_min, t_max) -> (N,) bool."""
+    t_min, t_max, height=, width=) -> (N,) bool."""
     if tables == "bvh8":
         return trace_any_bvh8
     if tables == "bvh2":
-        return lambda *args: trace_any_bvh2(*args, max_leaf=max_leaf)
+        return lambda *args, height=0, width=0: trace_any_bvh2(
+            *args, max_leaf=max_leaf)
     raise ValueError(f"unknown shadow tables {tables!r}")
 
 
@@ -181,10 +182,12 @@ def _light(lights: dict, i: int) -> dict:
 
 def shade(scene: dict, camera: dict, lights: dict, hits: dict,
           tables: str = "bvh8", max_leaf: int = 1,
-          fuse_shadows: bool = False):
+          fuse_shadows: bool = False, height: int = 0, width: int = 0):
     """Shade one batch of primary hits; returns dict(color (N, 3),
     depth (N,), normal_enc (N, 3)). fuse_shadows as in the module
-    docstring (tpurt's parameter and default)."""
+    docstring (tpurt's parameter and default); height and width, tpurt's
+    too, the frame's shape when the hits are its pixels in row order (0
+    otherwise), go to the per-light any-hit trace."""
     trace_any = shadow_tracer(tables, max_leaf)
     surf = surface(scene, camera, hits)
     N, V, albedo = surf["N"], surf["V"], surf["albedo"]
@@ -226,7 +229,8 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
             LOCAL_SSS_RATIO)[..., None]
 
         occluded = occ_all[i] if occ_all is not None else trace_any(
-            scene, world_pos, L, SHADOW_T_MIN, lr["t_max"])
+            scene, world_pos, L, SHADOW_T_MIN, lr["t_max"], height=height,
+            width=width)
         attenuation = torch.where(lr["wants_shadow"] & occluded,
                                   torch.full_like(NdotL, SHADOW_ATTENUATION),
                                   torch.ones_like(NdotL))

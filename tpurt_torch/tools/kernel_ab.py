@@ -1,0 +1,160 @@
+"""Time K2 (BVH8 any hit) and K3 (GTAO main pass, with its noise table
+K3h where the checkout has one) of several checkouts of the port on one
+card, in turns, on the bench scene at 800x800 and 1920x1080, through the
+public entry points every checkout has.
+
+    python tpurt_torch/tools/kernel_ab.py --repo PARENT --repo . \\
+        --repo . --repo PARENT [--out PATH]
+
+Each --repo runs in its own process, in the order given (parent, change,
+change, parent compares two versions inside one call), which imports that
+checkout's tpurt_torch, builds its kernels and times on the card alone
+(kernels/build.device_ms):
+
+* K2: trace_any_bvh8(scene, origin, direction, t_min, t_max) at its
+  default order on each light's shadow rays of the frame (3 launches,
+  summed), the rays in consecutive blocks (the frame passes its shape as
+  well, for pixel tiles: chip_smoke.py times both);
+* K3: gtao_main at the frame's preset (ULTRA 9x3) on the frame's depth
+  pyramid and G-buffer, every launch of it (chip_smoke.py times K3h and
+  K3 apart);
+
+and reports the ptxas registers and stack frame of each kernel it built,
+hashes of the occlusion masks, the AO and edges and of one rendered frame
+(so the versions can be held equal bit for bit), and the card's name and
+power limit. It prints one JSON object and writes it to --out when given.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+SHAPES = ((800, 800), (1920, 1080))
+
+
+def _card():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ptxas(log: str) -> list:
+    """(kernel, registers, stack bytes) of every entry ptxas compiled."""
+    out, name, stack = [], None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            stack = int(line.split()[0])
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            out.append(dict(kernel=name, registers=regs, stack_bytes=stack))
+            name = stack = None
+    return out
+
+
+def child(repo: str) -> dict:
+    """The measurements of one checkout (module docstring)."""
+    sys.path.insert(0, os.path.abspath(repo))
+    import torch
+
+    from tpurt_torch.app.bench_scene import build_bench_scene
+    from tpurt_torch.engine import Renderer, RendererConfig
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels import gtao_main as k3
+    from tpurt_torch.kernels.build import device_ms
+    from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
+                                                   trace_closest_bvh8)
+    from tpurt_torch.passes.encodings import (quantize_r11g11b10f,
+                                              quantize_r16f)
+    from tpurt_torch.passes.gtao import noise_maps_64, prefilter_depths
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shade, shadow_rays
+
+    t0 = time.perf_counter()
+    build.get_lib()
+    out = dict(repo=repo, build_s=time.perf_counter() - t0,
+               ptxas=_ptxas(build.build_log),
+               sizes={})
+    for w, h in SHAPES:
+        r = build_bench_scene(Renderer(RendererConfig(width=w, height=h,
+                                                      device="cuda")))
+        scene = r.scene_device
+        cam, lights, gtao = r._frame_inputs()
+        o, d = camera_rays(cam, w, h)
+        hits = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX)
+        rays = shadow_rays(scene, cam, lights, hits)
+        res = dict(k2_ms=0.0)
+        occ = []
+        for so, sd, st in rays:
+            occ.append(trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st))
+            res["k2_ms"] += device_ms(lambda: trace_any_bvh8(
+                scene, so, sd, SHADOW_T_MIN, st))
+        g = shade(scene, cam, lights, hits)
+        depth = quantize_r16f(g["depth"]).reshape(h, w)
+        normal = quantize_r11g11b10f(g["normal_enc"]).reshape(h, w, 3)
+        mips = prefilter_depths(depth, gtao["host"])
+        noise = noise_maps_64(0, r.device)
+        kw = dict(slice_count=r.config.gtao.slice_count,
+                  steps_per_slice=r.config.gtao.steps_per_slice)
+        ao, edges = k3.gtao_main(mips, normal, gtao["vec"], noise, **kw)
+        res["k3_total_ms"] = device_ms(lambda: k3.gtao_main(
+            mips, normal, gtao["vec"], noise, **kw))
+        r._frame_idx = 0
+        image = r.render()["image"]
+        torch.cuda.synchronize()
+        res.update(occ_digest=_digest(*occ), ao_digest=_digest(ao, edges),
+                   image_digest=_digest(image),
+                   occluded=[int(x.sum()) for x in occ])
+        out["sizes"][f"{w}x{h}"] = res
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repo", action="append", default=[],
+                    help="a checkout of the port, in the order to run")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--out", help="write the JSON report here")
+    args = ap.parse_args(argv)
+    if args.child:
+        print(json.dumps(child(args.child)))
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA device", file=sys.stderr)
+        return 1
+    report = dict(card=_card(), runs=[])
+    for repo in args.repo:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--child", repo], capture_output=True,
+                              text=True, timeout=1200)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        report["runs"].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    report["card_after"] = _card()
+    text = json.dumps(report, indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

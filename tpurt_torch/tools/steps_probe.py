@@ -11,8 +11,9 @@ reports:
 * per warp: the warp steps, the max over its 32 lanes of node + leaf pops,
   and their sum over the frame;
 * SIMT efficiency: lane steps / (32 x warp steps);
-* on the card, the ms of the trace without counting (K1 / K2 for "sort")
-  and with counting (``kernels.build.device_ms``), and ns per warp step;
+* on the card, the ms of the trace without counting (K1 for the closest
+  hit at "sort", K2 for the any hit at "none", K7a otherwise) and with
+  counting (``kernels.build.device_ms``), and ns per warp step;
 
 and the same for each push order ("sort", "nearlast", "none").
 
