@@ -38,53 +38,14 @@
 // equals K7a's and the plain version's bit for bit.
 #include "bvh8_common.cuh"
 
-// a compact node: 48 box floats, then 8 int32 child codes
-#define COMPACT_FLOATS 56
-#define EMPTY_CODE (-1)
-#define ANY_THREADS 128
-// triangles of a leaf tested per step (measured against 1 and 2 on the
-// bench frame's shadow rays, PERF.md)
-#define LEAF_BATCH 4
-
 namespace {
 
 using namespace bvh8;
 
-// slab test of child j of a half node, b its six planes of 4 (lo x, y, z,
-// hi x, y, z): bvh8_common.cuh's slab, the same operations in the same
-// order
-__device__ __forceinline__ bool slab_soa(const float b[24], int j,
-                                         const Ray& r, float t_min,
-                                         float tfar) {
-  const float tx0 = (b[j] - r.ox) * r.ix;
-  const float tx1 = (b[12 + j] - r.ox) * r.ix;
-  const float ty0 = (b[4 + j] - r.oy) * r.iy;
-  const float ty1 = (b[16 + j] - r.oy) * r.iy;
-  const float tz0 = (b[8 + j] - r.oz) * r.iz;
-  const float tz1 = (b[20 + j] - r.oz) * r.iz;
-  const float tn = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
-                        nmax(nmin(tz0, tz1), t_min));
-  const float tf = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
-                        nmin(nmax(tz0, tz1), tfar));
-  return tn <= tf;
-}
-
-// the ray of this thread: consecutive rays, or pixel tiles of a frame
-// `tile_w` wide (16x8 per block, 8x4 per warp); -1 past the end
-__device__ __forceinline__ int ray_index(int n, int tile_w) {
-  if (tile_w <= 0) return blockIdx.x * ANY_THREADS + threadIdx.x;
-  const int tiles_x = (tile_w + 15) / 16;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int x = (blockIdx.x % tiles_x) * 16 + (warp & 1) * 8 + (lane & 7);
-  const int y = (blockIdx.x / tiles_x) * 8 + (warp >> 1) * 4 + (lane >> 3);
-  const int ray = y * tile_w + x;
-  return x < tile_w && ray < n ? ray : -1;
-}
-
 // at least 6 blocks per SM (<= 85 registers; ptxas takes 80 without
 // spills): 24 warps, each with up to LEAF_BATCH triangle rows in flight
 template <int STACK>
-__global__ void __launch_bounds__(ANY_THREADS, 6)
+__global__ void __launch_bounds__(TILE_THREADS, 6)
 bvh8_any_kernel(const float* __restrict__ nodes8c,
                 const float* __restrict__ tris,
                 const float* __restrict__ origin,
@@ -93,8 +54,8 @@ bvh8_any_kernel(const float* __restrict__ nodes8c,
                 uint8_t* __restrict__ occ_out) {
   int stack[STACK];
 
-  const int ray = ray_index(n, tile_w);
-  if (ray < 0 || ray >= n) return;
+  const int ray = tile_ray_index(n, tile_w);
+  if (ray < 0) return;
   const float t_max0 = t_max_arr[ray];
   bool occ = false;
   // a ray with t_max <= t_min can hit nothing: it retires at once
@@ -133,26 +94,17 @@ bvh8_any_kernel(const float* __restrict__ nodes8c,
         if (occ) break;
         continue;
       }
-      // children 0-3, then 4-7: per half one 16-byte load of each of
-      // the six planes and one of the codes (float4 2a + half of plane a)
-      const float4* row = reinterpret_cast<const float4*>(
-          nodes8c + (size_t)code * COMPACT_FLOATS);
+      // children 0-3, then 4-7
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         float b[24];
-#pragma unroll
-        for (int a = 0; a < 6; ++a) {
-          const float4 q = __ldg(row + 2 * a + half);
-          b[4 * a] = q.x;
-          b[4 * a + 1] = q.y;
-          b[4 * a + 2] = q.z;
-          b[4 * a + 3] = q.w;
-        }
-        const int4 c = __ldg(reinterpret_cast<const int4*>(row + 12) + half);
-        const int codes[4] = {c.x, c.y, c.z, c.w};
+        int codes[4];
+        load_half(nodes8c, code, half, b, codes);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if (codes[j] != EMPTY_CODE && slab_soa(b, j, r, t_min, t_max0)) {
+          float tn;
+          if (codes[j] != EMPTY_CODE &&
+              slab_soa(b, j, r, t_min, t_max0, &tn)) {
             stack[sp] = codes[j];
             ++sp;
           }
@@ -167,10 +119,8 @@ template <int STACK>
 int launch(const float* nodes8c, const float* tris, const float* origin,
            const float* direction, float t_min, const float* t_max, int n,
            int tile_w, uint8_t* occ_out, cudaStream_t stream) {
-  const int blocks =
-      tile_w > 0 ? ((tile_w + 15) / 16) * ((n / tile_w + 7) / 8)
-                 : (n + ANY_THREADS - 1) / ANY_THREADS;
-  bvh8_any_kernel<STACK><<<blocks, ANY_THREADS, 0, stream>>>(
+  bvh8_any_kernel<STACK><<<tile_blocks(n, tile_w), TILE_THREADS, 0,
+                           stream>>>(
       nodes8c, tris, origin, direction, t_min, t_max, n, tile_w, occ_out);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Device code shared by the BVH8 traversal kernels (bvh8_trace.cu: K1, K7a,
-// K7b, K7c; bvh8_any.cu: K2; bvh8_multi.cu: K5, K5p).
+// Device code shared by the BVH8 traversal kernels (bvh8_closest.cu: K1;
+// bvh8_any.cu: K2; bvh8_trace.cu: K7a, K7b, K7c; bvh8_multi.cu: K5, K5p).
 //
 // Exactness: the slab test and Moller-Trumbore use the operation order of
 // tpurt's _Rays.slab / _Rays.mt; min/max propagate NaN like jnp.minimum;
@@ -9,6 +9,10 @@
 //
 // Node row layout (bvh/wide.py): lanes k*6..k*6+5 child box, 48+k internal
 // child index (-1 if none), 56+k leaf first triangle, 64+k leaf count.
+// Compact node (nodes8c, bvh/wide.py compact_bvh8; K1 and K2): the 8 child
+// boxes as structure of arrays (lo x, y, z, hi x, y, z, 8 floats each, the
+// bits of the row's box lanes), then 8 int32 child codes (EMPTY_CODE for an
+// empty slot): 224 bytes, 14 16-byte loads, no conversion.
 // Triangle rows (engine/convert.pack_tris): v0, e1, e2, global id, 0, 0.
 // Stack codes: node id >= 0, leaf -(first * 128 + count) - 1.
 #pragma once
@@ -25,6 +29,14 @@
 #define NODE_FLOATS 128
 #define NODE_LANES 72
 #define TRI_FLOATS 12
+#define COMPACT_FLOATS 56
+#define EMPTY_CODE (-1)
+// threads of a pixel-tile block (16x8 pixels, 8x4 per warp)
+#define TILE_THREADS 128
+// triangles of a leaf whose rows are loaded together (measured against 1
+// and 2 on the bench frame's shadow rays for K2 and primary rays for K1,
+// PERF.md)
+#define LEAF_BATCH 4
 
 namespace bvh8 {
 
@@ -105,6 +117,72 @@ __device__ __forceinline__ void leaf_range(int code, int* first, int* count) {
   const int dec = -(code + 1);
   *first = dec / LEAF_CODE_BASE;
   *count = dec - *first * LEAF_CODE_BASE;
+}
+
+// slab test of child j of a half compact node, b its six planes of 4 (lo
+// x, y, z, hi x, y, z): slab's operations in slab's order, the entry
+// distance in *tnear
+__device__ __forceinline__ bool slab_soa(const float b[24], int j,
+                                         const Ray& r, float t_min,
+                                         float tfar, float* tnear) {
+  const float tx0 = (b[j] - r.ox) * r.ix;
+  const float tx1 = (b[12 + j] - r.ox) * r.ix;
+  const float ty0 = (b[4 + j] - r.oy) * r.iy;
+  const float ty1 = (b[16 + j] - r.oy) * r.iy;
+  const float tz0 = (b[8 + j] - r.oz) * r.iz;
+  const float tz1 = (b[20 + j] - r.oz) * r.iz;
+  const float tn = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
+                        nmax(nmin(tz0, tz1), t_min));
+  const float tf = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
+                        nmin(nmax(tz0, tz1), tfar));
+  *tnear = tn;
+  return tn <= tf;
+}
+
+// half `half` of compact node `code` (children 4 * half .. 4 * half + 3):
+// one 16-byte load of each of the six planes (float4 2a + half of plane a)
+// and one of the codes
+__device__ __forceinline__ void load_half(const float* __restrict__ nodes8c,
+                                          int code, int half, float b[24],
+                                          int codes[4]) {
+  const float4* row =
+      reinterpret_cast<const float4*>(nodes8c + (size_t)code * COMPACT_FLOATS);
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+    const float4 q = __ldg(row + 2 * a + half);
+    b[4 * a] = q.x;
+    b[4 * a + 1] = q.y;
+    b[4 * a + 2] = q.z;
+    b[4 * a + 3] = q.w;
+  }
+  const int4 c = __ldg(reinterpret_cast<const int4*>(row + 12) + half);
+  codes[0] = c.x;
+  codes[1] = c.y;
+  codes[2] = c.z;
+  codes[3] = c.w;
+}
+
+// the ray of this thread in a TILE_THREADS block: consecutive rays, or,
+// when tile_w > 0 (the frame's width), pixel tiles of 16x8 per block and
+// 8x4 per warp, row-major over the frame (kernels/traverse_bvh8.py
+// tile_pixels mirrors it); -1 past the end
+__device__ __forceinline__ int tile_ray_index(int n, int tile_w) {
+  if (tile_w <= 0) {
+    const int ray = blockIdx.x * TILE_THREADS + threadIdx.x;
+    return ray < n ? ray : -1;
+  }
+  const int tiles_x = (tile_w + 15) / 16;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = (blockIdx.x % tiles_x) * 16 + (warp & 1) * 8 + (lane & 7);
+  const int y = (blockIdx.x / tiles_x) * 8 + (warp >> 1) * 4 + (lane >> 3);
+  const int ray = y * tile_w + x;
+  return x < tile_w && ray < n ? ray : -1;
+}
+
+// blocks of a TILE_THREADS launch over n rays (tile_w as above)
+inline int tile_blocks(int n, int tile_w) {
+  return tile_w > 0 ? ((tile_w + 15) / 16) * ((n / tile_w + 7) / 8)
+                    : (n + TILE_THREADS - 1) / TILE_THREADS;
 }
 
 struct Tri {

@@ -1,9 +1,9 @@
 // BVH8 closest-hit and any-hit traversal, one thread per ray.
 //
-// Replaces tpurt/kernels/traverse_bvh8.py in four forms, each a template
-// variant of one kernel:
-//   K1     _kernel_bvh8_single, any_hit=False (trace_closest_bvh8); K2, its
-//          any_hit=True form at the default push order, is bvh8_any.cu;
+// Replaces tpurt/kernels/traverse_bvh8.py in three forms, each a template
+// variant of one kernel over the nodes8 rows (K1, _kernel_bvh8_single with
+// any_hit=False at its default order, is bvh8_closest.cu; K2, its
+// any_hit=True form at the default push order, is bvh8_any.cu):
 //   K7a    _kernel_bvh8 (and _kernel_bvh8_single) with count_steps and
 //          push_order: COUNT_STEPS counts the node and leaf entries a ray
 //          visits, ORDER picks the push order of a node's hit children
@@ -315,7 +315,7 @@ void launch(const float* nodes, const float* tris, const float* uvp,
 }
 
 // K7a: one-pop traversal with step counts and/or another push order; an
-// uncounted "sort" closest hit is K1 and is not instantiated here
+// uncounted "sort" closest hit is K1 (bvh8_closest.cu)
 template <bool ANY_HIT, bool COUNT_STEPS>
 void launch_k7a(int order, const float* nodes, const float* tris,
                 const float* origin, const float* direction, float t_min,
@@ -337,7 +337,8 @@ void launch_k7a(int order, const float* nodes, const float* tris,
 }
 
 // the orders K7a takes: any with counting, "nearlast" / "none" without
-// (an uncounted "sort" closest hit is K1); an any hit takes every order
+// (an uncounted "sort" closest hit is K1, bvh8_closest.cu); an any hit
+// takes every order
 bool k7a_valid(int count_steps, int order, bool any_hit) {
   return order >= ORDER_SORT && order <= ORDER_NONE &&
          (count_steps || any_hit || order != ORDER_SORT);
@@ -351,28 +352,25 @@ const char* tpurt_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// closest hit: pop2 selects K7b, uvp (with pay_out (5, n) f32: texu, texv,
-// img, texh, texw) K7c; the two do not compose
+// closest hit over the rows: pop2 selects K7b, payload (with pay_out
+// (5, n) f32: texu, texv, img, texh, texw) K7c; exactly one of the two (the
+// closest hit with neither is K1, bvh8_closest.cu)
 int tpurt_bvh8_closest(const float* nodes, const float* tris,
                        const float* uvp, const float* origin,
                        const float* direction, float t_min,
                        const float* t_max, int n, int pop2, int payload,
                        float* t_out, int* tri_out, float* u_out,
                        float* v_out, float* pay_out, cudaStream_t stream) {
-  if (pop2 && payload) return (int)cudaErrorInvalidValue;
+  if (!pop2 == !payload) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     if (pop2)
       launch<false, true, false>(nodes, tris, uvp, origin, direction, t_min,
                                  t_max, n, t_out, tri_out, u_out, v_out,
                                  pay_out, nullptr, stream);
-    else if (payload)
+    else
       launch<false, false, true>(nodes, tris, uvp, origin, direction, t_min,
                                  t_max, n, t_out, tri_out, u_out, v_out,
                                  pay_out, nullptr, stream);
-    else
-      launch<false, false, false>(nodes, tris, uvp, origin, direction, t_min,
-                                  t_max, n, t_out, tri_out, u_out, v_out,
-                                  pay_out, nullptr, stream);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-// XeGTAO edge-aware denoise, one pass per launch, one thread per pixel.
+// XeGTAO edge-aware denoise (K4) written for Hopper, one pass per launch.
 //
 // Replaces tpurt/kernels/gtao_pallas.py::_chain_kernel (K4,
 // denoise_chain_pallas). The TPU kernel fuses all N passes over row blocks
@@ -6,17 +6,52 @@
 // is its own launch with a u8 image between passes, which is exactly the
 // semantics of tpurt's XLA chain (passes/gtao.py:denoise_pass applied N
 // times), so no halo re-clamping is needed. The last pass scales by 1.5 and
-// stores u16 without a clamp (values reach ~383).
+// stores the u16 value without a clamp (values reach ~383) as int32, the
+// type the frame's tonemap reads, so no conversion launch follows.
 //
-// What bounds it on an H100: bytes. A pass reads 9 AO texels and 5 edge
-// texels (u8) and writes 1 or 2 bytes per pixel; neighbouring threads read
-// neighbouring bytes, so the loads coalesce and mostly hit L1. Fusing the
-// passes in shared memory is later work (the main path runs one pass).
+// What bounds it on an H100: instruction issue, then launch latency. Its
+// bytes (AO and packed edges in, u8 or int32 out) take about a
+// microsecond; per pixel the arithmetic is some 60 multiplies, adds and
+// selects and two IEEE divides. The design takes out the work that does not
+// change the bits:
+//   * a block covers a 128x8 pixel tile, each thread 4 neighbouring pixels
+//     of one row (a 2-D grid: no integer divide per pixel);
+//   * the tile's AO and packed edges and their 1-pixel clamped halo are
+//     staged once in shared memory, the interior with 4-byte loads (1 byte
+//     at a time on a ragged tile or unaligned rows), all of a thread's
+//     loads issued before its first shared store, each texel's four edges
+//     unpacked once per tile (not five times per pixel), into
+//     structure-of-arrays planes that a thread reads as float4s;
+//   * AO / 255 and the 2-bit edges / 3 are lookups: a 256-entry table of
+//     (float)k / 255.0f and four values (float)e / 3.0f, computed in shared
+//     memory at block start by the same IEEE divisions, so their bits are
+//     the divisions' by construction;
+//   * the 4 outputs of a thread leave in one 4-byte (u8) or 16-byte
+//     (int32) store.
+// The AO leak's division by 1.5 and the final total / sum_weight stay IEEE
+// divides.
 //
 // Exactness: the operation order of denoise_pass (edge symmetry, AO leak,
 // diagonal weights, the 9 taps added in tpurt's order); --fmad=false.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// threads of a block, a tile's rows, pixels per thread and the tile's width
+#define DN_THREADS 256
+#define DN_ROWS 8
+#define DN_PX 4
+#define DN_TILE_W 128
+// shared rows (the tile's and one halo row on each side) and their length:
+// column DN_COL0 holds the tile's first pixel, DN_COL0 - 1 the left halo,
+// DN_COL0 + DN_TILE_W the right one; DN_COL0 = 4 keeps a thread's 4 pixels
+// 16-byte aligned
+#define DN_SROWS (DN_ROWS + 2)
+#define DN_COL0 4
+#define DN_SCOLS 136
+// staging work items per thread: 4-byte words of the interior, or texels
+// on a ragged tile
+#define DN_WORDS ((DN_SROWS * DN_TILE_W / 4 + DN_THREADS - 1) / DN_THREADS)
+#define DN_TEXELS ((DN_SROWS * DN_TILE_W + DN_THREADS - 1) / DN_THREADS)
 
 namespace {
 
@@ -30,97 +65,233 @@ __device__ __forceinline__ float clip01(float x) {
   return nmin(nmax(x, 0.0f), 1.0f);
 }
 
-struct Edges {
-  float l, r, t, b;
+struct Tile {
+  float vis[DN_SROWS][DN_SCOLS];
+  // edges l, r, t, b
+  float e[4][DN_SROWS][DN_SCOLS];
 };
 
-__device__ __forceinline__ Edges unpack(int p) {
-  return {(float)((p >> 6) & 3) / 3.0f, (float)((p >> 4) & 3) / 3.0f,
-          (float)((p >> 2) & 3) / 3.0f, (float)(p & 3) / 3.0f};
+// one texel into the tile: AO through the /255 table, its four 2-bit
+// edges (l, r, t, b from the high bits down) through the /3 values
+__device__ __forceinline__ void stage(Tile& s, int row, int col, int a,
+                                      int p, const float* tab,
+                                      const float third[4]) {
+  s.vis[row][col] = tab[a];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int q = (p >> (6 - 2 * k)) & 3;
+    s.e[k][row][col] = q == 0   ? third[0]
+                       : q == 1 ? third[1]
+                       : q == 2 ? third[2]
+                                : third[3];
+  }
+}
+
+__device__ __forceinline__ void load4(const float* p, float out[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  out[0] = q.x;
+  out[1] = q.y;
+  out[2] = q.z;
+  out[3] = q.w;
 }
 
 template <bool FINAL>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(DN_THREADS)
 gtao_denoise_kernel(const uint8_t* __restrict__ ao,
                     const uint8_t* __restrict__ edges, int h, int w,
-                    float blur, void* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= h * w) return;
-  const int y = idx / w, x = idx - (idx / w) * w;
-  const int xl = max(x - 1, 0), xr = min(x + 1, w - 1);
-  const int yt = max(y - 1, 0), yb = min(y + 1, h - 1);
-  auto e_at = [&](int yy, int xx) { return unpack(edges[yy * w + xx]); };
-  auto vis = [&](int yy, int xx) {
-    return (float)ao[yy * w + xx] / 255.0f;
-  };
+                    int wide, float blur, void* __restrict__ out) {
+  __shared__ float tab[256];
+  __shared__ float third_s[4];
+  __shared__ __align__(16) Tile s;
 
-  const Edges el = e_at(y, xl), er = e_at(y, xr), et = e_at(yt, x),
-              eb = e_at(yb, x);
-  Edges ec = e_at(y, x);
-  // symmetry enforcement
-  ec.l = ec.l * el.r;
-  ec.r = ec.r * er.l;
-  ec.t = ec.t * et.b;
-  ec.b = ec.b * eb.t;
-  // AO leak for pixels with 3-4 edges
-  const float esum = ec.l + ec.r + ec.t + ec.b;
-  const float edginess = (clip01(1.5f - esum) / 1.5f) * 0.5f;
-  ec.l = clip01(ec.l + edginess);
-  ec.r = clip01(ec.r + edginess);
-  ec.t = clip01(ec.t + edginess);
-  ec.b = clip01(ec.b + edginess);
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * DN_TILE_W, y0 = blockIdx.y * DN_ROWS;
+  tab[tid] = (float)tid / 255.0f;
+  if (tid < 4) third_s[tid] = (float)tid / 3.0f;
+  __syncthreads();
+  float third[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) third[k] = third_s[k];
 
-  const float diag = 0.425f;
-  const float w_tl = diag * (ec.l * el.t + ec.t * et.l);
-  const float w_tr = diag * (ec.t * et.r + ec.r * er.t);
-  const float w_bl = diag * (ec.b * eb.l + ec.l * el.b);
-  const float w_br = diag * (ec.r * er.b + ec.b * eb.r);
-
-  float sum_weight = blur;
-  float total = vis(y, x) * sum_weight;
-  total = total + vis(y, xl) * ec.l;
-  sum_weight = sum_weight + ec.l;
-  total = total + vis(y, xr) * ec.r;
-  sum_weight = sum_weight + ec.r;
-  total = total + vis(yt, x) * ec.t;
-  sum_weight = sum_weight + ec.t;
-  total = total + vis(yb, x) * ec.b;
-  sum_weight = sum_weight + ec.b;
-  total = total + vis(yt, xl) * w_tl;
-  sum_weight = sum_weight + w_tl;
-  total = total + vis(yt, xr) * w_tr;
-  sum_weight = sum_weight + w_tr;
-  total = total + vis(yb, xl) * w_bl;
-  sum_weight = sum_weight + w_bl;
-  total = total + vis(yb, xr) * w_br;
-  sum_weight = sum_weight + w_br;
-
-  const float o = total / sum_weight;
-  if (FINAL) {
-    const float s = o * 1.5f;
-    static_cast<uint16_t*>(out)[idx] =
-        (uint16_t)(int)(nmax(s, 0.0f) * 255.0f + 0.5f);
+  // the tile's texels, rows and columns clamped to the image
+  if (wide && x0 + DN_TILE_W <= w) {
+    uint32_t a[DN_WORDS], p[DN_WORDS];
+#pragma unroll
+    for (int j = 0; j < DN_WORDS; ++j) {
+      const int i = tid + j * DN_THREADS;
+      const int row = min(i / (DN_TILE_W / 4), DN_SROWS - 1);
+      const int gy = min(max(y0 - 1 + row, 0), h - 1);
+      const size_t at = (size_t)gy * w + x0 + 4 * (i % (DN_TILE_W / 4));
+      a[j] = *reinterpret_cast<const uint32_t*>(ao + at);
+      p[j] = *reinterpret_cast<const uint32_t*>(edges + at);
+    }
+#pragma unroll
+    for (int j = 0; j < DN_WORDS; ++j) {
+      const int i = tid + j * DN_THREADS;
+      if (i >= DN_SROWS * (DN_TILE_W / 4)) break;
+      const int row = i / (DN_TILE_W / 4), word = i % (DN_TILE_W / 4);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        stage(s, row, DN_COL0 + 4 * word + k, (a[j] >> (8 * k)) & 255,
+              (p[j] >> (8 * k)) & 255, tab, third);
+    }
   } else {
-    static_cast<uint8_t*>(out)[idx] =
-        (uint8_t)(int)(clip01(o) * 255.0f + 0.5f);
+    int a[DN_TEXELS], p[DN_TEXELS];
+#pragma unroll
+    for (int j = 0; j < DN_TEXELS; ++j) {
+      const int i = tid + j * DN_THREADS;
+      const int row = min(i / DN_TILE_W, DN_SROWS - 1);
+      const int gy = min(max(y0 - 1 + row, 0), h - 1);
+      const size_t at = (size_t)gy * w + min(x0 + i % DN_TILE_W, w - 1);
+      a[j] = ao[at];
+      p[j] = edges[at];
+    }
+#pragma unroll
+    for (int j = 0; j < DN_TEXELS; ++j) {
+      const int i = tid + j * DN_THREADS;
+      if (i >= DN_SROWS * DN_TILE_W) break;
+      stage(s, i / DN_TILE_W, DN_COL0 + i % DN_TILE_W, a[j], p[j], tab,
+            third);
+    }
+  }
+  if (tid < 2 * DN_SROWS) {
+    const int row = tid >> 1, right = tid & 1;
+    const int gy = min(max(y0 - 1 + row, 0), h - 1);
+    const int gx = right ? min(x0 + DN_TILE_W, w - 1) : max(x0 - 1, 0);
+    const size_t at = (size_t)gy * w + gx;
+    stage(s, row, right ? DN_COL0 + DN_TILE_W : DN_COL0 - 1, ao[at],
+          edges[at], tab, third);
+  }
+  __syncthreads();
+
+  const int tx = tid % 32, ty = tid / 32;
+  const int y = y0 + ty, x = x0 + DN_PX * tx;
+  if (y >= h || x >= w) return;
+  const int R = ty + 1, c = DN_COL0 + DN_PX * tx;
+
+  // the centre row's edges and AO at columns c - 1 .. c + 4 (index j <->
+  // column c - 1 + j), the rows above and below at c .. c + 3 (AO at
+  // c - 1 .. c + 4)
+  float cl[6], cr[6], ct[6], cb[6];
+  load4(&s.e[0][R][c], cl + 1);
+  load4(&s.e[1][R][c], cr + 1);
+  load4(&s.e[2][R][c], ct + 1);
+  load4(&s.e[3][R][c], cb + 1);
+  cl[0] = 0.0f;
+  cr[0] = s.e[1][R][c - 1];
+  ct[0] = s.e[2][R][c - 1];
+  cb[0] = s.e[3][R][c - 1];
+  cl[5] = s.e[0][R][c + 4];
+  cr[5] = 0.0f;
+  ct[5] = s.e[2][R][c + 4];
+  cb[5] = s.e[3][R][c + 4];
+  float tl[4], tr[4], tb[4], bl[4], br[4], bt[4];
+  load4(&s.e[0][R - 1][c], tl);
+  load4(&s.e[1][R - 1][c], tr);
+  load4(&s.e[3][R - 1][c], tb);
+  load4(&s.e[0][R + 1][c], bl);
+  load4(&s.e[1][R + 1][c], br);
+  load4(&s.e[2][R + 1][c], bt);
+  float vis[3][6];
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    vis[dy][0] = s.vis[R - 1 + dy][c - 1];
+    load4(&s.vis[R - 1 + dy][c], vis[dy] + 1);
+    vis[dy][5] = s.vis[R - 1 + dy][c + 4];
+  }
+
+  uint32_t packed[DN_PX];
+#pragma unroll
+  for (int k = 0; k < DN_PX; ++k) {
+    const int j = k + 1;
+    // symmetry enforcement
+    float ecl = cl[j] * cr[j - 1];
+    float ecr = cr[j] * cl[j + 1];
+    float ect = ct[j] * tb[k];
+    float ecb = cb[j] * bt[k];
+    // AO leak for pixels with 3-4 edges
+    const float esum = ecl + ecr + ect + ecb;
+    const float edginess = (clip01(1.5f - esum) / 1.5f) * 0.5f;
+    ecl = clip01(ecl + edginess);
+    ecr = clip01(ecr + edginess);
+    ect = clip01(ect + edginess);
+    ecb = clip01(ecb + edginess);
+
+    const float diag = 0.425f;
+    const float w_tl = diag * (ecl * ct[j - 1] + ect * tl[k]);
+    const float w_tr = diag * (ect * tr[k] + ecr * ct[j + 1]);
+    const float w_bl = diag * (ecb * bl[k] + ecl * cb[j - 1]);
+    const float w_br = diag * (ecr * cb[j + 1] + ecb * br[k]);
+
+    float sum_weight = blur;
+    float total = vis[1][j] * sum_weight;
+    total = total + vis[1][j - 1] * ecl;
+    sum_weight = sum_weight + ecl;
+    total = total + vis[1][j + 1] * ecr;
+    sum_weight = sum_weight + ecr;
+    total = total + vis[0][j] * ect;
+    sum_weight = sum_weight + ect;
+    total = total + vis[2][j] * ecb;
+    sum_weight = sum_weight + ecb;
+    total = total + vis[0][j - 1] * w_tl;
+    sum_weight = sum_weight + w_tl;
+    total = total + vis[0][j + 1] * w_tr;
+    sum_weight = sum_weight + w_tr;
+    total = total + vis[2][j - 1] * w_bl;
+    sum_weight = sum_weight + w_bl;
+    total = total + vis[2][j + 1] * w_br;
+    sum_weight = sum_weight + w_br;
+
+    const float o = total / sum_weight;
+    // the final pass keeps the u16 store's bits (no clamp above 1)
+    packed[k] = FINAL ? (uint32_t)(uint16_t)(int)(nmax(o * 1.5f, 0.0f) *
+                                                       255.0f + 0.5f)
+                      : (uint32_t)(uint8_t)(int)(clip01(o) * 255.0f + 0.5f);
+  }
+
+  const size_t at = (size_t)y * w + x;
+  if (wide) {
+    // w % 4 == 0, so all 4 pixels lie in the image and `at` is 4-aligned
+    if (FINAL)
+      *reinterpret_cast<uint4*>(static_cast<int32_t*>(out) + at) =
+          make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    else
+      *reinterpret_cast<uint32_t*>(static_cast<uint8_t*>(out) + at) =
+          packed[0] | (packed[1] << 8) | (packed[2] << 16) |
+          (packed[3] << 24);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < DN_PX; ++k) {
+    if (x + k < w) {
+      if (FINAL)
+        static_cast<int32_t*>(out)[at + k] = (int32_t)packed[k];
+      else
+        static_cast<uint8_t*>(out)[at + k] = (uint8_t)packed[k];
+    }
   }
 }
 
 }  // namespace
 
+// one pass over (h, w) u8 AO and packed edges into `out`, (h, w) int32
+// when final_pass (the scaled AO term, u16 values) else u8
 extern "C" int tpurt_gtao_denoise(const uint8_t* ao, const uint8_t* edges,
                                   int h, int w, float blur, int final_pass,
                                   void* out, cudaStream_t stream) {
-  const int n = h * w;
-  if (n > 0) {
-    const int blocks = (n + 255) / 256;
-    if (final_pass) {
-      gtao_denoise_kernel<true><<<blocks, 256, 0, stream>>>(ao, edges, h, w,
-                                                            blur, out);
-    } else {
-      gtao_denoise_kernel<false><<<blocks, 256, 0, stream>>>(ao, edges, h,
-                                                             w, blur, out);
-    }
+  if (h > 0 && w > 0) {
+    // 4-byte loads and stores need rows of a multiple of 4 bytes and
+    // 4-byte aligned inputs (out is a fresh allocation)
+    const int wide = (w % 4 == 0) && ((uintptr_t)ao % 4 == 0) &&
+                     ((uintptr_t)edges % 4 == 0);
+    const dim3 grid((w + DN_TILE_W - 1) / DN_TILE_W,
+                    (h + DN_ROWS - 1) / DN_ROWS);
+    if (final_pass)
+      gtao_denoise_kernel<true><<<grid, DN_THREADS, 0, stream>>>(
+          ao, edges, h, w, wide, blur, out);
+    else
+      gtao_denoise_kernel<false><<<grid, DN_THREADS, 0, stream>>>(
+          ao, edges, h, w, wide, blur, out);
   }
   return (int)cudaGetLastError();
 }

@@ -191,7 +191,8 @@ def render_frame_dynamic_refit(obj: dict, refit: dict, transforms,
                  tex_quad=obj["tex_quad"],
                  tex_quad_shape=obj["tex_quad_shape"])
     origin, direction = camera_rays(camera, width, height)
-    hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX)
+    hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX,
+                              height=height, width=width)
     g = shade(scene, camera, lights, hits, tables="bvh8", height=height,
               width=width)
     out = finish_frame(g, gtao, lpm, noise_index, width=width,

@@ -88,7 +88,8 @@ def _frame(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
     with step("rays"):
         origin, direction = camera_rays(camera, width, height)
     with step("trace"):
-        hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX)
+        hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX,
+                                  height=height, width=width)
     with step("shade"):
         g = shade(scene, camera, lights, hits, fuse_shadows=fuse_shadows,
                   height=height, width=width)

@@ -2,8 +2,9 @@
 
 ``denoise_chain`` replaces tpurt's ``denoise_chain_pallas``
 (``tpurt/kernels/gtao_pallas.py``): N edge-aware 3x3 passes, u8 between
-passes, the last pass scaled by 1.5 into u16 without a clamp. On CUDA
-tensors each pass is one launch of ``csrc/gtao_denoise.cu``; on CPU
+passes, the last pass scaled by 1.5 into u16 values (int32) without a
+clamp. On CUDA tensors each pass is one launch of ``csrc/gtao_denoise.cu``
+(the last one writes the int32 result itself); on CPU
 tensors :func:`denoise_pass_plain` (the PyTorch port of tpurt's XLA
 ``denoise_pass``) runs instead.
 """
@@ -23,7 +24,8 @@ LEAK_STRENGTH = 0.5
 
 
 def denoise_chain(ao_u8, edges_u8, *, n_passes: int, blur_beta: float):
-    """(H, W) u8 AO + packed edges -> (H, W) u16 final AO term."""
+    """(H, W) u8 AO + packed edges -> (H, W) int32 final AO term (u16
+    values)."""
     if ao_u8.dtype != torch.uint8 or edges_u8.dtype != torch.uint8:
         raise TypeError("denoise_chain: ao and edges must be uint8")
     if ao_u8.shape != edges_u8.shape or ao_u8.ndim != 2:
@@ -48,7 +50,7 @@ def denoise_chain(ao_u8, edges_u8, *, n_passes: int, blur_beta: float):
 
 def _denoise_pass_cuda(ao, edges, blur: float, final: bool):
     h, w = ao.shape
-    out = torch.empty((h, w), dtype=torch.int16 if final else torch.uint8,
+    out = torch.empty((h, w), dtype=torch.int32 if final else torch.uint8,
                       device=ao.device)
     fn = build.function("tpurt_gtao_denoise", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -57,8 +59,7 @@ def _denoise_pass_cuda(ao, edges, blur: float, final: bool):
     build.check(fn(p(ao), p(edges), h, w, float(blur), int(final), p(out),
                    build.stream_of(ao)), "tpurt_gtao_denoise")
     build.launch_counts["gtao_denoise"] += 1
-    # the kernel wrote u16 bit patterns (< 2^15 in practice: <= ~383)
-    return out.to(torch.int32) & 0xFFFF if final else out
+    return out
 
 
 def _unpack_edges(p):

@@ -5,17 +5,19 @@ orders (K7a) and the fused multi-set any hit (K5, two-pop K5p).
 ``trace_closest_bvh8``, ``trace_any_bvh8`` and ``trace_any_bvh8_multi``
 replace tpurt's entry points of the same names
 (``tpurt/kernels/traverse_bvh8.py``). On CUDA tensors they launch
-``csrc/bvh8_trace.cu`` / ``csrc/bvh8_any.cu`` (K2) / ``csrc/bvh8_multi.cu``;
-on CPU tensors they run the plain PyTorch versions below, which visit stack
-entries in the kernels' order and give bit-identical results. There is no
-fallback between the two.
+``csrc/bvh8_closest.cu`` (K1) / ``csrc/bvh8_any.cu`` (K2) /
+``csrc/bvh8_trace.cu`` / ``csrc/bvh8_multi.cu``; on CPU tensors they run
+the plain PyTorch versions below, which visit stack entries in the kernels'
+order and give bit-identical results. There is no fallback between the two.
 
-K2, the any hit at tpurt's default push order "none", reads the scene's
-compact node table ``nodes8c`` (``bvh/wide.compact_bvh8``; 224 bytes per
-node, child codes precomputed); every other trace reads the ``nodes8``
-rows. Its stack (local memory) holds codes only and has
-``ANY_STACK_SIZES`` entries, the least that ``stack_entries(depth8)``
-fits.
+K1, the closest hit at tpurt's default push order "sort", and K2, the any
+hit at its default "none", read the scene's compact node table ``nodes8c``
+(``bvh/wide.compact_bvh8``; 224 bytes per node, child codes precomputed);
+every other trace reads the ``nodes8`` rows. Their stacks (local memory)
+have ``COMPACT_STACK_SIZES`` entries, the least that
+``stack_entries(depth8)`` fits: K1's entries are a code and an entry
+distance, K2's a code. Given the frame's shape, both run 16x8 pixel tiles
+per block (``tile_rays``).
 
 Contract (tpurt's): ``t = t_max``, ``tri = -1``, ``u = v = 0`` on a miss;
 ``tri`` is the global triangle id; a ray with ``t_max <= t_min`` is never
@@ -86,9 +88,13 @@ MULTI_SETS_MAX = 4
 # the per-thread stack of the CUDA kernels (STACK_SIZE in
 # csrc/bvh8_common.cuh); the wrappers refuse trees that could need more
 STACK_SIZE = 192
-# K2's stack instantiations (csrc/bvh8_any.cu), codes only; the wrapper
-# takes the least that holds stack_entries(depth8)
-ANY_STACK_SIZES = (48, STACK_SIZE)
+# K1's and K2's stack instantiations (csrc/bvh8_closest.cu, bvh8_any.cu);
+# the wrappers take the least that holds stack_entries(depth8)
+COMPACT_STACK_SIZES = (48, STACK_SIZE)
+# pixels of a K1/K2 block (a 16x8 tile) and of a warp (8x4) when the rays
+# are a frame's pixels (csrc/bvh8_common.cuh tile_ray_index)
+TILE = (16, 8)
+WARP_TILE = (8, 4)
 PAYLOAD_KEYS = ("texu", "texv", "img", "texh", "texw")
 # K7a's push orders, by their code in csrc/bvh8_trace.cu
 PUSH_ORDERS = ("sort", "nearlast", "none")
@@ -124,10 +130,10 @@ def _t_max_tensor(t_max, n, like):
 
 
 def _check_compact(name, scene):
-    """K2's table: (M, 56) f32, one row per nodes8 row."""
+    """K1's and K2's table: (M, 56) f32, one row per nodes8 row."""
     nc = scene.get("nodes8c")
     if nc is None:
-        raise ValueError(f"{name}: the any hit needs scene['nodes8c'] "
+        raise ValueError(f"{name}: needs scene['nodes8c'] "
                          f"(bvh/wide.compact_bvh8; convert.scene_tensors "
                          f"builds it)")
     if nc.dtype != torch.float32 or nc.ndim != 2 or nc.shape[1] != 56 \
@@ -203,7 +209,7 @@ def _resolve_k7a(name, pop2, count_steps, push_order, any_hit=False):
 
 def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
                        pop2=None, uv_payload=None, count_steps=False,
-                       push_order=None):
+                       push_order=None, *, height: int = 0, width: int = 0):
     """Closest hit for (N, 3) rays. Returns dict(t, tri, u, v), each (N,),
     plus texu, texv, img, texh, texw (N,) f32 with the uv payload.
 
@@ -212,7 +218,10 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
     one-pop) takes K7c. The two do not compose (tpurt's rule).
     count_steps=True returns each ray's node pops in u and leaf pops in v
     (f32; t and tri unchanged); it and push_order "nearlast" / "none" take
-    K7a (module docstring)."""
+    K7a (module docstring). Otherwise the trace is K1's, over the scene's
+    nodes8c. height and width (0 when the rays are not a frame's pixels)
+    say that the rays are an H x W frame in row order: K1 then runs 16x8
+    pixel tiles per block. The result does not change."""
     name = "trace_closest_bvh8"
     pop2, order = _resolve_k7a(name, pop2, count_steps, push_order)
     k7a = count_steps or order != "sort"
@@ -229,14 +238,19 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
         raise ValueError(f"{name}: uv_payload needs scene['uvp'] "
                          f"(flatten_scene builds it)")
     n = origin.shape[0]
+    _check_frame(name, n, height, width)
     tmx = _t_max_tensor(t_max, n, origin)
     _check_inputs(name, scene, origin, direction, tmx, uvp=uv_payload)
     pops = 2 if pop2 else 1
     _check_stack(name, scene, pops)
+    k1 = _is_k1(pop2, uv_payload, count_steps, order)
     if not origin.is_cuda:
         return _trace_plain(scene, origin, direction, float(t_min), tmx,
                             any_hit=False, pops=pops, uv_payload=uv_payload,
-                            count_steps=count_steps, order=order)
+                            count_steps=count_steps, order=order, compact=k1)
+    if k1:
+        return closest_kernel(scene, origin, direction, t_min, tmx,
+                              tile_w=width)
     dev = origin.device
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
@@ -265,8 +279,7 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
                    int(uv_payload), p(t), p(tri), p(u), p(v),
                    p(pay) if uv_payload else None,
                    build.stream_of(origin)), name)
-    kind = "bvh8_closest_pop2" if pop2 else \
-        "bvh8_closest_uvp" if uv_payload else "bvh8_closest"
+    kind = "bvh8_closest_pop2" if pop2 else "bvh8_closest_uvp"
     build.launch_counts[kind] += 1
     if uv_payload:
         out.update(zip(PAYLOAD_KEYS, pay.unbind(0)))
@@ -288,9 +301,7 @@ def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max,
     pop2, order = _resolve_k7a(name, pop2, count_steps, push_order,
                                any_hit=True)
     n = origin.shape[0]
-    if width and height * width != n:
-        raise ValueError(f"{name}: {n} rays are not a {height} x {width} "
-                         f"frame")
+    _check_frame(name, n, height, width)
     tmx = _t_max_tensor(t_max, n, origin)
     _check_inputs(name, scene, origin, direction, tmx)
     pops = 2 if pop2 else 1
@@ -318,15 +329,85 @@ def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max,
     return occ.bool()
 
 
+def _check_frame(name, n, height, width):
+    if width and height * width != n:
+        raise ValueError(f"{name}: {n} rays are not a {height} x {width} "
+                         f"frame")
+
+
+def _is_k1(pop2, uv_payload, count_steps, order) -> bool:
+    """Whether a closest-hit trace is K1's: one pop, no payload,
+    uncounted, "sort"."""
+    return not pop2 and not uv_payload and not count_steps \
+        and order == "sort"
+
+
 def _is_k2(pop2, count_steps, order) -> bool:
     """Whether an any-hit trace is K2's: one pop, uncounted, "none"."""
     return not pop2 and not count_steps and order == "none"
 
 
-def any_stack_size(depth8: int) -> int:
-    """K2's stack instantiation for a BVH8 of `depth8` wide levels."""
-    return build.pick_stack(stack_entries(depth8), ANY_STACK_SIZES,
-                            f"BVH8 depth {depth8}", "K2")
+def compact_stack_size(depth8: int) -> int:
+    """K1's and K2's stack instantiation for a BVH8 of `depth8` wide
+    levels."""
+    return build.pick_stack(stack_entries(depth8), COMPACT_STACK_SIZES,
+                            f"BVH8 depth {depth8}", "K1/K2")
+
+
+def tile_rays(width: int, height: int):
+    """The ray of each thread of a K1/K2 launch over an H x W frame in
+    pixel tiles, as csrc/bvh8_common.cuh's tile_ray_index maps it: (blocks,
+    128) int64, -1 where a thread has no pixel. Block b covers the 16x8
+    tile b (row-major over the tiles), warp k of it the 8x4 pixels at
+    ((k % 2) * 8, (k // 2) * 4) in the tile, lane l the pixel (l % 8,
+    l // 8) in the warp's."""
+    tiles_x = (width + TILE[0] - 1) // TILE[0]
+    blocks = tiles_x * ((height + TILE[1] - 1) // TILE[1])
+    b = torch.arange(blocks)[:, None]
+    thread = torch.arange(TILE[0] * TILE[1])[None, :]
+    lane, warp = thread % 32, thread // 32
+    x = (b % tiles_x) * TILE[0] + (warp % 2) * WARP_TILE[0] \
+        + lane % WARP_TILE[0]
+    y = (b // tiles_x) * TILE[1] + (warp // 2) * WARP_TILE[1] \
+        + lane // WARP_TILE[0]
+    ray = y * width + x
+    return torch.where((x < width) & (ray < width * height), ray,
+                       torch.full_like(ray, -1))
+
+
+def _compact_launch_inputs(name, scene, origin, t_max, tile_w):
+    n = origin.shape[0]
+    if tile_w < 0 or (tile_w and n % tile_w):
+        raise ValueError(f"{name}: {n} rays are not rows of {tile_w}")
+    _check_compact(name, scene)
+    build.require_cuda(name, dict(nodes8c=scene["nodes8c"], t_max=t_max),
+                       origin.device)
+    return n
+
+
+def closest_kernel(scene: dict, origin, direction, t_min: float, t_max,
+                   tile_w: int = 0):
+    """K1 on CUDA tensors (trace_closest_bvh8's default path): dict(t,
+    tri, u, v) over scene["nodes8c"], t_max an (N,) f32 tensor; tile_w > 0
+    (the frame's width, N a multiple of it) runs 16x8 pixel tiles per
+    block, as trace_closest_bvh8 does when given the frame's shape."""
+    name = "trace_closest_bvh8"
+    n = _compact_launch_inputs(name, scene, origin, t_max, tile_w)
+    dev = origin.device
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    fn = build.function("tpurt_bvh8_closest_compact", [ctypes.c_void_p] * 4
+                        + [ctypes.c_float, ctypes.c_void_p]
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+    p = build.ptr
+    build.check(fn(p(scene["nodes8c"]), p(scene["tris"]), p(origin),
+                   p(direction), float(t_min), p(t_max), n,
+                   compact_stack_size(scene["depth8"]), tile_w, p(t), p(tri),
+                   p(u), p(v), build.stream_of(origin)), name)
+    build.launch_counts["bvh8_closest"] += 1
+    return dict(t=t, tri=tri, u=u, v=v)
 
 
 def any_kernel(scene: dict, origin, direction, t_min: float, t_max,
@@ -336,12 +417,7 @@ def any_kernel(scene: dict, origin, direction, t_min: float, t_max,
     (the frame's width, N a multiple of it) runs 16x8 pixel tiles per
     block, as trace_any_bvh8 does when given the frame's shape."""
     name = "trace_any_bvh8"
-    n = origin.shape[0]
-    if tile_w < 0 or (tile_w and n % tile_w):
-        raise ValueError(f"{name}: {n} rays are not rows of {tile_w}")
-    _check_compact(name, scene)
-    build.require_cuda(name, dict(nodes8c=scene["nodes8c"], t_max=t_max),
-                       origin.device)
+    n = _compact_launch_inputs(name, scene, origin, t_max, tile_w)
     occ = torch.empty(n, dtype=torch.uint8, device=origin.device)
     fn = build.function("tpurt_bvh8_any", [ctypes.c_void_p] * 4 + [
         ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
@@ -349,7 +425,7 @@ def any_kernel(scene: dict, origin, direction, t_min: float, t_max,
     p = build.ptr
     build.check(fn(p(scene["nodes8c"]), p(scene["tris"]), p(origin),
                    p(direction), float(t_min), p(t_max), n,
-                   any_stack_size(scene["depth8"]), tile_w, p(occ),
+                   compact_stack_size(scene["depth8"]), tile_w, p(occ),
                    build.stream_of(origin)), name)
     build.launch_counts["bvh8_any"] += 1
     return occ.bool()
@@ -489,13 +565,17 @@ def trace_closest_plain(scene, origin, direction, t_min, t_max,
     """Plain PyTorch version of K1 (K7b with pop2, K7c with uv_payload, K7a
     with count_steps or another push_order) on any device. `stats`, a dict,
     gets the traversal work (see count_work), the entries dropped unread
-    (see count_dropped) and the deepest stack (max_stack)."""
+    (see count_dropped) and the deepest stack (max_stack). K1's trace, one
+    pop, no payload, uncounted, "sort", reads the compact table nodes8c as
+    K1 does."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), any_hit=False,
                         pops=2 if pop2 else 1, uv_payload=uv_payload,
                         stats=stats, count_steps=count_steps,
-                        order=push_order)
+                        order=push_order,
+                        compact=_is_k1(pop2, uv_payload, count_steps,
+                                       push_order))
 
 
 def trace_any_plain(scene, origin, direction, t_min, t_max, stats=None,
@@ -643,7 +723,7 @@ def _trace_plain(scene, origin, direction, t_min, t_max, any_hit: bool,
     if count_steps and uv_payload:
         raise ValueError("count_steps and uv_payload do not compose")
     if compact:
-        _check_compact("the plain any hit", scene)
+        _check_compact("the plain trace", scene)
     nodes = scene["nodes8c"] if compact else scene["nodes8"]
     tris = scene["tris"]
     dev = origin.device

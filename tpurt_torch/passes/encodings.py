@@ -6,7 +6,22 @@ small floats round-trip exactly through their f16 bit patterns.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def sqrt(x):
+    """The f32 square root of x, correctly rounded on every device. On the
+    card it is PyTorch's (IEEE). PyTorch's CPU kernel goes through MKL's
+    VML, which is not correctly rounded (1 ULP off on ~1% of inputs) and,
+    on the first call of a process that two of its threads share (inputs of
+    4,096 and more elements, in chunks of 2,048), has returned ~12-bit
+    results on the second thread's chunk (tools/sqrt_probe.py); on CPU
+    tensors the root is numpy's, which is IEEE's."""
+    if x.device.type == "cpu":
+        with np.errstate(invalid="ignore"):    # NaN below 0, as torch's
+            return torch.from_numpy(np.sqrt(x.numpy()))
+    return torch.sqrt(x)
 
 
 def divide(x, s: float):

@@ -2,7 +2,8 @@
 
 Pixel centers through the inverse projection, rotated to world by the
 inverse view; row 0 is the top of the frame. Every multiply and add is its
-own f32 operation, summed left to right, so the rays are the same on every
+own f32 operation, summed left to right, and the norm's square root is
+correctly rounded (``encodings.sqrt``), so the rays are the same on every
 device. (tpurt's values on XLA:CPU differ from these in the last bits:
 XLA folds the division into a reciprocal multiply and contracts parts of
 the small matrix products and the norm into fused multiply-adds, in ways
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .encodings import divide
+from .encodings import divide, sqrt
 
 T_MIN = 0.001
 T_MAX = 10000.0
@@ -37,8 +38,8 @@ def camera_rays(camera: dict, width: int, height: int):
         return acc
 
     target = [dot(proj_inv, i, ndc) for i in range(3)]
-    norm = torch.sqrt(target[0] * target[0] + target[1] * target[1]
-                      + target[2] * target[2])
+    norm = sqrt(target[0] * target[0] + target[1] * target[1]
+                + target[2] * target[2])
     target = [c / norm for c in target]
     direction = torch.stack([dot(view_inv, i, target) for i in range(3)], -1)
     origin = view_inv[:3, 3].expand(height, width, 3)

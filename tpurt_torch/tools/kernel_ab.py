@@ -1,7 +1,8 @@
-"""Time K2 (BVH8 any hit) and K3 (GTAO main pass, with its noise table
-K3h where the checkout has one) of several checkouts of the port on one
-card, in turns, on the bench scene at 800x800 and 1920x1080, through the
-public entry points every checkout has.
+"""Time K1 (BVH8 closest hit), K2 (BVH8 any hit), K3 (GTAO main pass,
+with its noise table K3h where the checkout has one) and K4 (GTAO denoise)
+of several checkouts of the port on one card, in turns, on the bench scene
+at 800x800 and 1920x1080, through the public entry points every checkout
+has.
 
     python tpurt_torch/tools/kernel_ab.py --repo PARENT --repo . \\
         --repo . --repo PARENT [--out PATH]
@@ -11,6 +12,9 @@ change, parent compares two versions inside one call), which imports that
 checkout's tpurt_torch, builds its kernels and times on the card alone
 (kernels/build.device_ms):
 
+* K1: trace_closest_bvh8(scene, origin, direction, t_min, t_max) on the
+  frame's camera rays, the rays in consecutive blocks (the frame passes
+  its shape as well, for pixel tiles: chip_smoke.py times both);
 * K2: trace_any_bvh8(scene, origin, direction, t_min, t_max) at its
   default order on each light's shadow rays of the frame (3 launches,
   summed), the rays in consecutive blocks (the frame passes its shape as
@@ -18,9 +22,12 @@ checkout's tpurt_torch, builds its kernels and times on the card alone
 * K3: gtao_main at the frame's preset (ULTRA 9x3) on the frame's depth
   pyramid and G-buffer, every launch of it (chip_smoke.py times K3h and
   K3 apart);
+* K4: denoise_chain on the main pass's AO and edges at the frame's
+  preset (sharp: one pass);
 
 and reports the ptxas registers and stack frame of each kernel it built,
-hashes of the occlusion masks, the AO and edges and of one rendered frame
+hashes of the closest hits, the occlusion masks, the AO and edges, the
+denoised AO and of one rendered frame
 (so the versions can be held equal bit for bit), and the card's name and
 power limit. It prints one JSON object and writes it to --out when given.
 """
@@ -51,7 +58,7 @@ def _digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def _ptxas(log: str) -> list:
+def ptxas_report(log: str) -> list:
     """(kernel, registers, stack bytes) of every entry ptxas compiled."""
     out, name, stack = [], None, None
     for line in log.splitlines():
@@ -76,6 +83,7 @@ def child(repo: str) -> dict:
     from tpurt_torch.kernels import build
     from tpurt_torch.kernels import gtao_main as k3
     from tpurt_torch.kernels.build import device_ms
+    from tpurt_torch.kernels.gtao_denoise import denoise_chain
     from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
                                                    trace_closest_bvh8)
     from tpurt_torch.passes.encodings import (quantize_r11g11b10f,
@@ -87,7 +95,7 @@ def child(repo: str) -> dict:
     t0 = time.perf_counter()
     build.get_lib()
     out = dict(repo=repo, build_s=time.perf_counter() - t0,
-               ptxas=_ptxas(build.build_log),
+               ptxas=ptxas_report(build.build_log),
                sizes={})
     for w, h in SHAPES:
         r = build_bench_scene(Renderer(RendererConfig(width=w, height=h,
@@ -96,8 +104,9 @@ def child(repo: str) -> dict:
         cam, lights, gtao = r._frame_inputs()
         o, d = camera_rays(cam, w, h)
         hits = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX)
+        res = dict(k1_ms=device_ms(lambda: trace_closest_bvh8(
+            scene, o, d, T_MIN, T_MAX)), k2_ms=0.0)
         rays = shadow_rays(scene, cam, lights, hits)
-        res = dict(k2_ms=0.0)
         occ = []
         for so, sd, st in rays:
             occ.append(trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st))
@@ -113,10 +122,17 @@ def child(repo: str) -> dict:
         ao, edges = k3.gtao_main(mips, normal, gtao["vec"], noise, **kw)
         res["k3_total_ms"] = device_ms(lambda: k3.gtao_main(
             mips, normal, gtao["vec"], noise, **kw))
+        dn = dict(n_passes=r.config.gtao.num_denoise_passes,
+                  blur_beta=r.config.gtao.denoise_blur_beta)
+        final_ao = denoise_chain(ao, edges, **dn)
+        res["k4_ms"] = device_ms(lambda: denoise_chain(ao, edges, **dn), 20)
         r._frame_idx = 0
         image = r.render()["image"]
         torch.cuda.synchronize()
-        res.update(occ_digest=_digest(*occ), ao_digest=_digest(ao, edges),
+        res.update(hit_digest=_digest(*(hits[k] for k in ("t", "tri", "u",
+                                                          "v"))),
+                   denoise_digest=_digest(final_ao),
+                   occ_digest=_digest(*occ), ao_digest=_digest(ao, edges),
                    image_digest=_digest(image),
                    occluded=[int(x.sum()) for x in occ])
         out["sizes"][f"{w}x{h}"] = res
