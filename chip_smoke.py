@@ -29,16 +29,19 @@ once, at 64x64):
            frame from the plain versions on the host.
   phase 4  the dynamic scene's kernels at the rebuild path's shapes, with
            the bench animation (every instance rotated about Y by up to
-           0.5 rad): the LBVH and the refit BVH8 (and its nodes8c) built on
-           the card equal the same built on the host; K6 closest hit on the
-           primary rays and K6 any hit on each light's shadow rays (t_max =
-           0 lanes included) against the plain version (run once per size),
-           with
-           both times and the LBVH build and refit times.
+           0.5 rad): the LBVH (its rows and their compact table nodes2c)
+           and the refit BVH8 (and its nodes8c) built on the card equal the
+           same built on the host; K6 over nodes2c, closest hit on the
+           primary rays and any hit on each light's shadow rays (t_max = 0
+           lanes included), in 16x8 pixel tiles (as the rebuild frame
+           traces them) and on consecutive rays, all bit-exact against the
+           plain version (run once per size), with both times, the bound
+           over nodes2c and the LBVH build and refit times.
   phase 5  >= 8 frames each through Renderer.render_dynamic(): refit frames
-           (K1 1, K2 3, K3h 1, K3 1, K4 1, K6 0 per frame, one nodes8c
-           built), rebuild frames (refit=False: K6 closest 1, K6 any 3, K3h
-           1, K3 1, K4 1, K1/K2 0, no nodes8c), and a
+           (K1 1, K2 3, K3h 1, K3 1, K4 1, K6 0 per frame, one nodes8c and
+           no nodes2c built), rebuild frames (refit=False: K6 closest 1, K6
+           any 3, K3h 1, K3 1, K4 1, K1/K2 0, one nodes2c and no nodes8c
+           built), and a
            scrambled sequence with check_every=1 whose K6 launches appear
            right after the check frame; ms/frame and Mrays/s per path.
   phase 6  64x64 refit and rebuild frames on the card against the plain
@@ -623,8 +626,8 @@ def phase4(r, label):
     wh = build_world_tables(obj_h, t)
     torch.cuda.synchronize()
     same = {k: bits_equal(wd["bvh"][k], wh["bvh"][k]) for k in wh["bvh"]}
-    same["nodes2"] = bits_equal(wd["nodes2"], wh["nodes2"])
-    same["tris"] = bits_equal(wd["tris"], wh["tris"])
+    for key in ("nodes2", "nodes2c", "tris"):
+        same[key] = bits_equal(wd[key], wh[key])
     n8_card, n8_host = (refit_nodes8(obj, refit, t),
                         refit_nodes8(obj_h, refit_h, t))
     n8_equal = bits_equal(n8_card, n8_host) and bits_equal(
@@ -650,50 +653,67 @@ def phase4(r, label):
                        transform_ms=transform_ms, build_ms=lbvh_ms,
                        transform_refit_ms=refit_ms)
 
-    # K6 closest hit: primary rays
+    # K6 closest hit: the primary rays over nodes2c, traced as the rebuild
+    # frame traces them (its shape: 16x8 pixel tiles) and on consecutive
+    # rays, both bit-exact against the plain version
     o, d = camera_rays(cam, w, h)
-    hk = trace_closest_bvh2(wd, o, d, T_MIN, T_MAX)
+    tmx = torch.full((w * h,), T_MAX, dtype=torch.float32, device=o.device)
+    hk = trace_closest_bvh2(wd, o, d, T_MIN, T_MAX, height=h, width=w)
+    hr = trace_closest_bvh2(wd, o, d, T_MIN, T_MAX)
     work = {}
     plain_ms, hp = timed_once(lambda: trace_closest_plain(
         wd, o, d, T_MIN, T_MAX, stats=work))
-    mism = {k: int((hk[k].view(torch.int32) != hp[k].view(torch.int32))
-                   .sum()) for k in ("t", "tri", "u", "v")}
+    mism = {f"{k}{tag}": int((x[k].view(torch.int32)
+                              != hp[k].view(torch.int32)).sum())
+            for tag, x in (("", hk), ("_rows", hr))
+            for k in ("t", "tri", "u", "v")}
     err = float((hk["t"] - hp["t"]).abs().max())
     hit_share = float((hk["tri"] >= 0).float().mean())
-    t6 = kernel_ms(lambda: trace_closest_bvh2(wd, o, d, T_MIN, T_MAX))
-    b_ms, b_by = bound(*trace_work(wd, "nodes2", (o, d, torch.empty(w * h)),
-                                   16, work, OPS_BVH2_NODE))
+    t6 = kernel_ms(lambda: trace_closest_bvh2(wd, o, d, T_MIN, T_MAX,
+                                              height=h, width=w))
+    t6_rows = kernel_ms(lambda: trace_closest_bvh2(wd, o, d, T_MIN, T_MAX))
+    b_ms, b_by = bound(*trace_work(wd, "nodes2c", (o, d, tmx), 16, work,
+                                   OPS_BVH2_NODE))
     log(f"[{label}] K6 closest: rays {w * h}, hit share {hit_share:.4f}, "
         f"bit mismatches {mism}, max |dt| {err}, node pops "
         f"{int(work['node_pops'])}, triangle tests "
-        f"{int(work['tri_tests'])}, kernel {fmt_ms(t6)}, plain (once) "
-        f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{int(work['tri_tests'])}, kernel (tiles) {fmt_ms(t6)}, on rows of "
+        f"128 {fmt_ms(t6_rows)}, plain (once) {plain_ms:.2f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
     require(sum(mism.values()) == 0, f"[{label}] K6 closest differs")
     require(hit_share > 0.05, f"[{label}] K6 hit almost nothing")
     out["bvh2_closest"] = dict(max_abs_err=err, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=b_by, **t6)
+                               bound_ms=b_ms, bound_by=b_by,
+                               variants=dict(rows_of_128=t6_rows), **t6)
 
-    # K6 any hit: every light's shadow rays, t_max = 0 lanes included
+    # K6 any hit: every light's shadow rays, t_max = 0 lanes included,
+    # traced as shade() traces them (in tiles) and on consecutive rays
     tot = dict(plain_ms=0.0, bytes=0, ops=0, mism=0)
-    t6 = {}
+    t6, t6_rows = {}, {}
     for i, (so, sd, stmax) in enumerate(shadow_rays(wd, cam, lights, hk)):
-        ok = trace_any_bvh2(wd, so, sd, SHADOW_T_MIN, stmax)
+        ok = trace_any_bvh2(wd, so, sd, SHADOW_T_MIN, stmax, height=h,
+                            width=w)
+        ok_rows = trace_any_bvh2(wd, so, sd, SHADOW_T_MIN, stmax)
         work = {}
         p_ms, op = timed_once(lambda: trace_any_plain(
             wd, so, sd, SHADOW_T_MIN, stmax, stats=work))
-        n_mis = int((ok != op).sum())
+        n_mis = int((ok != op).sum()) + int((ok_rows != op).sum())
         dead = float((stmax <= SHADOW_T_MIN).float().mean())
         t = kernel_ms(lambda: trace_any_bvh2(wd, so, sd, SHADOW_T_MIN,
-                                             stmax))
-        moved, ops = trace_work(wd, "nodes2", (so, sd, stmax), 1, work,
+                                             stmax, height=h, width=w))
+        t_rows = kernel_ms(lambda: trace_any_bvh2(wd, so, sd, SHADOW_T_MIN,
+                                                  stmax))
+        moved, ops = trace_work(wd, "nodes2c", (so, sd, stmax), 1, work,
                                 OPS_BVH2_NODE)
         log(f"[{label}] K6 any light {i}: occluded "
             f"{float(ok.float().mean()):.4f}, t_max=0 lanes {dead:.4f}, "
-            f"mismatches {n_mis}, node pops {int(work['node_pops'])}, "
-            f"kernel {fmt_ms(t)}, plain (once) {p_ms:.2f} ms, bound "
+            f"mismatches (tiles + rows) {n_mis}, node pops "
+            f"{int(work['node_pops'])}, kernel (tiles) {fmt_ms(t)}, on rows "
+            f"{fmt_ms(t_rows)}, plain (once) {p_ms:.2f} ms, bound "
             f"{bound(moved, ops)[0]:.4f} ms ({bound(moved, ops)[1]})")
         tot["mism"] += n_mis
         add_ms(t6, t)
+        add_ms(t6_rows, t_rows)
         tot["plain_ms"] += p_ms
         tot["bytes"] += moved
         tot["ops"] += ops
@@ -701,15 +721,16 @@ def phase4(r, label):
     b_ms, b_by = bound(tot["bytes"], tot["ops"])
     out["bvh2_any"] = dict(max_abs_err=float(tot["mism"]),
                            plain_ms=tot["plain_ms"], bound_ms=b_ms,
-                           bound_by=b_by, **t6)
+                           bound_by=b_by,
+                           variants=dict(rows_of_128=t6_rows), **t6)
     return out
 
 
 def run_frames(r, transforms, label, path, want, **kw):
     """Frames through Renderer.render_dynamic with the launches of every
     frame checked against `want`, and the compact node tables it built
-    (one per refit frame, none on a rebuild frame); returns ms/frame and
-    the counts."""
+    (one nodes8c per refit frame and no nodes2c, one nodes2c per rebuild
+    frame and no nodes8c); returns ms/frame and the counts."""
     import torch
 
     from tpurt_torch.engine import dynamic
@@ -717,31 +738,36 @@ def run_frames(r, transforms, label, path, want, **kw):
 
     counts = build.launch_counts
     build.reset_counts()
-    compact, tables = dynamic.compact_bvh8, []
+    builders = {name: getattr(dynamic, name)
+                for name in ("compact_bvh8", "compact_bvh2")}
+    tables = {name: 0 for name in builders}
 
-    def counted_compact(nodes8):
-        tables.append(compact(nodes8))
-        return tables[-1]
+    def counted(name):
+        def build_table(nodes):
+            tables[name] += 1
+            return builders[name](nodes)
+        return build_table
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    dynamic.compact_bvh8 = counted_compact
+    for name in builders:
+        setattr(dynamic, name, counted(name))
     try:
         for t in transforms:
-            before = dict(counts)
-            n_tables = len(tables)
+            before, n_tables = dict(counts), dict(tables)
             out = r.render_dynamic(t, block=False, **kw)
             step = {k: counts[k] - before[k] for k in counts}
             took = "refit" if "refit_sah_ratio" in out else "rebuild"
-            built = len(tables) - n_tables
+            built = {k: tables[k] - n_tables[k] for k in tables}
             require(step == want and took == path
-                    and built == (path == "refit"),
+                    and built == dict(compact_bvh8=int(path == "refit"),
+                                      compact_bvh2=int(path == "rebuild")),
                     f"[{label}] {path} frame launched {step} on the {took} "
-                    f"path and built {built} compact node tables, want "
-                    f"{want}")
+                    f"path and built compact tables {built}, want {want}")
         torch.cuda.synchronize()
     finally:
-        dynamic.compact_bvh8 = compact
+        for name, fn in builders.items():
+            setattr(dynamic, name, fn)
     ms = (time.perf_counter() - t0) * 1000.0 / len(transforms)
     total = dict(counts)
     require(total == {k: v * len(transforms) for k, v in want.items()},
@@ -1320,10 +1346,12 @@ def main():
             log("  ptxas: " + line.strip())
     from tpurt_torch.tools.kernel_ab import ptxas_report
 
+    report = ptxas_report(build.build_log)
     log("ptxas K1 and K4: " + json.dumps(
-        [k for k in ptxas_report(build.build_log)
-         if "bvh8_closest_kernel" in k["kernel"]
+        [k for k in report if "bvh8_closest_kernel" in k["kernel"]
          or "gtao_denoise_kernel" in k["kernel"]]))
+    log("ptxas K6: " + json.dumps(
+        [k for k in report if "bvh2_trace_kernel" in k["kernel"]]))
 
     results, renderers = {}, {}
     try:
@@ -1393,6 +1421,10 @@ def main():
                                      for k, v in results.items()},
                         k1_variants={
                             k: v["kernels"]["bvh8_closest"]["variants"]
+                            for k, v in results.items()},
+                        k6_variants={
+                            k: {name: v["kernels"][name]["variants"]
+                                for name in ("bvh2_closest", "bvh2_any")}
                             for k, v in results.items()},
                         k3_with_noise_table={
                             k: v["kernels"]["gtao_main"]["with_noise_table"]

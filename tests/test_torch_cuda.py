@@ -9,14 +9,15 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 the machine with the card need not have.)
 
 Budgets (as chip_smoke.py holds them): K1, K2, K4, K5, K5p, K7a, K7b, K7c
-and K6 bit-identical with their plain versions (K1 and K2 in pixel tiles
-and on consecutive rays, K1 also on triangle soups with equal-t ties and
-sibling boxes, K2 also with K7a "none" over the rows, K5/K5p also with K2
-per set, K7a's and K7b's t with K1's, K7a's occlusion with K2's); K3h's
-table within P1's ATOL_TRIG of its plain version; P1 within
-ATOL_TRIG / RTOL_POW of its plain version (kernels/trans_equiv.py); the
-LBVH and the BVH8 refit built on the card equal to the same built on the
-host; K3 edges
+and K6 bit-identical with their plain versions (K1, K2 and K6 in pixel
+tiles and on consecutive rays, K1 and K6 also on triangle soups with
+equal-t ties and sibling boxes, K6 also on SAH trees with leaves of up to
+4, K2 also with K7a "none" over the rows, K5/K5p also with K2 per set,
+K7a's and K7b's t with K1's, K7a's occlusion with K2's); K3h's table
+within P1's ATOL_TRIG of its plain version; P1 within ATOL_TRIG /
+RTOL_POW of its plain version (kernels/trans_equiv.py); the LBVH, its
+nodes2c and the BVH8 refit built on the card equal to the same built on
+the host; K3 edges
 equal and AO within 1 u8 step on <= 0.1% of pixels (each preset's
 compile-time instantiation and a generic count). The frame on the card
 against the plain frame on the host:
@@ -170,8 +171,12 @@ def test_lbvh_and_refit_on_card_equal_host(cuda_frame):
 
 
 def test_k6_bit_identical(cuda_frame):
-    """K6 closest and any hit against the plain version on the card, on the
-    rebuild frame's rays (shadow rays with t_max = 0 lanes included)."""
+    """K6 closest and any hit (csrc/bvh2_trace.cu over nodes2c) against the
+    plain version on the card, on the rebuild frame's rays (shadow rays
+    with t_max = 0 lanes included): in 16x8 pixel tiles (as the rebuild
+    frame traces them), on consecutive rays and on a frame whose height is
+    not a multiple of the tile, with the launches counted; nodes2c built on
+    the card equals the host's."""
     from tpurt_torch.engine.dynamic import build_world_tables
     from tpurt_torch.kernels import build
     from tpurt_torch.kernels.traverse_bvh2 import (trace_any_bvh2,
@@ -182,22 +187,83 @@ def test_k6_bit_identical(cuda_frame):
     from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
 
     r = cuda_frame
+    w, h = r.config.width, r.config.height
     t, obj, _ = _dynamic_inputs(r)
     cam, lights, _ = _inputs(r)
     sc = build_world_tables(obj["cuda"], t)
-    o, d = camera_rays(cam, r.config.width, r.config.height)
+    host = build_world_tables(obj["cpu"], t)
+    assert torch.equal(sc["nodes2c"].cpu().view(torch.int32),
+                       host["nodes2c"].view(torch.int32))
+    o, d = camera_rays(cam, w, h)
     build.reset_counts()
-    hk = trace_closest_bvh2(sc, o, d, T_MIN, T_MAX)
-    assert build.launch_counts["bvh2_closest"] == 1
+    hk = trace_closest_bvh2(sc, o, d, T_MIN, T_MAX, height=h, width=w)
+    hr = trace_closest_bvh2(sc, o, d, T_MIN, T_MAX)
+    n = 37 * w
+    part = trace_closest_bvh2(sc, o[:n], d[:n], T_MIN, T_MAX, height=37,
+                              width=w)
+    assert build.launch_counts == _counts(bvh2_closest=3)
     hp = trace_closest_plain(sc, o, d, T_MIN, T_MAX)
     for k in ("t", "tri", "u", "v"):
-        assert torch.equal(hk[k].view(torch.int32), hp[k].view(torch.int32))
+        for got in (hk, hr, {key: v[:n] for key, v in part.items()}):
+            want = hp[k][:got[k].shape[0]]
+            assert torch.equal(_bits(got[k]), _bits(want)), k
     assert bool((hk["tri"] >= 0).any())
+    build.reset_counts()
     for so, sd, stmax in shadow_rays(sc, cam, lights, hk):
         assert bool((stmax == 0).any())
+        want = trace_any_plain(sc, so, sd, SHADOW_T_MIN, stmax)
+        assert torch.equal(trace_any_bvh2(sc, so, sd, SHADOW_T_MIN, stmax,
+                                          height=h, width=w), want)
         assert torch.equal(trace_any_bvh2(sc, so, sd, SHADOW_T_MIN, stmax),
-                           trace_any_plain(sc, so, sd, SHADOW_T_MIN, stmax))
-    assert build.launch_counts["bvh2_any"] == 3
+                           want)
+    assert build.launch_counts == _counts(bvh2_any=6)
+
+
+def test_k6_over_sah_trees_and_soups(cuda_frame):
+    """K6 on host-built binary SAH trees with leaves of up to 4 triangles
+    (max_leaf 4: the batched leaf step): the bench scene's tree on the
+    frame's camera rays, and the triangle soups of
+    tests/torch_closest_cases.py (every triangle twice: equal-t ties,
+    sibling leaves with identical boxes; grazing and axis-aligned rays,
+    t_max <= t_min) with leaves of 1 and 4; in tiles and on rows, bit for
+    bit against the plain version."""
+    from torch_closest_cases import H, T_MIN, W, frame_rays, port_scene, \
+        soup
+    from tpurt_torch.bvh.flat import bvh_max_depth
+    from tpurt_torch.engine import convert
+    from tpurt_torch.kernels.traverse_bvh2 import (trace_any_bvh2,
+                                                   trace_any_plain,
+                                                   trace_closest_bvh2,
+                                                   trace_closest_plain)
+    from tpurt_torch.passes.rays import T_MAX, camera_rays
+
+    def tree(bvh, geom):
+        return convert.bvh2_tensors(bvh, geom, bvh_max_depth(
+            np.asarray(bvh["entry"]), np.asarray(bvh["skip"]),
+            np.asarray(bvh["tri_count"])), "cuda")
+
+    r = cuda_frame
+    w, h = r.config.width, r.config.height
+    o, d = camera_rays(_inputs(r)[0], w, h)
+    cases = [(tree(r.scene.bvh, r.scene.geom), 4, o, d,
+              torch.full((w * h,), T_MAX, device="cuda"), 1e-3, (h, w))]
+    v0, v1, v2 = soup()
+    rays = [torch.tensor(x, device="cuda") for x in frame_rays(v0, v1, v2)]
+    for leaf_max in (1, 4):
+        _, bvh, geom = port_scene(v0, v1, v2, leaf_max)
+        cases.append((tree(bvh.as_pytree(), geom), leaf_max, *rays, T_MIN,
+                      (H, W)))
+    for sc, max_leaf, so, sd, tmx, t_min, (fh, fw) in cases:
+        want = trace_closest_plain(sc, so, sd, t_min, tmx, max_leaf)
+        occ = trace_any_plain(sc, so, sd, t_min, tmx, max_leaf)
+        assert int((want["tri"] >= 0).sum()) > 0 and bool(occ.any())
+        for shape in (dict(height=fh, width=fw), {}):
+            got = trace_closest_bvh2(sc, so, sd, t_min, tmx, max_leaf,
+                                     **shape)
+            for k in ("t", "tri", "u", "v"):
+                assert torch.equal(_bits(got[k]), _bits(want[k])), k
+            assert torch.equal(trace_any_bvh2(sc, so, sd, t_min, tmx,
+                                              max_leaf, **shape), occ)
 
 
 def test_dynamic_frames_on_card_match_host(cuda_frame):

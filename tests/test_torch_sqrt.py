@@ -58,3 +58,42 @@ def test_camera_rays_normalize_with_the_ieee_root(monkeypatch):
     want = tx / np.sqrt(seen[0].numpy())
     np.testing.assert_array_equal(d[:, 0].numpy().view(np.int32),
                                   want.reshape(-1).view(np.int32))
+
+
+def _root_calls(path):
+    """(line, text) of every PyTorch square root in a source file: the
+    ``torch.sqrt`` / ``torch.rsqrt`` functions named anywhere, imported
+    from torch, or called as tensor methods (``x.sqrt()``)."""
+    import ast
+
+    names = {"sqrt", "sqrt_", "rsqrt", "rsqrt_"}
+    modules = {"np", "numpy", "math", "cmath"}
+    found = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom) and node.module \
+                and node.module.split(".")[0] == "torch":
+            found += [(node.lineno, f"from {node.module} import {a.name}")
+                      for a in node.names if a.name in names]
+        elif isinstance(node, ast.Attribute) and node.attr in names:
+            base = node.value
+            if isinstance(base, ast.Name) and base.id in modules:
+                continue
+            found.append((node.lineno, ast.unparse(node)))
+    return found
+
+
+def test_no_torch_sqrt_outside_encodings():
+    """Risk T2: every square root of the port and of chip_smoke.py goes
+    through passes/encodings.sqrt (numpy's IEEE root on the CPU), the one
+    module that names PyTorch's own."""
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    files = sorted((repo / "tpurt_torch").rglob("*.py")) \
+        + [repo / "chip_smoke.py"]
+    allowed = repo / "tpurt_torch" / "passes" / "encodings.py"
+    assert allowed in files and len(files) >= 40
+    found = {str(f.relative_to(repo)): _root_calls(f) for f in files
+             if f != allowed}
+    assert not {f: c for f, c in found.items() if c}
+    assert [text for _, text in _root_calls(allowed)] == ["torch.sqrt"]

@@ -9,7 +9,7 @@ from tpurt_torch.kernels.gtao_main import (GTAO_VEC, PI, PI_HALF,
                                            XE_GTAO_DEPTH_MIP_LEVELS,
                                            XE_GTAO_OCCLUSION_TERM_SCALE,
                                            _clip, _fast_acos, _mip_meta)
-from tpurt_torch.passes.encodings import divide, rdivide
+from tpurt_torch.passes.encodings import divide, rdivide, sqrt
 
 
 def main_pass_inline(mips, normal_enc, gvec, noise, *, slice_count: int,
@@ -57,7 +57,7 @@ def main_pass_inline(mips, normal_enc, gvec, noise, *, slice_count: int,
     nx = normal_enc[..., 0] * 2.0 - 1.0
     ny = normal_enc[..., 1] * 2.0 - 1.0
     nz = normal_enc[..., 2] * 2.0 - 1.0
-    nlen = torch.clamp_min(torch.sqrt(nx * nx + ny * ny + nz * nz), 1e-20)
+    nlen = torch.clamp_min(sqrt(nx * nx + ny * ny + nz * nz), 1e-20)
     nx, ny, nz = nx / nlen, ny / nlen, nz / nlen
 
     vz = vz * 0.99920
@@ -67,7 +67,7 @@ def main_pass_inline(mips, normal_enc, gvec, noise, *, slice_count: int,
                 (g["ndc_mul_y"] * spy + g["ndc_add_y"]) * z, z)
 
     px, py, pz = view_pos(sp_x, sp_y, vz)
-    plen = torch.clamp_min(torch.sqrt(px * px + py * py + pz * pz), 1e-20)
+    plen = torch.clamp_min(sqrt(px * px + py * py + pz * pz), 1e-20)
     vx, vy, vzv = -px / plen, -py / plen, -pz / plen
 
     ssr = g["effect_radius"] / (vz * g["ndc_mul_x_pix"])
@@ -90,11 +90,11 @@ def main_pass_inline(mips, normal_enc, gvec, noise, *, slice_count: int,
         sz = sample(mip, _clip(sx, 0.0, 1.0), _clip(sy, 0.0, 1.0))
         qx, qy, qz = view_pos(sx, sy, sz)
         dx, dy, dz = qx - px, qy - py, qz - pz
-        dist = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        dist = sqrt(dx * dx + dy * dy + dz * dz)
         dmax = torch.clamp_min(dist, 1e-20)
         hx, hy, hz = dx / dmax, dy / dmax, dz / dmax
         dzt = dz * g["thin_mul"]
-        falloff_base = torch.sqrt(dx * dx + dy * dy + dzt * dzt)
+        falloff_base = sqrt(dx * dx + dy * dy + dzt * dzt)
         weight = _clip(falloff_base * g["falloff_mul"] + g["falloff_add"],
                        0.0, 1.0)
         shc = hx * vx + hy * vy + hz * vzv
@@ -112,13 +112,13 @@ def main_pass_inline(mips, normal_enc, gvec, noise, *, slice_count: int,
         dd = cos_phi * vx + sin_phi * vy + 0.0 * vzv
         ox, oy, oz = cos_phi - dd * vx, sin_phi - dd * vy, 0.0 - dd * vzv
         ax, ay, az = oy * vzv - oz * vy, oz * vx - ox * vzv, ox * vy - oy * vx
-        alen = torch.clamp_min(torch.sqrt(ax * ax + ay * ay + az * az), 1e-20)
+        alen = torch.clamp_min(sqrt(ax * ax + ay * ay + az * az), 1e-20)
         ax, ay, az = ax / alen, ay / alen, az / alen
 
         na = nx * ax + ny * ay + nz * az
         pnx, pny, pnz = nx - ax * na, ny - ay * na, nz - az * na
         sign_norm = torch.sign(ox * pnx + oy * pny + oz * pnz)
-        pn_len = torch.sqrt(pnx * pnx + pny * pny + pnz * pnz)
+        pn_len = sqrt(pnx * pnx + pny * pny + pnz * pnz)
         cos_norm = _clip((pnx * vx + pny * vy + pnz * vzv)
                          / torch.clamp_min(pn_len, 1e-20), 0.0, 1.0)
         n_angle = sign_norm * _fast_acos(cos_norm)
@@ -135,7 +135,7 @@ def main_pass_inline(mips, normal_enc, gvec, noise, *, slice_count: int,
 
             so_x = s * omega_x
             so_y = s * omega_y
-            so_len = torch.sqrt(so_x * so_x + so_y * so_y)
+            so_len = sqrt(so_x * so_x + so_y * so_y)
             mip_level = _clip(torch.log2(torch.clamp_min(so_len, 1e-20))
                               - g["depth_mip_sampling_offset"], 0.0,
                               float(XE_GTAO_DEPTH_MIP_LEVELS))

@@ -7,6 +7,8 @@ jitted frame) and returns the port's tensors on an explicit device:
   object_tensors  FlatScene.as_object_pytree()     (the dynamic scene)
   refit_tensors   engine/dynamic.make_refit_data() (the refit frames)
   bvh2_tensors    a binary BVH + its triangles     (K6's tables)
+
+and ``compact_bvh2`` builds K6's compact child-pair table from its rows.
   camera_tensors  Camera.uniform()
   light_tensors   Lights.shader_arrays()
   gtao_tensors    gtao_constants(...)
@@ -21,9 +23,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..bvh.wide import LEAF8_MAX, compact_bvh8
+from ..bvh.wide import EMPTY_CODE, LEAF8_MAX, LEAF_CODE_BASE, compact_bvh8
 from ..kernels.gtao_main import GTAO_VEC
-from ..kernels.traverse_bvh2 import kernel_stack
+from ..kernels.traverse_bvh2 import MAX_LEAF, kernel_stack
 from ..kernels.traverse_bvh8 import STACK_SIZE, stack_entries
 
 # K6 and K1/K2 carry node and triangle indices as exact f32 values
@@ -91,10 +93,48 @@ def pack_bvh2(bvh: dict):
                       b[:, None].to(torch.float32)], dim=1).contiguous()
 
 
+def compact_bvh2(nodes2):
+    """K6's compact child-pair table ``nodes2c`` (R, 16) f32 of a full
+    binary tree's (M, 8) rows (``pack_bvh2``; a tensor, on its device), R =
+    1 + (M - 1) / 2. Row 0 is a header: the root's box (lanes 0-5) and code
+    (lane 12; lanes 6-11 and 14-15 zero, lane 13 EMPTY_CODE). Row 1 + i is
+    the i-th internal node in node order: its left child's box (lanes 0-5),
+    its right child's (6-11), the same f32 bits as the rows, and the two
+    children's codes (12, 13) as int32 bits; lanes 14-15 zero. Leaves have
+    no row: a child's code is its row for an internal node and
+    -(first * LEAF_CODE_BASE + count) - 1 for a leaf, so a pop reads one
+    row and no meta row. Raises for a leaf of more than MAX_LEAF triangles
+    or a tree that is not full (one read back from the device)."""
+    m = nodes2.shape[0]
+    leaf = nodes2[:, 7] < 0.0
+    a = nodes2[:, 6].to(torch.int64)          # left child / first triangle
+    b = nodes2[:, 7].to(torch.int64)          # right child / -count
+    widest, leaves = torch.stack([torch.where(leaf, -b, 0).max(),
+                                  leaf.sum()]).tolist()
+    if widest > MAX_LEAF:
+        raise ValueError(f"a binary BVH leaf holds {widest} triangles; K6 "
+                         f"takes at most {MAX_LEAF}")
+    if 2 * leaves != m + 1:
+        raise ValueError(f"{m} nodes with {leaves} leaves: not a full "
+                         f"binary tree")
+    row = torch.cumsum(~leaf, 0)              # internal node -> its row
+    code = torch.where(leaf, b - a * LEAF_CODE_BASE - 1, row).to(torch.int32)
+    inner = torch.argsort(leaf.to(torch.int32), stable=True)[:(m - 1) // 2]
+    kids = torch.stack([a[inner], b[inner]], dim=1)           # (R - 1, 2)
+    header = torch.cat([nodes2[0, :6], nodes2.new_zeros(6),
+                        torch.stack([code[0], code.new_tensor(EMPTY_CODE)])
+                        .view(torch.float32), nodes2.new_zeros(2)])
+    body = torch.cat([nodes2[kids, :6].reshape(-1, 12),
+                      code[kids].view(torch.float32),
+                      nodes2.new_zeros((kids.shape[0], 2))], dim=1)
+    return torch.cat([header[None], body]).contiguous()
+
+
 def bvh2_tensors(bvh: dict, geom: dict, depth: int, device) -> dict:
     """K6's tables for a binary BVH and its leaf-order triangles (numpy or
-    tensors); `depth` bounds the tree's depth (root = 0). Raises when the
-    kernel's stack could overflow."""
+    tensors): the rows ``nodes2``, their compact table ``nodes2c`` (which
+    K6 reads), ``tris`` and ``depth2``; `depth` bounds the tree's depth
+    (root = 0). Raises when the kernel's stack could overflow."""
     kernel_stack(depth)
 
     def tensor(x):
@@ -105,8 +145,9 @@ def bvh2_tensors(bvh: dict, geom: dict, depth: int, device) -> dict:
     bvh = {k: tensor(bvh[k]) for k in ("aabb_min", "aabb_max", "entry",
                                        "skip", "first_tri", "tri_count")}
     geom = {k: tensor(geom[k]) for k in ("v0", "e1", "e2", "tri_id")}
-    return dict(nodes2=pack_bvh2(bvh), tris=pack_tris_device(geom),
-                depth2=int(depth))
+    nodes2 = pack_bvh2(bvh)
+    return dict(nodes2=nodes2, nodes2c=compact_bvh2(nodes2),
+                tris=pack_tris_device(geom), depth2=int(depth))
 
 
 def _check_bvh8(nodes8: np.ndarray) -> int:

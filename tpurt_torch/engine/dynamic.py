@@ -24,11 +24,11 @@ from ..bvh.wide import (LEAF8_MAX, compact_bvh8, refit_bvh8, refit_plan,
                         refit_quality)
 from ..kernels.traverse_bvh2 import trace_closest_bvh2
 from ..kernels.traverse_bvh8 import trace_closest_bvh8
-from ..passes.encodings import divide
+from ..passes.encodings import divide, sqrt
 from ..passes.gtao import GtaoSettings
 from ..passes.rays import T_MAX, T_MIN, camera_rays
 from ..passes.shade import shade
-from .convert import pack_bvh2, pack_tris_device
+from .convert import compact_bvh2, pack_bvh2, pack_tris_device
 from .frame import finish_frame
 
 REBUILD_SAH_RATIO = 2.0   # refit decay threshold that flips to rebuild
@@ -42,8 +42,7 @@ def _rows_apply(m, v):
 
 
 def _normalize(v):
-    norm = torch.sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1]
-                      + v[:, 2] * v[:, 2])
+    norm = sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2])
     return v / torch.clamp_min(norm, 1e-20)[:, None]
 
 
@@ -98,7 +97,8 @@ def _transforms(transforms, device):
 
 def build_world_tables(obj: dict, transforms) -> dict:
     """Object tables + (I, 3, 4) transforms -> world tables and a fresh
-    LBVH with K6's node and triangle rows (the per-frame 'TLAS rebuild').
+    LBVH with K6's node rows, their compact table ``nodes2c`` and the
+    triangle rows (the per-frame 'TLAS rebuild').
     Also returns the binary tree (``bvh``) and the leaf-order triangles
     (``geom``) as tpurt's build_world_tables does."""
     transforms = _transforms(transforms, obj["obj_vtx_pos"].device)
@@ -112,8 +112,10 @@ def build_world_tables(obj: dict, transforms) -> dict:
     geom = dict(v0=v0o, e1=v1[order] - v0o, e2=v2[order] - v0o,
                 tri_id=bvh.tri_order)
     bvh_pt = bvh.as_pytree()
-    return dict(bvh=bvh_pt, geom=geom, nodes2=pack_bvh2(bvh_pt),
-                tris=pack_tris_device(geom), depth2=depth_bound(tv.shape[0]),
+    nodes2 = pack_bvh2(bvh_pt)
+    return dict(bvh=bvh_pt, geom=geom, nodes2=nodes2,
+                nodes2c=compact_bvh2(nodes2), tris=pack_tris_device(geom),
+                depth2=depth_bound(tv.shape[0]),
                 num_tris=int(tv.shape[0]),
                 tri_attr=_tri_attr(obj, vtx_pos, vtx_normal, vtx_tangent),
                 tex_quad=obj["tex_quad"],
@@ -132,7 +134,7 @@ def render_frame_dynamic(obj: dict, transforms, camera: dict, lights: dict,
     scene = build_world_tables(obj, transforms)
     origin, direction = camera_rays(camera, width, height)
     hits = trace_closest_bvh2(scene, origin, direction, T_MIN, T_MAX,
-                              max_leaf=1)
+                              max_leaf=1, height=height, width=width)
     g = shade(scene, camera, lights, hits, tables="bvh2", max_leaf=1,
               height=height, width=width)
     return finish_frame(g, gtao, lpm, noise_index, width=width,

@@ -3,10 +3,13 @@
 ``trace_closest_bvh2`` and ``trace_any_bvh2`` replace tpurt's
 ``trace_closest_packets`` / ``trace_any_packets``
 (``tpurt/kernels/traverse_pallas.py``) over the threaded binary BVH, every
-table tier of them. On CUDA tensors they launch ``csrc/bvh2_trace.cu``; on
-CPU tensors they run the plain PyTorch version below, which pops stack
-entries in the kernel's order and gives bit-identical results. There is no
-fallback between the two.
+table tier of them. On CUDA tensors they launch ``csrc/bvh2_trace.cu`` over
+the compact child-pair table ``nodes2c``; on CPU tensors they run the plain
+PyTorch version below, which reads the same table, pops stack entries in
+the kernel's order and gives bit-identical results. There is no fallback
+between the two. Given the frame's shape (``height``, ``width``: the rays
+are its pixels in row order) the kernel runs 16x8 pixel tiles per block
+(``traverse_bvh8.tile_rays``); the result does not change.
 
 Contract (tpurt's): ``t = t_max``, ``tri = -1``, ``u = v = 0`` on a miss;
 ``tri`` is the global triangle id; a ray with ``t_max <= t_min`` is never
@@ -25,9 +28,12 @@ tpurt orders a packet's children by the packet's mean direction, so where
 two triangles give the same ``t`` the two packages may report different
 ones; the hit distance and any-hit results do not depend on the order.
 
-Scene keys: ``nodes2`` (M, 8) f32 from ``engine/convert.pack_bvh2``,
-``tris`` (T, 12) f32 from ``convert.pack_tris``, and ``depth2``, a bound on
-the tree's depth (root = 0) known on the host, which sizes the stack.
+Scene keys: ``nodes2c`` (R, 16) f32 from ``engine/convert.compact_bvh2``
+(what K6 reads), ``nodes2`` (M, 8) f32 from ``convert.pack_bvh2`` (the rows
+it is built from, which the plain version's reference traversal reads with
+``compact=False``), ``tris`` (T, 12) f32 from ``convert.pack_tris``, and
+``depth2``, a bound on the tree's depth (root = 0) known on the host,
+which sizes the stack.
 """
 from __future__ import annotations
 
@@ -35,11 +41,15 @@ import ctypes
 
 import torch
 
+from ..bvh.wide import LEAF_CODE_BASE
 from . import build
 
 # the kernel's stack variants (csrc/bvh2_trace.cu): a popped node at depth
 # d leaves at most d deferred siblings, then pushes two children
 STACK_SIZES = (64, 192)
+# lanes of a nodes2c row, and the widest leaf the kernel tests
+COMPACT2_FLOATS = 16
+MAX_LEAF = 32
 
 
 def stack_entries(depth: int) -> int:
@@ -61,23 +71,29 @@ def _t_max_tensor(t_max, n, like):
                       device=like.device)
 
 
-def _check_inputs(name, scene, origin, direction, t_max, max_leaf):
+def _check_inputs(name, scene, origin, direction, t_max, max_leaf, height,
+                  width):
+    from .traverse_bvh8 import _check_frame
+
     if origin.dtype != torch.float32 or direction.dtype != torch.float32:
         raise TypeError(f"{name}: rays must be float32")
     if origin.shape != direction.shape or origin.ndim != 2 \
             or origin.shape[1] != 3:
         raise ValueError(f"{name}: rays must be (N, 3), got "
                          f"{tuple(origin.shape)} / {tuple(direction.shape)}")
-    nodes, tris = scene["nodes2"], scene["tris"]
+    _check_frame(name, origin.shape[0], height, width)
+    nodes, tris = scene["nodes2c"], scene["tris"]
     if nodes.dtype != torch.float32 or nodes.ndim != 2 \
-            or nodes.shape[1] != 8:
-        raise ValueError(f"{name}: nodes2 must be (M, 8) float32")
+            or nodes.shape[1] != COMPACT2_FLOATS:
+        raise ValueError(f"{name}: nodes2c must be (R, {COMPACT2_FLOATS}) "
+                         f"float32 (engine/convert.compact_bvh2)")
     if tris.dtype != torch.float32 or tris.ndim != 2 or tris.shape[1] != 12:
         raise ValueError(f"{name}: tris must be (T, 12) float32")
-    if not 1 <= max_leaf <= 32:
-        raise ValueError(f"{name}: max_leaf {max_leaf} outside 1..32")
+    if not 1 <= max_leaf <= MAX_LEAF:
+        raise ValueError(f"{name}: max_leaf {max_leaf} outside "
+                         f"1..{MAX_LEAF}")
     kernel_stack(int(scene["depth2"]))
-    tensors = dict(nodes2=nodes, tris=tris, origin=origin,
+    tensors = dict(nodes2c=nodes, tris=tris, origin=origin,
                    direction=direction, t_max=t_max)
     if origin.is_cuda:
         build.require_cuda(name, tensors, origin.device)
@@ -88,56 +104,64 @@ def _check_inputs(name, scene, origin, direction, t_max, max_leaf):
                                  f"version runs on CPU tensors only")
 
 
+def _launch(entry, scene, origin, direction, t_min, t_max, max_leaf, width,
+            outputs):
+    """One K6 launch over nodes2c; `outputs` are the entry's output
+    tensors in its order."""
+    fn = build.function(entry, [ctypes.c_void_p] * 4 + [
+        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p] * (len(outputs) + 1))
+    p = build.ptr
+    build.check(fn(p(scene["nodes2c"]), p(scene["tris"]), p(origin),
+                   p(direction), float(t_min), p(t_max), origin.shape[0],
+                   max_leaf, kernel_stack(int(scene["depth2"])), width,
+                   *(p(t) for t in outputs), build.stream_of(origin)), entry)
+
+
 def trace_closest_bvh2(scene: dict, origin, direction, t_min: float, t_max,
-                       max_leaf: int = 1):
-    """Closest hit for (N, 3) rays. Returns dict(t, tri, u, v), each (N,)."""
+                       max_leaf: int = 1, height: int = 0, width: int = 0):
+    """Closest hit for (N, 3) rays. Returns dict(t, tri, u, v), each (N,).
+    `height`, `width`: the frame's shape when the rays are its pixels in
+    row order (N = height * width), for 16x8 pixel tiles; 0 for any rays."""
+    name = "trace_closest_bvh2"
     n = origin.shape[0]
     tmx = _t_max_tensor(t_max, n, origin)
-    _check_inputs("trace_closest_bvh2", scene, origin, direction, tmx,
-                  max_leaf)
+    _check_inputs(name, scene, origin, direction, tmx, max_leaf, height,
+                  width)
     if not origin.is_cuda:
         return trace_closest_plain(scene, origin, direction, t_min, tmx,
                                    max_leaf)
-    fn = build.function("tpurt_bvh2_closest", [ctypes.c_void_p] * 4 + [
-        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 5)
     t = torch.empty(n, dtype=torch.float32, device=origin.device)
     tri = torch.empty(n, dtype=torch.int32, device=origin.device)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    p = build.ptr
-    build.check(fn(p(scene["nodes2"]), p(scene["tris"]), p(origin),
-                   p(direction), float(t_min), p(tmx), n, max_leaf,
-                   kernel_stack(int(scene["depth2"])), p(t), p(tri), p(u),
-                   p(v), build.stream_of(origin)), "tpurt_bvh2_closest")
+    _launch("tpurt_bvh2_closest", scene, origin, direction, t_min, tmx,
+            max_leaf, width, (t, tri, u, v))
     build.launch_counts["bvh2_closest"] += 1
     return dict(t=t, tri=tri, u=u, v=v)
 
 
 def trace_any_bvh2(scene: dict, origin, direction, t_min: float, t_max,
-                   max_leaf: int = 1):
-    """Any hit (occlusion) for (N, 3) rays. Returns a (N,) bool mask."""
+                   max_leaf: int = 1, height: int = 0, width: int = 0):
+    """Any hit (occlusion) for (N, 3) rays. Returns a (N,) bool mask.
+    `height`, `width` as for trace_closest_bvh2."""
+    name = "trace_any_bvh2"
     n = origin.shape[0]
     tmx = _t_max_tensor(t_max, n, origin)
-    _check_inputs("trace_any_bvh2", scene, origin, direction, tmx, max_leaf)
+    _check_inputs(name, scene, origin, direction, tmx, max_leaf, height,
+                  width)
     if not origin.is_cuda:
         return trace_any_plain(scene, origin, direction, t_min, tmx,
                                max_leaf)
-    fn = build.function("tpurt_bvh2_any", [ctypes.c_void_p] * 4 + [
-        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 2)
     occ = torch.empty(n, dtype=torch.uint8, device=origin.device)
-    p = build.ptr
-    build.check(fn(p(scene["nodes2"]), p(scene["tris"]), p(origin),
-                   p(direction), float(t_min), p(tmx), n, max_leaf,
-                   kernel_stack(int(scene["depth2"])), p(occ),
-                   build.stream_of(origin)), "tpurt_bvh2_any")
+    _launch("tpurt_bvh2_any", scene, origin, direction, t_min, tmx, max_leaf,
+            width, (occ,))
     build.launch_counts["bvh2_any"] += 1
     return occ.bool()
 
 
 def _slab(rows, o, inv, t_min, tfar):
-    """Slab tests of boxes rows (A, K, 8) for rays (A, 3): (A, K) entry
+    """Slab tests of boxes rows (A, K, >=6) for rays (A, 3): (A, K) entry
     distance and hit (tpurt _Rays.slab order, NaN-propagating min/max)."""
     mn = torch.minimum
     mx = torch.maximum
@@ -152,32 +176,72 @@ def _slab(rows, o, inv, t_min, tfar):
 
 
 def trace_closest_plain(scene, origin, direction, t_min, t_max,
-                        max_leaf: int = 1, stats=None):
-    """Plain PyTorch version of K6 closest hit on any device. `stats`, a
-    dict, gets the traversal work (traverse_bvh8.count_work)."""
+                        max_leaf: int = 1, stats=None, compact: bool = True):
+    """Plain PyTorch version of K6 closest hit on any device, over nodes2c
+    as the kernel reads it, or with `compact` False over the nodes2 rows
+    (the reference the table is held to). `stats`, a dict, gets the
+    traversal work (traverse_bvh8.count_work)."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), max_leaf,
-                        any_hit=False, stats=stats)
+                        any_hit=False, stats=stats, compact=compact)
 
 
 def trace_any_plain(scene, origin, direction, t_min, t_max,
-                    max_leaf: int = 1, stats=None):
-    """Plain PyTorch version of K6 any hit on any device (`stats` as
-    above)."""
+                    max_leaf: int = 1, stats=None, compact: bool = True):
+    """Plain PyTorch version of K6 any hit on any device (`stats`,
+    `compact` as above)."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), max_leaf,
-                        any_hit=True, stats=stats)
+                        any_hit=True, stats=stats, compact=compact)
+
+
+def _row_tables(nodes2):
+    """The rows-based traversal's reads: the root's box and code, a node
+    pop's two children (boxes (k, 2, 6) and codes: node id, or -(node id)
+    - 1 for a leaf; the meta row first, then the child rows) and a leaf
+    pop's (first triangle, count) from its meta row."""
+    def children(code):
+        kid = nodes2[code, 6:8].to(torch.int64)
+        rows = nodes2[kid]
+        return rows[..., :6], torch.where(rows[..., 7] < 0.0, -kid - 1, kid)
+
+    def leaf(code):
+        meta = nodes2[-code - 1]
+        return meta[:, 6].to(torch.int64), (-meta[:, 7]).to(torch.int64)
+
+    root_code = -1 if float(nodes2[0, 7]) < 0.0 else 0
+    return nodes2[0, :6], root_code, children, leaf
+
+
+def _compact_tables(nodes2c):
+    """The same reads from nodes2c (convert.compact_bvh2): one row per
+    node pop, a leaf's range from its code."""
+    codes = nodes2c[:, 12:14].contiguous().view(torch.int32)
+
+    def children(code):
+        return nodes2c[code, :12].reshape(-1, 2, 6), codes[code].to(
+            torch.int64)
+
+    def leaf(code):
+        dec = -(code + 1)
+        first = dec // LEAF_CODE_BASE
+        return first, dec - first * LEAF_CODE_BASE
+
+    return nodes2c[0, :6], int(codes[0, 0]), children, leaf
 
 
 def _trace_plain(scene, origin, direction, t_min, t_max, max_leaf: int,
-                 any_hit: bool, stats=None):
+                 any_hit: bool, stats=None, compact: bool = True):
     """Every live ray pops one stack entry per iteration, over (N, S)
     stacks of codes and entry distances, in the kernel's order."""
     from .traverse_bvh8 import _moller_trumbore, count_work, leaf_tests
 
-    nodes, tris = scene["nodes2"], scene["tris"]
+    root_box, root_code, children, leaf = (
+        _compact_tables(scene["nodes2c"]) if compact
+        else _row_tables(scene["nodes2"]))
+    tris = scene["tris"]
     dev = origin.device
     n = origin.shape[0]
     s = stack_entries(int(scene["depth2"]))
@@ -195,9 +259,8 @@ def _trace_plain(scene, origin, direction, t_min, t_max, max_leaf: int,
     leaf_k = torch.arange(max_leaf, device=dev)
     rows_all = torch.arange(n, device=dev)
 
-    root = nodes[0:1].expand(n, 1, 8)
-    tn, hit = _slab(root, origin, inv, tmin_t, t_max)
-    codes[:, 0] = -1 if float(nodes[0, 7]) < 0.0 else 0
+    tn, hit = _slab(root_box.expand(n, 1, 6), origin, inv, tmin_t, t_max)
+    codes[:, 0] = root_code
     nears[:, 0] = tn[:, 0]
     sp = hit[:, 0].to(torch.int64)
     peak = sp.clone()
@@ -215,11 +278,9 @@ def _trace_plain(scene, origin, direction, t_min, t_max, max_leaf: int,
         sel = live & (code >= 0)
         na = a[sel]
         if na.numel():
-            kid = nodes[code[sel], 6:8].to(torch.int64)          # (k, 2)
-            rows = nodes[kid]                                     # (k, 2, 8)
+            boxes, kc = children(code[sel])
             tfar = t_max[na] if any_hit else t[na]
-            key, hit = _slab(rows, origin[na], inv[na], tmin_t, tfar)
-            kc = torch.where(rows[..., 7] < 0.0, -kid - 1, kid)
+            key, hit = _slab(boxes, origin[na], inv[na], tmin_t, tfar)
             nr = (~(key[:, 0] <= key[:, 1])).to(torch.int64)[:, None]
             fr = 1 - nr
             hf = torch.gather(hit, 1, fr)[:, 0]
@@ -239,9 +300,8 @@ def _trace_plain(scene, origin, direction, t_min, t_max, max_leaf: int,
         sel = live & (code < 0)
         la = a[sel]
         if la.numel():
-            meta = nodes[-code[sel] - 1]
-            first = meta[:, 6].to(torch.int64)
-            count = torch.clamp_max((-meta[:, 7]).to(torch.int64), max_leaf)
+            first, count = leaf(code[sel])
+            count = torch.clamp_max(count, max_leaf)
             idx = torch.clamp(first[:, None] + leaf_k[None, :],
                               max=tris.shape[0] - 1)
             trows = tris[idx]

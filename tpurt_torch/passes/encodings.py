@@ -17,10 +17,18 @@ def sqrt(x):
     on the first call of a process that two of its threads share (inputs of
     4,096 and more elements, in chunks of 2,048), has returned ~12-bit
     results on the second thread's chunk (tools/sqrt_probe.py); on CPU
-    tensors the root is numpy's, which is IEEE's."""
+    tensors the root is numpy's, which is IEEE's. Every square root of the
+    package goes through here."""
     if x.device.type == "cpu":
         with np.errstate(invalid="ignore"):    # NaN below 0, as torch's
-            return torch.from_numpy(np.sqrt(x.numpy()))
+            return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
+    return torch_sqrt(x)
+
+
+def torch_sqrt(x):
+    """PyTorch's own root on every device (MKL's VML on the CPU). Only
+    ``sqrt`` and ``tools/sqrt_probe.py``, which counts what VML gets wrong,
+    call it."""
     return torch.sqrt(x)
 
 

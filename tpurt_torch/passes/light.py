@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .encodings import sqrt
+
 LIGHT_TYPE_POINT = 0
 LIGHT_TYPE_SPOT = 1
 LIGHT_TYPE_DIRECTIONAL = 2
@@ -101,7 +103,7 @@ def get_light_radiance(light: dict, pos, L):
 
     has_falloff = light["falloff_distance"] > 0.0
     dl = light["pos"].expand(pos.shape) - pos
-    dist = torch.sqrt(_dot(dl, dl))
+    dist = sqrt(_dot(dl, dl))
     r = dist / light["falloff_distance"]
     w = torch.clamp_min(1.0 - r * r, 0.0)
     w = w * w

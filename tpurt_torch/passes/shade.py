@@ -35,7 +35,7 @@ import torch
 from ..kernels.traverse_bvh2 import trace_any_bvh2
 from ..kernels.traverse_bvh8 import trace_any_bvh8, trace_any_bvh8_multi
 from . import brdf
-from .encodings import divide
+from .encodings import divide, sqrt
 from .light import get_light_radiance, get_unnormalized_L_vec
 
 LOCAL_SSS_RATIO = 0.4
@@ -52,7 +52,7 @@ def _dot(a, b):
 
 
 def _norm(v):
-    return torch.sqrt(_dot(v, v))[..., None]
+    return sqrt(_dot(v, v))[..., None]
 
 
 def _normalize(v, eps=1e-20):
@@ -172,7 +172,7 @@ def shadow_tracer(tables: str, max_leaf: int = 1):
         return trace_any_bvh8
     if tables == "bvh2":
         return lambda *args, height=0, width=0: trace_any_bvh2(
-            *args, max_leaf=max_leaf)
+            *args, max_leaf=max_leaf, height=height, width=width)
     raise ValueError(f"unknown shadow tables {tables!r}")
 
 

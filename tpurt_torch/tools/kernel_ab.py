@@ -1,8 +1,8 @@
 """Time K1 (BVH8 closest hit), K2 (BVH8 any hit), K3 (GTAO main pass,
-with its noise table K3h where the checkout has one) and K4 (GTAO denoise)
-of several checkouts of the port on one card, in turns, on the bench scene
-at 800x800 and 1920x1080, through the public entry points every checkout
-has.
+with its noise table K3h where the checkout has one), K4 (GTAO denoise)
+and K6 (binary-BVH closest and any hit) of several checkouts of the port
+on one card, in turns, on the bench scene at 800x800 and 1920x1080,
+through the public entry points every checkout has.
 
     python tpurt_torch/tools/kernel_ab.py --repo PARENT --repo . \\
         --repo . --repo PARENT [--out PATH]
@@ -24,10 +24,16 @@ checkout's tpurt_torch, builds its kernels and times on the card alone
   K3 apart);
 * K4: denoise_chain on the main pass's AO and edges at the frame's
   preset (sharp: one pass);
+* K6: trace_closest_bvh2(scene, origin, direction, t_min, t_max) on the
+  frame's camera rays and trace_any_bvh2(...) on each light's shadow rays
+  from those hits (3 launches, summed), over the rebuild frame's LBVH at
+  the bench animation's last pose (rotation_frames(transforms, 8)[-1]),
+  the rays in consecutive blocks (the rebuild frame passes its shape as
+  well, for pixel tiles: chip_smoke.py times both);
 
-and reports the ptxas registers and stack frame of each kernel it built,
-hashes of the closest hits, the occlusion masks, the AO and edges, the
-denoised AO and of one rendered frame
+and reports the ptxas registers, stack frame and spills of each kernel it
+built, hashes of the closest hits, the occlusion masks, the AO and edges,
+the denoised AO, K6's hits and masks and of one rendered frame
 (so the versions can be held equal bit for bit), and the card's name and
 power limit. It prints one JSON object and writes it to --out when given.
 """
@@ -59,17 +65,23 @@ def _digest(*tensors) -> str:
 
 
 def ptxas_report(log: str) -> list:
-    """(kernel, registers, stack bytes) of every entry ptxas compiled."""
-    out, name, stack = [], None, None
+    """(kernel, registers, stack frame bytes, spill store and load bytes)
+    of every entry ptxas compiled."""
+    out, name, frame = [], None, {}
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
         elif "bytes stack frame" in line:
-            stack = int(line.split()[0])
+            nums = [int(part.split()[0]) for part in line.split(",")]
+            frame = dict(zip(("stack_bytes", "spill_stores", "spill_loads"),
+                             nums))
         elif "Used" in line and "registers" in line and name:
             regs = int(line.split("Used")[1].split()[0])
-            out.append(dict(kernel=name, registers=regs, stack_bytes=stack))
-            name = stack = None
+            out.append(dict(kernel=name, registers=regs,
+                            stack_bytes=frame.get("stack_bytes"),
+                            spill_stores=frame.get("spill_stores"),
+                            spill_loads=frame.get("spill_loads")))
+            name, frame = None, {}
     return out
 
 
@@ -78,12 +90,16 @@ def child(repo: str) -> dict:
     sys.path.insert(0, os.path.abspath(repo))
     import torch
 
-    from tpurt_torch.app.bench_scene import build_bench_scene
-    from tpurt_torch.engine import Renderer, RendererConfig
+    from tpurt_torch.app.bench_scene import (build_bench_scene,
+                                             rotation_frames)
+    from tpurt_torch.engine import Renderer, RendererConfig, convert
+    from tpurt_torch.engine.dynamic import build_world_tables
     from tpurt_torch.kernels import build
     from tpurt_torch.kernels import gtao_main as k3
     from tpurt_torch.kernels.build import device_ms
     from tpurt_torch.kernels.gtao_denoise import denoise_chain
+    from tpurt_torch.kernels.traverse_bvh2 import (trace_any_bvh2,
+                                                   trace_closest_bvh2)
     from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
                                                    trace_closest_bvh8)
     from tpurt_torch.passes.encodings import (quantize_r11g11b10f,
@@ -126,6 +142,17 @@ def child(repo: str) -> dict:
                   blur_beta=r.config.gtao.denoise_blur_beta)
         final_ao = denoise_chain(ao, edges, **dn)
         res["k4_ms"] = device_ms(lambda: denoise_chain(ao, edges, **dn), 20)
+        wd = build_world_tables(
+            convert.object_tensors(r.scene.as_object_pytree(), r.device),
+            rotation_frames(r.scene.transforms, 8)[-1])
+        hits6 = trace_closest_bvh2(wd, o, d, T_MIN, T_MAX)
+        res["k6_closest_ms"] = device_ms(lambda: trace_closest_bvh2(
+            wd, o, d, T_MIN, T_MAX))
+        res["k6_any_ms"], occ6 = 0.0, []
+        for so, sd, st in shadow_rays(wd, cam, lights, hits6):
+            occ6.append(trace_any_bvh2(wd, so, sd, SHADOW_T_MIN, st))
+            res["k6_any_ms"] += device_ms(lambda: trace_any_bvh2(
+                wd, so, sd, SHADOW_T_MIN, st))
         r._frame_idx = 0
         image = r.render()["image"]
         torch.cuda.synchronize()
@@ -133,6 +160,9 @@ def child(repo: str) -> dict:
                                                           "v"))),
                    denoise_digest=_digest(final_ao),
                    occ_digest=_digest(*occ), ao_digest=_digest(ao, edges),
+                   k6_hit_digest=_digest(*(hits6[k] for k in ("t", "tri",
+                                                              "u", "v"))),
+                   k6_occ_digest=_digest(*occ6),
                    image_digest=_digest(image),
                    occluded=[int(x.sum()) for x in occ])
         out["sizes"][f"{w}x{h}"] = res

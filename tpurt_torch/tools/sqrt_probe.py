@@ -5,10 +5,11 @@
 
 Starts `processes` fresh Python processes, `parallel` at a time. Each one
 takes the square root of the same 4,096 f32 values (uniform in [1, 3), the
-size of a 64x64 frame) twice with ``torch.sqrt`` and once with
-``passes.encodings.sqrt``, and counts the roots that differ from numpy's
-(IEEE, correctly rounded) by more than 1e-6 relative (a wrong root, not a
-rounding) and the roots that differ in any bit. A ``torch.sqrt`` call on
+size of a 64x64 frame) twice with PyTorch's root
+(``passes.encodings.torch_sqrt``) and once with ``passes.encodings.sqrt``,
+and counts the roots that differ from numpy's (IEEE, correctly rounded) by
+more than 1e-6 relative (a wrong root, not a rounding) and the roots that
+differ in any bit. A ``torch.sqrt`` call on
 the CPU goes through MKL's VML in chunks of 2,048 elements, one per thread;
 the probe reports, per call, the processes with wrong roots and the
 elements they hit. It prints one JSON object and writes it to --out.
@@ -31,13 +32,13 @@ def child() -> dict:
     import numpy as np
     import torch
 
-    from tpurt_torch.passes.encodings import sqrt
+    from tpurt_torch.passes.encodings import sqrt, torch_sqrt
 
     x = np.random.default_rng(0).uniform(1.0, 3.0, N).astype(np.float32)
     want = np.sqrt(x)
     out = {}
-    for name, fn in (("torch_first", torch.sqrt), ("torch_second", torch.sqrt),
-                     ("encodings", sqrt)):
+    for name, fn in (("torch_first", torch_sqrt),
+                     ("torch_second", torch_sqrt), ("encodings", sqrt)):
         got = fn(torch.from_numpy(x.copy())).numpy()
         wrong = np.nonzero(np.abs(got - want) / want > REL)[0]
         out[name] = dict(
