@@ -47,8 +47,11 @@ once, at 64x64):
   phase 6  64x64 refit and rebuild frames on the card against the plain
            versions on the host.
   phase 7  tpurt's traversal switches. On the frame's real rays: the fused
-           multi-light shadow kernel (K5) and its two-pop form (K5p) against
-           their plain versions and against K2 per light; the two-pop
+           multi-light shadow kernel (K5) and its two-pop form (K5p) over
+           nodes8c, in 16x8 pixel tiles (as shade() traces them) and on
+           consecutive rays, against their plain versions and against K2
+           per light, timed beside K2 once per light on the same rays in
+           the same tiles (K2 x 3, the yardstick); the two-pop
            closest and any kernels (K7b) against their plain versions and
            against K1/K2 (t bit-equal, tri differing only on ties); the
            uv-payload kernel (K7c) against its plain version; all bit-exact,
@@ -884,10 +887,17 @@ def phase7_kernels(r, label):
     tmaxs = torch.stack([st for _, _, st in rays])
     solo = torch.stack([trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st)
                         for so, sd, st in rays])
+    # the yardstick: K2 once per light on the same rays, in the same tiles
+    k2_sets = {}
+    for so, sd, st in rays:
+        add_ms(k2_sets, kernel_ms(lambda: trace_any_bvh8(
+            scene, so, sd, SHADOW_T_MIN, st, height=h, width=w)))
 
-    # K5 / K5p: every light's shadow rays in one launch. Both compute the
-    # same function, so both are bounded by the lesser work of the one-pop
-    # and two-pop visit orders (the two-pop order tests more nodes).
+    # K5 / K5p: every light's shadow rays in one launch over nodes8c, in
+    # 16x8 pixel tiles (the frame's shape, as shade() traces them) and on
+    # consecutive rays, both bit-exact. Both compute the same function, so
+    # both are bounded by the lesser work of the one-pop and two-pop visit
+    # orders (the two-pop order tests more nodes).
     plain = {}
     for pop2 in (False, True):
         work = {}
@@ -900,27 +910,36 @@ def phase7_kernels(r, label):
     for name, pop2 in (("bvh8_any_multi", False),
                        ("bvh8_any_multi_pop2", True)):
         ok = trace_any_bvh8_multi(scene, origin, dirs, SHADOW_T_MIN, tmaxs,
-                                  pop2=pop2)
+                                  pop2=pop2, height=h, width=w)
+        rows = trace_any_bvh8_multi(scene, origin, dirs, SHADOW_T_MIN, tmaxs,
+                                    pop2=pop2)
         plain_ms, op, work, _ = plain[pop2]
-        mism_plain = int((ok != op).sum())
+        mism_plain = int((ok != op).sum()) + int((rows != op).sum())
         mism_k2 = int((ok != solo).sum())
         t = kernel_ms(lambda: trace_any_bvh8_multi(
+            scene, origin, dirs, SHADOW_T_MIN, tmaxs, pop2=pop2, height=h,
+            width=w))
+        t_rows = kernel_ms(lambda: trace_any_bvh8_multi(
             scene, origin, dirs, SHADOW_T_MIN, tmaxs, pop2=pop2))
-        moved = nbytes(scene["nodes8"], scene["tris"], origin, dirs, tmaxs) \
-            + ok.numel()
+        moved = nbytes(scene["nodes8c"], scene["tris"], origin, dirs,
+                       tmaxs) + ok.numel()
         b_ms, b_by = bound(moved, least_ops)
         log(f"[{label}] {name}: {ok.shape[0]} lights x {ok.shape[1]} rays, "
             f"occluded {float(ok.float().mean()):.4f}, mismatches vs plain "
-            f"{mism_plain}, vs K2 per light {mism_k2}, node pops "
-            f"{int(work['node_pops'])} (slab groups "
+            f"(tiles and rows) {mism_plain}, vs K2 per light {mism_k2}, "
+            f"node pops {int(work['node_pops'])} (slab groups "
             f"{int(work['node_tests'])}), triangle tests "
             f"{int(work['tri_tests'])}, max stack {work['max_stack']}, "
-            f"kernel {fmt_ms(t)}, plain (once) {plain_ms:.2f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"kernel (tiles) {fmt_ms(t)}, on rows of 128 {fmt_ms(t_rows)}, "
+            f"K2 x {ok.shape[0]} on the same rays (tiles) {fmt_ms(k2_sets)}, "
+            f"ratio {t['ms'] / k2_sets['ms']:.3f}, plain (once) "
+            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
         require(mism_plain == 0 and mism_k2 == 0,
                 f"[{label}] {name} differs from plain or from K2")
         out[name] = dict(max_abs_err=float(mism_plain), plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, **t)
+                         bound_ms=b_ms, bound_by=b_by,
+                         variants=dict(rows_of_128=t_rows,
+                                       k2_per_set_tiles=k2_sets), **t)
 
     # K7b closest: the primary rays, two pops per iteration; bounded, as
     # K5p is, by the lesser work of the two visit orders
@@ -1352,6 +1371,8 @@ def main():
          or "gtao_denoise_kernel" in k["kernel"]]))
     log("ptxas K6: " + json.dumps(
         [k for k in report if "bvh2_trace_kernel" in k["kernel"]]))
+    log("ptxas K5: " + json.dumps(
+        [k for k in report if "bvh8_any_multi_kernel" in k["kernel"]]))
 
     results, renderers = {}, {}
     try:
@@ -1425,6 +1446,11 @@ def main():
                         k6_variants={
                             k: {name: v["kernels"][name]["variants"]
                                 for name in ("bvh2_closest", "bvh2_any")}
+                            for k, v in results.items()},
+                        k5_variants={
+                            k: {name: v["kernels"][name]["variants"]
+                                for name in ("bvh8_any_multi",
+                                             "bvh8_any_multi_pop2")}
                             for k, v in results.items()},
                         k3_with_noise_table={
                             k: v["kernels"]["gtao_main"]["with_noise_table"]

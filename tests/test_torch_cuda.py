@@ -12,7 +12,8 @@ Budgets (as chip_smoke.py holds them): K1, K2, K4, K5, K5p, K7a, K7b, K7c
 and K6 bit-identical with their plain versions (K1, K2 and K6 in pixel
 tiles and on consecutive rays, K1 and K6 also on triangle soups with
 equal-t ties and sibling boxes, K6 also on SAH trees with leaves of up to
-4, K2 also with K7a "none" over the rows, K5/K5p also with K2 per set,
+4, K2 also with K7a "none" over the rows, K5/K5p also with K2 per set
+(in pixel tiles and on consecutive rays, on soups and a deep tree),
 K7a's and K7b's t with K1's, K7a's occlusion with K2's); K3h's table
 within P1's ATOL_TRIG of its plain version; P1 within ATOL_TRIG /
 RTOL_POW of its plain version (kernels/trans_equiv.py); the LBVH, its
@@ -338,11 +339,14 @@ def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
 
 @pytest.mark.parametrize("pop2", [False, True])
 def test_multi_kernels_bit_identical(cuda_frame, pop2):
-    """K5 / K5p against the plain version and against K2 per set, for S = 1,
-    the frame's 3 lights, and S = 6 (above the per-launch cap: two
-    launches)."""
+    """K5 / K5p (csrc/bvh8_multi.cu, nodes8c) against the plain version and
+    against K2 per set, for S = 1, the frame's 3 lights, and S = 6 (above
+    the per-launch cap: two launches), in 16x8 pixel tiles (the frame's
+    shape, as shade() traces them) and on consecutive rays; a frame that is
+    not a multiple of the tile."""
     from tpurt_torch.kernels import build
     from tpurt_torch.kernels.traverse_bvh8 import (MULTI_SETS_MAX,
+                                                   multi_stack_size,
                                                    trace_any_bvh8,
                                                    trace_any_bvh8_multi,
                                                    trace_any_multi_plain,
@@ -353,27 +357,76 @@ def test_multi_kernels_bit_identical(cuda_frame, pop2):
     r = cuda_frame
     cam, lights, _ = _inputs(r)
     sc = r.scene_device
-    o, d = camera_rays(cam, r.config.width, r.config.height)
+    w, h = r.config.width, r.config.height
+    o, d = camera_rays(cam, w, h)
     rays = shadow_rays(sc, cam, lights, trace_closest_bvh8(sc, o, d, T_MIN,
                                                            T_MAX))
     origin = rays[0][0]
     solo = [trace_any_bvh8(sc, so, sd, SHADOW_T_MIN, stmax)
             for so, sd, stmax in rays]
     assert any(bool(x.any()) for x in solo)
+    assert multi_stack_size(sc["depth8"], 2 if pop2 else 1) == \
+        (64 if pop2 else 48)
     kind = "bvh8_any_multi_pop2" if pop2 else "bvh8_any_multi"
     for sets in ([0], [0, 1, 2], [0, 1, 2, 2, 1, 0]):
         dirs = torch.stack([rays[i][1] for i in sets])
         tmax = torch.stack([rays[i][2] for i in sets])
+        launches = -(-len(sets) // MULTI_SETS_MAX)
         build.reset_counts()
         got = trace_any_bvh8_multi(sc, origin, dirs, SHADOW_T_MIN, tmax,
-                                   pop2=pop2)
-        launches = -(-len(sets) // MULTI_SETS_MAX)
+                                   pop2=pop2, height=h, width=w)
         assert build.launch_counts == _counts(**{kind: launches})
         assert got.shape == (len(sets), o.shape[0])
         assert torch.equal(got, trace_any_multi_plain(
             sc, origin, dirs, SHADOW_T_MIN, tmax, pop2=pop2))
         for row, i in zip(got, sets):
             assert torch.equal(row, solo[i])
+        assert torch.equal(got, trace_any_bvh8_multi(
+            sc, origin, dirs, SHADOW_T_MIN, tmax, pop2=pop2))
+        # 37 of the 80 rows, 96 wide: the last tile row is partial
+        n = 37 * w
+        part = trace_any_bvh8_multi(sc, origin[:n], dirs[:, :n],
+                                    SHADOW_T_MIN, tmax[:, :n], pop2=pop2,
+                                    height=37, width=w)
+        assert torch.equal(part, got[:, :n])
+        assert build.launch_counts == _counts(**{kind: 3 * launches})
+
+
+@pytest.mark.parametrize("pop2", [False, True])
+def test_multi_kernels_on_soups_and_a_deep_tree(cuda_frame, pop2):
+    """K5 / K5p against the plain version and K2 per set on the triangle
+    soups of tests/torch_closest_cases.py (identical sibling boxes, grazing
+    and axis-aligned rays, t_max <= t_min) and on its deep soup, whose
+    9-level tree takes the 192-entry stack instantiation, for 1, 3 and 4
+    sets, in tiles and on rows."""
+    from torch_closest_cases import (CASES, H, T_MIN, W, deep_soup,
+                                     port_scene, shared_origin_sets, soup)
+    from tpurt_torch.kernels.traverse_bvh8 import (multi_stack_size,
+                                                   trace_any_bvh8,
+                                                   trace_any_bvh8_multi,
+                                                   trace_any_multi_plain)
+
+    pops = 2 if pop2 else 1
+    cases = [(soup(), leaf_max) for leaf_max in CASES.values()]
+    cases.append((deep_soup(), 1))
+    for tris, leaf_max in cases:
+        scene, _, _ = port_scene(*tris, leaf_max, device="cuda")
+        deep = multi_stack_size(scene["depth8"], pops) == 192
+        assert deep == (tris[0].shape[0] == 80)
+        for sets in (1, 3, 4):
+            o, dirs, tmax = (torch.tensor(x, device="cuda")
+                             for x in shared_origin_sets(*tris, sets))
+            want = trace_any_multi_plain(scene, o, dirs, T_MIN, tmax,
+                                         pop2=pop2)
+            assert bool(want.any())
+            for i in range(sets):
+                assert torch.equal(want[i], trace_any_bvh8(
+                    scene, o, dirs[i], T_MIN, tmax[i]))
+            assert torch.equal(trace_any_bvh8_multi(
+                scene, o, dirs, T_MIN, tmax, pop2=pop2, height=H,
+                width=W), want)
+            assert torch.equal(trace_any_bvh8_multi(
+                scene, o, dirs, T_MIN, tmax, pop2=pop2), want)
 
 
 def test_variant_frames_on_card(cuda_frame):

@@ -12,11 +12,17 @@ hit is an equal-t tie between two triangles:
 * "dup_merged": the default collapse, duplicates inside one leaf (the
   first in leaf order wins the tie).
 
+A third soup, "deep" (deep_soup), nests 80 triangles at geometrically
+shrinking scales, so that its tree (leaf slots of one triangle) is 9 BVH8
+levels deep and takes the kernels' largest stack instantiation.
+
 Rays form a 12 x 20 frame (a multiple of neither 16x8 nor 32x32): rays
 aimed at triangle centroids, at vertices (grazing the triangles' edges and
 their boxes' faces), axis-aligned rays (direction components of 0, inverse
 +-inf) and random ones; t_max is mostly 100, some lanes short, 0, equal to
-t_min or negative (those retire with t = t_max, tri = -1).
+t_min or negative (those retire with t = t_max, tri = -1). For the fused
+multi-set any hit, shared_origin_sets adds sets of rays from the same
+origins aimed at other triangles.
 """
 from __future__ import annotations
 
@@ -34,6 +40,38 @@ def soup(seed: int = 5, n: int = 120):
     v1 = base + rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
     v2 = base + rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
     return tuple(np.repeat(a, 2, axis=0) for a in (base, v1, v2))
+
+
+def deep_soup(n: int = 80, scale: float = 0.7, seed: int = 3):
+    """(v0, v1, v2) (n, 3) f32: triangle k of size ~0.4 * scale**k at
+    8 * scale**k * (1, 0.3, 0.2), each nested beside the next smaller: a
+    chain of boxes, so the tree is deep for few triangles."""
+    rng = np.random.default_rng(seed)
+    k = scale ** np.arange(n)[:, None]
+    centre = k * np.array([[8.0, 2.4, 1.6]])
+    return tuple((centre + rng.uniform(-1.0, 1.0, (n, 3)) * 0.4 * k)
+                 .astype(np.float32) for _ in range(3))
+
+
+def shared_origin_sets(v0, v1, v2, sets: int, seed: int = 11):
+    """(origin (N, 3), dirs (sets, N, 3), t_max (sets, N)) f32 numpy:
+    frame_rays' origins, set 0 its directions and t_max, each further set
+    aimed at the centroids of other random triangles (t_max 100, 0 on
+    every seventh lane, short on every eleventh)."""
+    o, d, t_max = frame_rays(v0, v1, v2, seed)
+    rng = np.random.default_rng(seed + 1)
+    dirs, tms = [d], [t_max]
+    for s in range(1, sets):
+        tri = rng.integers(0, v0.shape[0], o.shape[0])
+        target = (v0[tri] + v1[tri] + v2[tri]) / np.float32(3.0)
+        ds = target - o
+        dirs.append((ds / np.linalg.norm(ds, axis=1, keepdims=True))
+                    .astype(np.float32))
+        tm = np.full(o.shape[0], 100.0, np.float32)
+        tm[s::7] = 0.0
+        tm[s::11] = np.float32(rng.uniform(2.0, 12.0))
+        tms.append(tm)
+    return o, np.stack(dirs), np.stack(tms)
 
 
 def frame_rays(v0, v1, v2, seed: int = 11):

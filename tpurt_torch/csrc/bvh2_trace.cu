@@ -33,8 +33,9 @@
 //     whose entry distance lies beyond the current hit when popped is
 //     dropped without a load;
 //   * the slab test's twelve NaN-propagating min/max as one instruction
-//     each (min.NaN / max.NaN) instead of a compare, a NaN test and a
-//     select: 0.69-0.75x the time with the selects (PERF.md);
+//     each (bvh8_common.cuh's nmin/nmax: min.NaN / max.NaN) instead of a
+//     compare, a NaN test and a select: 0.69-0.75x the time with the
+//     selects (PERF.md);
 //   * leaves of one triangle (max_leaf 1, the LBVH) run a one-row leaf
 //     step; wider leaves load LEAF_BATCH rows before the first test;
 //   * when the rays are a frame's pixels (tile_w > 0, the frame's width) a
@@ -53,7 +54,7 @@
 // equal distances wins. Any-hit stops at the first hit. A ray with t_max <=
 // t_min is never occluded.
 //
-// Exactness: the slab test (slab2) and Moller-Trumbore (bvh8_common.cuh)
+// Exactness: the slab test and Moller-Trumbore (bvh8_common.cuh)
 // keep the operation order of tpurt's _Rays.slab / _Rays.mt
 // (traverse_pallas.py:120-158); min/max propagate NaN like jnp.minimum;
 // the library is built with --fmad=false. The plain version visits the
@@ -88,43 +89,6 @@ constexpr int min_blocks() {
 #else
   return LEAF > 1 ? 6 : (ANY_HIT ? 12 : 10);
 #endif
-}
-
-// NaN-propagating min and max as one instruction each (min.NaN / max.NaN,
-// sm_80 on). bvh8_common.cuh's nmin/nmax compile to a compare, a NaN test
-// and a select. The value is the same unless an input is NaN (both give a
-// NaN, this one the canonical NaN) or the inputs are zeros of both signs
-// (either zero); a slab result only meets comparisons, which neither
-// difference changes, so no output bit moves.
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-// bvh8_common.cuh's slab test of the box at lanes 6k..6k+5 (tpurt's
-// operation order) with min_nan/max_nan: hit, and its entry distance
-__device__ __forceinline__ bool slab2(const float* lanes, int k, const Ray& r,
-                                      float t_min, float tfar,
-                                      float* tnear) {
-  const float* b = lanes + 6 * k;
-  const float tx0 = (b[0] - r.ox) * r.ix;
-  const float tx1 = (b[3] - r.ox) * r.ix;
-  const float ty0 = (b[1] - r.oy) * r.iy;
-  const float ty1 = (b[4] - r.oy) * r.iy;
-  const float tz0 = (b[2] - r.oz) * r.iz;
-  const float tz1 = (b[5] - r.oz) * r.iz;
-  const float tn = max_nan(max_nan(min_nan(tx0, tx1), min_nan(ty0, ty1)),
-                           max_nan(min_nan(tz0, tz1), t_min));
-  const float tf = min_nan(min_nan(max_nan(tx0, tx1), max_nan(ty0, ty1)),
-                           min_nan(max_nan(tz0, tz1), tfar));
-  *tnear = tn;
-  return tn <= tf;
 }
 
 // the 16 lanes of nodes2c row `row` as four independent 16-byte loads
@@ -172,7 +136,7 @@ bvh2_trace_kernel(const float* __restrict__ nodes2c,
     float lanes[16];
     load_row2(nodes2c, 0, lanes);
     float tn;
-    if (slab2(lanes, 0, r, t_min, t_max0, &tn))
+    if (slab(lanes, 0, r, t_min, t_max0, &tn))
       code = __float_as_int(lanes[12]);
   }
   int sp = 0;
@@ -194,8 +158,8 @@ bvh2_trace_kernel(const float* __restrict__ nodes2c,
       load_row2(nodes2c, code, lanes);
       const float tfar = ANY_HIT ? t_max0 : t;
       float k0, k1;
-      const bool h0 = slab2(lanes, 0, r, t_min, tfar, &k0);
-      const bool h1 = slab2(lanes, 1, r, t_min, tfar, &k1);
+      const bool h0 = slab(lanes, 0, r, t_min, tfar, &k0);
+      const bool h1 = slab(lanes, 1, r, t_min, tfar, &k1);
       const int c0 = __float_as_int(lanes[12]);
       const int c1 = __float_as_int(lanes[13]);
       // left is the nearer on equal keys

@@ -1,5 +1,6 @@
-// Device code shared by the BVH8 traversal kernels (bvh8_closest.cu: K1;
-// bvh8_any.cu: K2; bvh8_trace.cu: K7a, K7b, K7c; bvh8_multi.cu: K5, K5p).
+// Device code shared by the traversal kernels (bvh8_closest.cu: K1;
+// bvh8_any.cu: K2; bvh8_trace.cu: K7a, K7b, K7c; bvh8_multi.cu: K5, K5p;
+// bvh2_trace.cu: K6).
 //
 // Exactness: the slab test and Moller-Trumbore use the operation order of
 // tpurt's _Rays.slab / _Rays.mt; min/max propagate NaN like jnp.minimum;
@@ -9,7 +10,7 @@
 //
 // Node row layout (bvh/wide.py): lanes k*6..k*6+5 child box, 48+k internal
 // child index (-1 if none), 56+k leaf first triangle, 64+k leaf count.
-// Compact node (nodes8c, bvh/wide.py compact_bvh8; K1 and K2): the 8 child
+// Compact node (nodes8c, bvh/wide.py compact_bvh8; K1, K2, K5): the 8 child
 // boxes as structure of arrays (lo x, y, z, hi x, y, z, 8 floats each, the
 // bits of the row's box lanes), then 8 int32 child codes (EMPTY_CODE for an
 // empty slot): 224 bytes, 14 16-byte loads, no conversion.
@@ -40,12 +41,22 @@
 
 namespace bvh8 {
 
-// NaN-propagating min/max (jnp.minimum / torch.minimum semantics)
+// NaN-propagating min and max (jnp.minimum / torch.minimum semantics) as
+// one instruction each (min.NaN / max.NaN, sm_80 on; FMNMX in the SASS).
+// A compare, a NaN test and a select give the same value unless an input
+// is NaN (both give a NaN, this one the canonical NaN) or the inputs are
+// zeros of both signs (either zero). A slab value only meets comparisons,
+// which neither difference changes, so no output bit moves; on K6 the
+// selects took 1.33-1.45x the time (PERF.md).
 __device__ __forceinline__ float nmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float nmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 struct Ray {
@@ -83,22 +94,30 @@ __device__ __forceinline__ void load_node(const float* __restrict__ nodes,
   }
 }
 
-// slab test of child k's box: hit, and its entry distance in *tnear
-__device__ __forceinline__ bool slab(const float* lanes, int k, const Ray& r,
-                                     float t_min, float tfar, float* tnear) {
-  const float* b = lanes + 6 * k;
-  const float tx0 = (b[0] - r.ox) * r.ix;
-  const float tx1 = (b[3] - r.ox) * r.ix;
-  const float ty0 = (b[1] - r.oy) * r.iy;
-  const float ty1 = (b[4] - r.oy) * r.iy;
-  const float tz0 = (b[2] - r.oz) * r.iz;
-  const float tz1 = (b[5] - r.oz) * r.iz;
+// the slab test's reduction (tpurt's order) over the six plane distances
+// (box plane - origin) * inverse direction: hit, and the entry distance
+// in *tnear
+__device__ __forceinline__ bool slab_t(float tx0, float tx1, float ty0,
+                                       float ty1, float tz0, float tz1,
+                                       float t_min, float tfar,
+                                       float* tnear) {
   const float tn = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
                         nmax(nmin(tz0, tz1), t_min));
   const float tf = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
                         nmin(nmax(tz0, tz1), tfar));
   *tnear = tn;
   return tn <= tf;
+}
+
+// slab test of the box at lanes 6k..6k+5 (min x, y, z, max x, y, z): hit,
+// and its entry distance in *tnear
+__device__ __forceinline__ bool slab(const float* lanes, int k, const Ray& r,
+                                     float t_min, float tfar, float* tnear) {
+  const float* b = lanes + 6 * k;
+  return slab_t((b[0] - r.ox) * r.ix, (b[3] - r.ox) * r.ix,
+                (b[1] - r.oy) * r.iy, (b[4] - r.oy) * r.iy,
+                (b[2] - r.oz) * r.iz, (b[5] - r.oz) * r.iz, t_min, tfar,
+                tnear);
 }
 
 // a slot holds an internal child or a non-empty leaf
@@ -125,26 +144,17 @@ __device__ __forceinline__ void leaf_range(int code, int* first, int* count) {
 __device__ __forceinline__ bool slab_soa(const float b[24], int j,
                                          const Ray& r, float t_min,
                                          float tfar, float* tnear) {
-  const float tx0 = (b[j] - r.ox) * r.ix;
-  const float tx1 = (b[12 + j] - r.ox) * r.ix;
-  const float ty0 = (b[4 + j] - r.oy) * r.iy;
-  const float ty1 = (b[16 + j] - r.oy) * r.iy;
-  const float tz0 = (b[8 + j] - r.oz) * r.iz;
-  const float tz1 = (b[20 + j] - r.oz) * r.iz;
-  const float tn = nmax(nmax(nmin(tx0, tx1), nmin(ty0, ty1)),
-                        nmax(nmin(tz0, tz1), t_min));
-  const float tf = nmin(nmin(nmax(tx0, tx1), nmax(ty0, ty1)),
-                        nmin(nmax(tz0, tz1), tfar));
-  *tnear = tn;
-  return tn <= tf;
+  return slab_t((b[j] - r.ox) * r.ix, (b[12 + j] - r.ox) * r.ix,
+                (b[4 + j] - r.oy) * r.iy, (b[16 + j] - r.oy) * r.iy,
+                (b[8 + j] - r.oz) * r.iz, (b[20 + j] - r.oz) * r.iz, t_min,
+                tfar, tnear);
 }
 
-// half `half` of compact node `code` (children 4 * half .. 4 * half + 3):
-// one 16-byte load of each of the six planes (float4 2a + half of plane a)
-// and one of the codes
-__device__ __forceinline__ void load_half(const float* __restrict__ nodes8c,
-                                          int code, int half, float b[24],
-                                          int codes[4]) {
+// the six planes of half `half` of compact node `code` (children 4 * half
+// .. 4 * half + 3): one 16-byte load each (float4 2a + half of plane a)
+__device__ __forceinline__ void load_planes(const float* __restrict__ nodes8c,
+                                            int code, int half,
+                                            float b[24]) {
   const float4* row =
       reinterpret_cast<const float4*>(nodes8c + (size_t)code * COMPACT_FLOATS);
 #pragma unroll
@@ -155,11 +165,26 @@ __device__ __forceinline__ void load_half(const float* __restrict__ nodes8c,
     b[4 * a + 2] = q.z;
     b[4 * a + 3] = q.w;
   }
-  const int4 c = __ldg(reinterpret_cast<const int4*>(row + 12) + half);
+}
+
+// the 4 child codes of that half: one 16-byte load
+__device__ __forceinline__ void load_codes(const float* __restrict__ nodes8c,
+                                           int code, int half, int codes[4]) {
+  const int4 c = __ldg(reinterpret_cast<const int4*>(
+                           nodes8c + (size_t)code * COMPACT_FLOATS + 48) +
+                       half);
   codes[0] = c.x;
   codes[1] = c.y;
   codes[2] = c.z;
   codes[3] = c.w;
+}
+
+// half `half` of compact node `code`: its planes and its codes
+__device__ __forceinline__ void load_half(const float* __restrict__ nodes8c,
+                                          int code, int half, float b[24],
+                                          int codes[4]) {
+  load_planes(nodes8c, code, half, b);
+  load_codes(nodes8c, code, half, codes);
 }
 
 // the ray of this thread in a TILE_THREADS block: consecutive rays, or,

@@ -10,14 +10,15 @@ replace tpurt's entry points of the same names
 the plain PyTorch versions below, which visit stack entries in the kernels'
 order and give bit-identical results. There is no fallback between the two.
 
-K1, the closest hit at tpurt's default push order "sort", and K2, the any
-hit at its default "none", read the scene's compact node table ``nodes8c``
-(``bvh/wide.compact_bvh8``; 224 bytes per node, child codes precomputed);
-every other trace reads the ``nodes8`` rows. Their stacks (local memory)
-have ``COMPACT_STACK_SIZES`` entries, the least that
-``stack_entries(depth8)`` fits: K1's entries are a code and an entry
-distance, K2's a code. Given the frame's shape, both run 16x8 pixel tiles
-per block (``tile_rays``).
+K1, the closest hit at tpurt's default push order "sort", K2, the any
+hit at its default "none", and K5/K5p, the fused multi-set any hit, read
+the scene's compact node table ``nodes8c`` (``bvh/wide.compact_bvh8``; 224
+bytes per node, child codes precomputed); K7a, K7b and K7c read the
+``nodes8`` rows. K1's and K2's stacks (local memory) have
+``COMPACT_STACK_SIZES`` entries, K5's and K5p's ``MULTI_STACK_SIZES``, the
+least that ``stack_entries(depth8, pops)`` fits: K1's entries are a code and
+an entry distance, K2's a code, K5's a code and a set mask. Given the
+frame's shape, all three run 16x8 pixel tiles per block (``tile_rays``).
 
 Contract (tpurt's): ``t = t_max``, ``tri = -1``, ``u = v = 0`` on a miss;
 ``tri`` is the global triangle id; a ray with ``t_max <= t_min`` is never
@@ -39,9 +40,9 @@ exactly.
 
 Multi-set any hit (K5/K5p): S ray sets with shared origins traverse one
 stack whose entries carry the mask of the sets whose own slab tests reached
-them, so each set's occlusion equals K2's bit for bit; pushes are unsorted,
-slot 0 on top. At most ``MULTI_SETS_MAX`` sets go into one launch; the
-wrapper splits larger S.
+them, so each set's occlusion equals K2's bit for bit; pushes are in slot
+order, slot 7 on top (K2's "none"). At most ``MULTI_SETS_MAX`` sets go into
+one launch; the wrapper splits larger S.
 
 Step counts and push orders (K7a, one pop): ``count_steps=True`` returns
 each ray's node pops and leaf pops, the popped entries whose node row is
@@ -91,8 +92,11 @@ STACK_SIZE = 192
 # K1's and K2's stack instantiations (csrc/bvh8_closest.cu, bvh8_any.cu);
 # the wrappers take the least that holds stack_entries(depth8)
 COMPACT_STACK_SIZES = (48, STACK_SIZE)
-# pixels of a K1/K2 block (a 16x8 tile) and of a warp (8x4) when the rays
-# are a frame's pixels (csrc/bvh8_common.cuh tile_ray_index)
+# K5's and K5p's (csrc/bvh8_multi.cu), by pops per iteration: the least
+# that holds stack_entries(depth8, pops)
+MULTI_STACK_SIZES = {1: (48, STACK_SIZE), 2: (64, STACK_SIZE)}
+# pixels of a K1/K2/K5 block (a 16x8 tile) and of a warp (8x4) when the
+# rays are a frame's pixels (csrc/bvh8_common.cuh tile_ray_index)
 TILE = (16, 8)
 WARP_TILE = (8, 4)
 PAYLOAD_KEYS = ("texu", "texv", "img", "texh", "texw")
@@ -354,8 +358,16 @@ def compact_stack_size(depth8: int) -> int:
                             f"BVH8 depth {depth8}", "K1/K2")
 
 
+def multi_stack_size(depth8: int, pops: int) -> int:
+    """K5's (pops 1) or K5p's (pops 2) stack instantiation for a BVH8 of
+    `depth8` wide levels."""
+    return build.pick_stack(stack_entries(depth8, pops),
+                            MULTI_STACK_SIZES[pops], f"BVH8 depth {depth8}",
+                            "K5p" if pops == 2 else "K5")
+
+
 def tile_rays(width: int, height: int):
-    """The ray of each thread of a K1/K2 launch over an H x W frame in
+    """The ray of each thread of a K1/K2/K5 launch over an H x W frame in
     pixel tiles, as csrc/bvh8_common.cuh's tile_ray_index maps it: (blocks,
     128) int64, -1 where a thread has no pixel. Block b covers the 16x8
     tile b (row-major over the tiles), warp k of it the 8x4 pixels at
@@ -476,24 +488,30 @@ def _multi_inputs(origin, dirs, t_maxs):
 
 
 def trace_any_bvh8_multi(scene: dict, origin, dirs, t_min: float, t_maxs,
-                         pop2=None):
+                         pop2=None, *, height: int = 0, width: int = 0):
     """Occlusion of S ray sets sharing the (N, 3) origins: dirs a list of S
     (N, 3) directions or an (S, N, 3) stack, t_maxs S (N,) values or an
     (S, N) stack. Returns (S, N) bool, bit-equal to S trace_any_bvh8 calls.
     pop2 (default POP2_DEFAULT) takes the two-pop kernel K5p. More than
-    MULTI_SETS_MAX sets run as several launches of at most that many."""
+    MULTI_SETS_MAX sets run as several launches of at most that many. Both
+    kernels read the scene's nodes8c. height and width (0 when the rays are
+    not a frame's pixels) say that the rays are an H x W frame in row
+    order: the kernels then run 16x8 pixel tiles per block. The result does
+    not change."""
     name = "trace_any_bvh8_multi"
     pop2 = _resolve_pop2(pop2)
     if origin.ndim != 2 or origin.shape[1] != 3:
         raise ValueError(f"{name}: origin must be (N, 3)")
     d, tm = _multi_inputs(origin, dirs, t_maxs)
+    s, n = tm.shape
+    _check_frame(name, n, height, width)
     _check_tables(name, scene)
-    _check_device(name, dict(nodes8=scene["nodes8"], tris=scene["tris"],
+    _check_compact(name, scene)
+    _check_device(name, dict(nodes8c=scene["nodes8c"], tris=scene["tris"],
                              origin=origin, dirs=d, t_maxs=tm),
                   origin.device)
     pops = 2 if pop2 else 1
     _check_stack(name, scene, pops)
-    s, n = tm.shape
     chunks = [(a, min(a + MULTI_SETS_MAX, s))
               for a in range(0, s, MULTI_SETS_MAX)]
     if not origin.is_cuda:
@@ -501,16 +519,17 @@ def trace_any_bvh8_multi(scene: dict, origin, dirs, t_min: float, t_maxs,
                                                 t_min, tm[a:b], pop2=pop2)
                           for a, b in chunks])
     fn = build.function("tpurt_bvh8_any_multi", [ctypes.c_void_p] * 4 + [
-        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
         ctypes.c_void_p] * 2)
     occ = torch.empty((s, n), dtype=torch.uint8, device=origin.device)
+    stack = multi_stack_size(scene["depth8"], pops)
     p = build.ptr
     kind = "bvh8_any_multi_pop2" if pop2 else "bvh8_any_multi"
     for a, b in chunks:
-        build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
+        build.check(fn(p(scene["nodes8c"]), p(scene["tris"]), p(origin),
                        p(d[a:b]), float(t_min), p(tm[a:b]), n, b - a,
-                       int(pop2), p(occ[a:b]), build.stream_of(origin)),
-                    name)
+                       int(pop2), stack, width, p(occ[a:b]),
+                       build.stream_of(origin)), name)
         build.launch_counts[kind] += 1
     return occ.bool()
 
@@ -832,13 +851,19 @@ def _payload(uvp, hit, row, u, v):
 
 
 def trace_any_multi_plain(scene, origin, dirs, t_min, t_maxs, stats=None,
-                          pop2=False):
+                          pop2=False, compact=True):
     """Plain PyTorch version of K5 (K5p with pop2) on any device: dirs
     (S, N, 3), t_maxs (S, N) -> (S, N) bool. Every stack entry carries the
-    bit mask of the sets that reached it (see csrc/bvh8_multi.cu); `stats`
+    bit mask of the sets that reached it (see csrc/bvh8_multi.cu); a node's
+    hit children are pushed in slot order, slot 7 on top, as the kernels
+    push them. It reads nodes8c as the kernels do; compact=False reads the
+    nodes8 rows instead (the same visits, the tests' reference). `stats`
     as trace_closest_plain's, node_tests counting one 8-child slab group
     per node pop and set."""
-    nodes, tris = scene["nodes8"], scene["tris"]
+    if compact:
+        _check_compact("the plain multi-set trace", scene)
+    nodes = scene["nodes8c"] if compact else scene["nodes8"]
+    tris = scene["tris"]
     dev = origin.device
     n_sets, n = t_maxs.shape
     pops = 2 if pop2 else 1
@@ -876,15 +901,15 @@ def trace_any_multi_plain(scene, origin, dirs, t_min, t_maxs, stats=None,
         live[la] &= ~hit_sets
 
     def node(na, code, m):
-        boxes, valid, child_code = _node_children(nodes, code)
+        boxes, valid, child_code = _node_children(nodes, code, compact)
         child_sets = torch.zeros_like(child_code, dtype=torch.int64)
         for i in range(n_sets):
-            _, hit = _slab(boxes, origin[na], inv[i, na], tmin_t,
-                           t_maxs[i, na])
+            tnear, hit = _slab(boxes, origin[na], inv[i, na], tmin_t,
+                               t_maxs[i, na])
             hit &= valid & set_of(m, i)[:, None]
             child_sets |= hit.long() << i
         hit = child_sets != 0
-        _push((codes, masks), sp, na, hit, torch.zeros_like(boxes[0]),
+        _push((codes, masks), sp, na, hit, _order_keys("none", tnear, hit),
               (child_code, child_sets), s)
         count_work(stats, na.numel(), 0, 0,
                    sum(set_of(m, i).sum() for i in range(n_sets)))
@@ -893,6 +918,8 @@ def trace_any_multi_plain(scene, origin, dirs, t_min, t_maxs, stats=None,
         a = active
         has1, ((c0, c1), (m0, m1)) = _pop(sp, a, pops, codes, masks)
         m1 = torch.where(has1, m1, torch.zeros_like(m1))
+        # leaf phase, the top entry first; node phase, the lower entry's
+        # children pushed first
         for code, m, want_leaf in ((c0, m0, True), (c1, m1, True),
                                    (c1, m1, False), (c0, m0, False)):
             m = m & live[a]

@@ -187,7 +187,7 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     depth (N,), normal_enc (N, 3)). fuse_shadows as in the module
     docstring (tpurt's parameter and default); height and width, tpurt's
     too, the frame's shape when the hits are its pixels in row order (0
-    otherwise), go to the per-light any-hit trace."""
+    otherwise), go to the shadow traces (per light or fused)."""
     trace_any = shadow_tracer(tables, max_leaf)
     surf = surface(scene, camera, hits)
     N, V, albedo = surf["N"], surf["V"], surf["albedo"]
@@ -208,7 +208,8 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     if fuse_shadows and tables == "bvh8" and num_lights > 1:
         occ_all = trace_any_bvh8_multi(scene, world_pos,
                                        [p["L"] for p in pre], SHADOW_T_MIN,
-                                       [p["t_max"] for p in pre])
+                                       [p["t_max"] for p in pre],
+                                       height=height, width=width)
 
     rho = torch.zeros_like(albedo)
     for i, lr in enumerate(pre):

@@ -1,6 +1,7 @@
 """Time K1 (BVH8 closest hit), K2 (BVH8 any hit), K3 (GTAO main pass,
-with its noise table K3h where the checkout has one), K4 (GTAO denoise)
-and K6 (binary-BVH closest and any hit) of several checkouts of the port
+with its noise table K3h where the checkout has one), K4 (GTAO denoise),
+K5 and K5p (the fused multi-light any hit, one and two pops) and K6
+(binary-BVH closest and any hit) of several checkouts of the port
 on one card, in turns, on the bench scene at 800x800 and 1920x1080,
 through the public entry points every checkout has.
 
@@ -19,6 +20,14 @@ checkout's tpurt_torch, builds its kernels and times on the card alone
   default order on each light's shadow rays of the frame (3 launches,
   summed), the rays in consecutive blocks (the frame passes its shape as
   well, for pixel tiles: chip_smoke.py times both);
+* K5 and K5p: trace_any_bvh8_multi(scene, origin, dirs, t_min, t_maxs,
+  pop2=False / True) on the frame's 3 shadow sets (one launch each), the
+  rays in consecutive blocks (the fused frame passes its shape as well,
+  for pixel tiles: chip_smoke.py times both);
+* K7a, K7b, K7c (the rows-based kernels that share the slab test):
+  trace_closest_bvh8(..., count_steps=True / pop2=True / uv_payload=True)
+  on the camera rays and trace_any_bvh8(..., count_steps=True /
+  pop2=True) on each light's shadow rays (3 launches, summed);
 * K3: gtao_main at the frame's preset (ULTRA 9x3) on the frame's depth
   pyramid and G-buffer, every launch of it (chip_smoke.py times K3h and
   K3 apart);
@@ -32,10 +41,12 @@ checkout's tpurt_torch, builds its kernels and times on the card alone
   well, for pixel tiles: chip_smoke.py times both);
 
 and reports the ptxas registers, stack frame and spills of each kernel it
-built, hashes of the closest hits, the occlusion masks, the AO and edges,
-the denoised AO, K6's hits and masks and of one rendered frame
-(so the versions can be held equal bit for bit), and the card's name and
-power limit. It prints one JSON object and writes it to --out when given.
+built (those of csrc/bvh8_multi.cu also on stderr, one line per
+checkout), hashes of the closest hits, the occlusion masks, K5's and K5p's
+masks, the AO and edges, the denoised AO, K6's hits and masks and of one
+rendered frame (so the versions can be held equal bit for bit), and the
+card's name and power limit. It prints one JSON object and writes it to
+--out when given.
 """
 from __future__ import annotations
 
@@ -101,6 +112,7 @@ def child(repo: str) -> dict:
     from tpurt_torch.kernels.traverse_bvh2 import (trace_any_bvh2,
                                                    trace_closest_bvh2)
     from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
+                                                   trace_any_bvh8_multi,
                                                    trace_closest_bvh8)
     from tpurt_torch.passes.encodings import (quantize_r11g11b10f,
                                               quantize_r16f)
@@ -128,6 +140,36 @@ def child(repo: str) -> dict:
             occ.append(trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st))
             res["k2_ms"] += device_ms(lambda: trace_any_bvh8(
                 scene, so, sd, SHADOW_T_MIN, st))
+        k7 = {}
+        for key, kw in (("k7a", dict(count_steps=True)),
+                        ("k7b", dict(pop2=True)),
+                        ("k7c", dict(uv_payload=True))):
+            k7[key] = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, **kw)
+            res[f"{key}_ms"] = device_ms(lambda: trace_closest_bvh8(
+                scene, o, d, T_MIN, T_MAX, **kw))
+            res[f"{key}_any_ms"] = 0.0
+        for key, kw in (("k7a", dict(count_steps=True)),
+                        ("k7b", dict(pop2=True))):
+            k7[f"{key}_any"] = []
+            for so, sd, st in rays:
+                k7[f"{key}_any"].append(trace_any_bvh8(
+                    scene, so, sd, SHADOW_T_MIN, st, **kw))
+                res[f"{key}_any_ms"] += device_ms(lambda: trace_any_bvh8(
+                    scene, so, sd, SHADOW_T_MIN, st, **kw))
+        res.pop("k7c_any_ms")
+        for key, got in k7.items():
+            flat = got.values() if isinstance(got, dict) else [
+                x for one in got for x in (one if isinstance(one, tuple)
+                                           else (one,))]
+            res[f"{key}_digest"] = _digest(*flat)
+        origin = rays[0][0]
+        dirs = torch.stack([sd for _, sd, _ in rays])
+        tmaxs = torch.stack([st for _, _, st in rays])
+        for key, pop2 in (("k5", False), ("k5p", True)):
+            res[f"{key}_digest"] = _digest(trace_any_bvh8_multi(
+                scene, origin, dirs, SHADOW_T_MIN, tmaxs, pop2=pop2))
+            res[f"{key}_ms"] = device_ms(lambda: trace_any_bvh8_multi(
+                scene, origin, dirs, SHADOW_T_MIN, tmaxs, pop2=pop2))
         g = shade(scene, cam, lights, hits)
         depth = quantize_r16f(g["depth"]).reshape(h, w)
         normal = quantize_r11g11b10f(g["normal_enc"]).reshape(h, w, 3)
@@ -192,7 +234,11 @@ def main(argv=None) -> int:
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return 1
-        report["runs"].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        report["runs"].append(run)
+        print(f"ptxas bvh8_multi.cu ({repo}): " + json.dumps(
+            [k for k in run["ptxas"] if "bvh8_any_multi" in k["kernel"]]),
+            file=sys.stderr)
     report["card_after"] = _card()
     text = json.dumps(report, indent=1)
     if args.out:
