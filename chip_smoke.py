@@ -14,8 +14,10 @@ once, at 64x64):
            tiles, as the frame traces them, and on consecutive rays, both
            bit-exact); the shadow rays of each
            light, t_max = 0 lanes included, traced as shade() traces them
-           (K2 over nodes8c in 16x8 pixel tiles, also against K7a "none"
-           over the rows and on consecutive rays, all bit-exact); the
+           (K2 over nodes8c in 16x8 pixel tiles, also against the plain
+           any hit over the nodes8 rows, so that the nodes8c built on the
+           card is held to the rows, and on consecutive rays, all
+           bit-exact); the
            frame's depth pyramid and G-buffer (K3h + K3 at the frame's
            preset and at HIGH 3x3; K3h's table within P1's tolerance of its
            plain version; K3 alone timed apart); the main pass's AO and
@@ -52,10 +54,12 @@ once, at 64x64):
            consecutive rays, against their plain versions and against K2
            per light, timed beside K2 once per light on the same rays in
            the same tiles (K2 x 3, the yardstick); the two-pop
-           closest and any kernels (K7b) against their plain versions and
-           against K1/K2 (t bit-equal, tri differing only on ties); the
-           uv-payload kernel (K7c) against its plain version; all bit-exact,
-           with times and bounds. Then >= 10 frames (after 2 warm-up
+           closest and any kernels (K7b) over nodes8c, in 16x8 pixel tiles
+           (as the pop2 frames trace them) and on consecutive rays, against
+           their plain versions and against K1/K2 (t bit-equal, tri
+           differing only on ties); the uv-payload kernel (K7c, over the
+           rows) against its plain version; all bit-exact, with times and
+           bounds. Then >= 10 frames (after 2 warm-up
            frames) of each variant with its launches checked per frame:
            Renderer.render() with POP2_DEFAULT (K7b closest 1, K7b any 3),
            with UVP_DEFAULT (K7c 1, K2 3), the fused frame
@@ -66,14 +70,17 @@ once, at 64x64):
            and <= 0.1% off by > 2 for the two-pop frames).
   phase 8  the diagnostics path. The steps probe
            (tpurt_torch/tools/steps_probe.py) on the frame's rays with the
-           counts at 0: K7a closest 1 and K7a any 3 (one per light). For
-           each push order (sort, nearlast, none) the counted closest and
-           any kernels against their plain versions (t, tri, counts,
-           occlusion bit-exact), t and occlusion equal to K1/K2's, tri
+           counts at 0: K7a closest 1 and K7a any 3 (one per light), over
+           nodes8c in 16x8 pixel tiles. For each push order (sort,
+           nearlast, none) the counted closest and any kernels, in tiles
+           and on consecutive rays, against their plain versions (t, tri,
+           counts, occlusion bit-exact), t and occlusion equal to K1/K2's,
+           tri
            differing only on equal-t ties (none for sort), the counts' sums
            equal to the plain traversal's work; ms with and without
            counting; the probe's steps per ray and per warp and SIMT
-           efficiency. The transcendental probe
+           efficiency (warps of 8x4 pixels, as the kernels run them, and of
+           32 consecutive pixels). The transcendental probe
            (tpurt_torch/tools/trans_equiv_probe.py, one P1 launch): P1
            within its tolerance of its plain version (cos/sin 2e-6 absolute,
            pow 2e-6 relative), bit mismatches and ULPs of kernel, plain and
@@ -94,9 +101,10 @@ come from the probes themselves, run with --out.
 Every kernel's bound_ms is the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its float
 operations at 67 TFLOP/s (H100 SXM peaks); traversal work is counted by
-the plain versions on this run's rays (K7a: K1's/K2's work, with 8 bytes
-of counts per shadow ray; the closest hit's counts replace u and v), GTAO
-and P1 work from the kernels' source.
+the plain versions on this run's rays, each kernel's table once (nodes8c
+for K1, K2, K5, K7a, K7b; the nodes8 rows for K7c; K7a: its own work, with
+8 bytes of counts per shadow ray; the closest hit's counts replace u and
+v), GTAO and P1 work from the kernels' source.
 Any failed check exits non-zero before the last line. The line before the
 last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -135,17 +143,17 @@ KERNELS = (
      "tpurt/kernels/traverse_bvh8.py:770"),
     ("bvh8_any_multi_pop2", "tpurt_torch/csrc/bvh8_multi.cu",
      "tpurt/kernels/traverse_bvh8.py:949"),
-    ("bvh8_closest_pop2", "tpurt_torch/csrc/bvh8_trace.cu",
+    ("bvh8_closest_pop2", "tpurt_torch/csrc/bvh8_variants.cu",
      "tpurt/kernels/traverse_bvh8.py:497"),
-    ("bvh8_any_pop2", "tpurt_torch/csrc/bvh8_trace.cu",
+    ("bvh8_any_pop2", "tpurt_torch/csrc/bvh8_variants.cu",
      "tpurt/kernels/traverse_bvh8.py:497"),
     # the uv-payload outputs of _kernel_bvh8_single
     ("bvh8_closest_uvp", "tpurt_torch/csrc/bvh8_trace.cu",
      "tpurt/kernels/traverse_bvh8.py:118"),
     # K7a: step counts (and push orders), run by the steps probe
-    ("bvh8_closest_steps", "tpurt_torch/csrc/bvh8_trace.cu",
+    ("bvh8_closest_steps", "tpurt_torch/csrc/bvh8_variants.cu",
      "tpurt/kernels/traverse_bvh8.py:1226"),
-    ("bvh8_any_steps", "tpurt_torch/csrc/bvh8_trace.cu",
+    ("bvh8_any_steps", "tpurt_torch/csrc/bvh8_variants.cu",
      "tpurt/kernels/traverse_bvh8.py:1226"),
     # P1, run by the transcendental probe
     ("trans_equiv", "tpurt_torch/csrc/trans_equiv.cu",
@@ -162,7 +170,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 # operations per unit of work, counted in the CUDA sources (each float add,
 # multiply, divide, min/max, compare, conversion and special function = 1)
-OPS_SLAB = 25          # one slab test (bvh8_trace.cu / bvh2_trace.cu)
+OPS_SLAB = 25          # one slab test (bvh8_common.cuh slab_t + 6 planes)
 OPS_TRIANGLE = 53      # one Moller-Trumbore test
 OPS_RAY = 3            # the reciprocal direction
 OPS_BVH8_NODE = 8 * OPS_SLAB
@@ -306,7 +314,7 @@ def phase1(r, label):
                                                main_kernel, main_pass_plain,
                                                noise_table_plain)
     from tpurt_torch.kernels.trans_equiv import ATOL_TRIG
-    from tpurt_torch.kernels.traverse_bvh8 import (any_k7a, any_kernel,
+    from tpurt_torch.kernels.traverse_bvh8 import (_trace_plain, any_kernel,
                                                    closest_kernel,
                                                    trace_any_bvh8,
                                                    trace_any_plain,
@@ -360,8 +368,9 @@ def phase1(r, label):
 
     # K2: the shadow rays of every light, t_max = 0 lanes included, traced
     # as shade() traces them (the frame's shape: 16x8 pixel tiles); K2
-    # reads nodes8c, against its plain version and K7a "none" over the
-    # rows, and beside the same kernel on consecutive rays (bit-exact too)
+    # reads nodes8c, against its plain version and the plain any hit over
+    # the nodes8 rows (so the card's nodes8c is held to the rows), and
+    # beside the same kernel on consecutive rays (bit-exact too)
     k2 = {}
     k2_plain_ms = k2_err = 0.0
     k2_mism = 0
@@ -373,7 +382,8 @@ def phase1(r, label):
                             width=w)
         work = {}
         op = trace_any_plain(scene, so, sd, SHADOW_T_MIN, stmax, stats=work)
-        k7a = any_k7a(scene, so, sd, SHADOW_T_MIN, stmax, "none", False)
+        over_rows = _trace_plain(scene, so, sd, SHADOW_T_MIN, stmax,
+                                 any_hit=True, order="none", compact=False)
         var_occ = {k: any_kernel(scene, so, sd, SHADOW_T_MIN, stmax, **kw)
                    for k, kw in variants.items()}
         torch.cuda.synchronize()
@@ -382,7 +392,7 @@ def phase1(r, label):
         k2_work[0] += moved
         k2_work[1] += ops
         n_mis = int((ok != op).sum())
-        n_k7a = int((ok != k7a).sum())
+        n_rows = int((ok != over_rows).sum())
         n_var = {k: int((ok != v).sum()) for k, v in var_occ.items()}
         dead = float((stmax <= SHADOW_T_MIN).float().mean())
         t = kernel_ms(lambda: trace_any_bvh8(scene, so, sd, SHADOW_T_MIN,
@@ -390,22 +400,19 @@ def phase1(r, label):
         for k, kw in variants.items():
             add_ms(var_ms.setdefault(k, {}), kernel_ms(
                 lambda: any_kernel(scene, so, sd, SHADOW_T_MIN, stmax, **kw)))
-        add_ms(var_ms.setdefault("k7a_none_rows", {}), kernel_ms(
-            lambda: any_k7a(scene, so, sd, SHADOW_T_MIN, stmax, "none",
-                            False)))
         p_ms = cuda_ms(lambda: trace_any_plain(scene, so, sd, SHADOW_T_MIN,
                                                stmax), 2)
         log(f"[{label}] K2 light {i}: occluded {float(ok.float().mean()):.4f},"
-            f" t_max=0 lanes {dead:.4f}, mismatches vs plain {n_mis}, vs K7a "
-            f"none {n_k7a}, variants {n_var}, node pops "
+            f" t_max=0 lanes {dead:.4f}, mismatches vs plain {n_mis}, vs "
+            f"plain over the rows {n_rows}, variants {n_var}, node pops "
             f"{int(work['node_pops'])}, max stack {work['max_stack']}, "
             f"kernel {fmt_ms(t)}, plain {p_ms:.2f} ms")
-        k2_mism += n_mis + n_k7a + sum(n_var.values())
+        k2_mism += n_mis + n_rows + sum(n_var.values())
         k2_err = max(k2_err, float((ok.int() - op.int()).abs().max()))
         add_ms(k2, t)
         k2_plain_ms += p_ms
-    require(k2_mism == 0, f"[{label}] K2 differs from plain, K7a none or "
-            f"its variants")
+    require(k2_mism == 0, f"[{label}] K2 differs from plain, the plain "
+            f"trace over the rows or its variants")
     b_ms, b_by = bound(*k2_work)
     log(f"[{label}] K2, {len(variants)} variants over the 3 lights: "
         + ", ".join(f"{k} {fmt_ms(v)}" for k, v in var_ms.items()))
@@ -941,63 +948,81 @@ def phase7_kernels(r, label):
                          variants=dict(rows_of_128=t_rows,
                                        k2_per_set_tiles=k2_sets), **t)
 
-    # K7b closest: the primary rays, two pops per iteration; bounded, as
-    # K5p is, by the lesser work of the two visit orders
-    hp2 = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, pop2=True)
+    # K7b closest: the primary rays, two pops per iteration, over nodes8c
+    # in 16x8 pixel tiles (the frame's shape, as the pop2 frame traces
+    # them) and on consecutive rays, both bit-exact; bounded, as K5p is, by
+    # the lesser work of the two visit orders
+    frame = dict(height=h, width=w)
+    hp2 = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, pop2=True, **frame)
+    hp2_rows = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, pop2=True)
     work, work1 = {}, {}
     plain_ms, pp2 = timed_once(lambda: trace_closest_plain(
         scene, o, d, T_MIN, T_MAX, stats=work, pop2=True))
     trace_closest_plain(scene, o, d, T_MIN, T_MAX, stats=work1)
-    mism = {k: int((hp2[k].view(torch.int32) != pp2[k].view(torch.int32))
-                   .sum()) for k in ("t", "tri", "u", "v")}
+    mism = {f"{k}{tag}": int((x[k].view(torch.int32)
+                              != pp2[k].view(torch.int32)).sum())
+            for tag, x in (("", hp2), ("_rows", hp2_rows))
+            for k in ("t", "tri", "u", "v")}
     t_vs_k1 = int((hp2["t"].view(torch.int32) != hk["t"].view(torch.int32))
                   .sum())
     ties = int((hp2["tri"] != hk["tri"]).sum())
     t = kernel_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
-                                             pop2=True))
+                                             pop2=True, **frame))
+    t_rows = kernel_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
+                                                  pop2=True))
     primary = (o, d, torch.empty(w * h))
-    moved, ops = trace_work(scene, "nodes8", primary, 16, work, OPS_BVH8_NODE)
-    ops = min(ops, trace_work(scene, "nodes8", primary, 16, work1,
+    moved, ops = trace_work(scene, "nodes8c", primary, 16, work,
+                            OPS_BVH8_NODE)
+    ops = min(ops, trace_work(scene, "nodes8c", primary, 16, work1,
                               OPS_BVH8_NODE)[1])
     b_ms, b_by = bound(moved, ops)
-    log(f"[{label}] bvh8_closest_pop2: bit mismatches vs plain {mism}, t "
-        f"bits differing from K1 {t_vs_k1}, tri differing from K1 (equal-t "
-        f"ties) {ties}, node pops {int(work['node_pops'])} (one pop: "
-        f"{int(work1['node_pops'])}), max stack {work['max_stack']}, kernel "
-        f"{fmt_ms(t)}, plain (once) {plain_ms:.2f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+    log(f"[{label}] bvh8_closest_pop2: bit mismatches vs plain (tiles and "
+        f"rows) {mism}, t bits differing from K1 {t_vs_k1}, tri differing "
+        f"from K1 (equal-t ties) {ties}, node pops {int(work['node_pops'])} "
+        f"(one pop: {int(work1['node_pops'])}), max stack "
+        f"{work['max_stack']}, kernel (tiles) {fmt_ms(t)}, on rows of 128 "
+        f"{fmt_ms(t_rows)}, plain (once) {plain_ms:.2f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
     require(sum(mism.values()) == 0 and t_vs_k1 == 0,
             f"[{label}] K7b closest differs from plain or from K1's t")
     out["bvh8_closest_pop2"] = dict(max_abs_err=0.0, plain_ms=plain_ms,
-                                    bound_ms=b_ms, bound_by=b_by, **t)
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    variants=dict(rows_of_128=t_rows), **t)
 
-    # K7b any: every light's shadow rays
+    # K7b any: every light's shadow rays, in tiles and on rows
     tot = dict(plain_ms=0.0, bytes=0, ops=0, mism=0)
-    t7 = {}
+    t7, t7_rows = {}, {}
     for i, (so, sd, st) in enumerate(rays):
-        ok = trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st, pop2=True)
+        ok = trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st, pop2=True,
+                            **frame)
+        ok_rows = trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st, pop2=True)
         work, work1 = {}, {}
         p_ms, op = timed_once(lambda: trace_any_plain(
             scene, so, sd, SHADOW_T_MIN, st, stats=work, pop2=True))
         trace_any_plain(scene, so, sd, SHADOW_T_MIN, st, stats=work1)
-        n_mis = int((ok != op).sum()) + int((ok != solo[i]).sum())
+        n_mis = int((ok != op).sum()) + int((ok_rows != op).sum()) \
+            + int((ok != solo[i]).sum())
         add_ms(t7, kernel_ms(lambda: trace_any_bvh8(
+            scene, so, sd, SHADOW_T_MIN, st, pop2=True, **frame)))
+        add_ms(t7_rows, kernel_ms(lambda: trace_any_bvh8(
             scene, so, sd, SHADOW_T_MIN, st, pop2=True)))
-        moved, ops = trace_work(scene, "nodes8", (so, sd, st), 1, work,
+        moved, ops = trace_work(scene, "nodes8c", (so, sd, st), 1, work,
                                 OPS_BVH8_NODE)
-        ops = min(ops, trace_work(scene, "nodes8", (so, sd, st), 1, work1,
+        ops = min(ops, trace_work(scene, "nodes8c", (so, sd, st), 1, work1,
                                   OPS_BVH8_NODE)[1])
         tot["mism"] += n_mis
         tot["plain_ms"] += p_ms
         tot["bytes"] += moved
         tot["ops"] += ops
     b_ms, b_by = bound(tot["bytes"], tot["ops"])
-    log(f"[{label}] bvh8_any_pop2, 3 lights: mismatches vs plain and K2 "
-        f"{tot['mism']}, kernel {fmt_ms(t7)}, plain (once) "
-        f"{tot['plain_ms']:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"[{label}] bvh8_any_pop2, 3 lights: mismatches vs plain (tiles and "
+        f"rows) and K2 {tot['mism']}, kernel (tiles) {fmt_ms(t7)}, on rows "
+        f"of 128 {fmt_ms(t7_rows)}, plain (once) {tot['plain_ms']:.2f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
     require(tot["mism"] == 0, f"[{label}] K7b any differs")
     out["bvh8_any_pop2"] = dict(max_abs_err=0.0, plain_ms=tot["plain_ms"],
-                                bound_ms=b_ms, bound_by=b_by, **t7)
+                                bound_ms=b_ms, bound_by=b_by,
+                                variants=dict(rows_of_128=t7_rows), **t7)
 
     # K7c: the primary rays with the uv payload
     hu = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, uv_payload=True)
@@ -1119,13 +1144,16 @@ def phase8_kernels(r, label):
     scene = r.scene_device
     primary, shadow = steps_probe.frame_rays(r)
     o, d = primary[:2]
+    # the frame's (height, width): K7a in 16x8 pixel tiles, as the probe
+    # traces the frame's rays
+    shape = (r.config.height, r.config.width)
     k1 = steps_probe.trace(scene, primary, False)
     k2 = [steps_probe.trace(scene, rays, True) for rays in shadow]
     out = {}
 
     # the steps probe's path: one counted frame, K7a closest 1, any 3
     build.reset_counts()
-    steps_probe.step_counts(scene, primary, shadow)
+    steps_probe.step_counts(scene, primary, shadow, shape=shape)
     torch.cuda.synchronize()
     launches = dict(build.launch_counts)
     want = dict(ALL_ZERO, bvh8_closest_steps=1, bvh8_any_steps=len(shadow))
@@ -1138,15 +1166,18 @@ def phase8_kernels(r, label):
     for order in PUSH_ORDERS:
         rep = report["push_orders"][order]
         sets = list(rep.values())
-        # closest hit: counted kernel = plain, t = K1's, tri only on ties
-        hk = steps_probe.trace(scene, primary, False, count_steps=True,
-                               push_order=order)
+        # closest hit: counted kernel (tiles and rows) = plain, t = K1's,
+        # tri only on ties
+        counted = dict(count_steps=True, push_order=order)
+        hk = steps_probe.trace(scene, primary, False, shape, **counted)
+        hr = steps_probe.trace(scene, primary, False, **counted)
         work = {}
         plain_ms, hp = timed_once(lambda: trace_closest_plain(
             scene, o, d, *primary[2:], stats=work, count_steps=True,
             push_order=order))
-        mism = sum(int((hk[k].view(torch.int32) != hp[k].view(torch.int32))
-                       .sum()) for k in ("t", "tri", "u", "v"))
+        mism = sum(int((x[k].view(torch.int32) != hp[k].view(torch.int32))
+                       .sum()) for x in (hk, hr)
+                   for k in ("t", "tri", "u", "v"))
         t_vs_k1 = int((hk["t"].view(torch.int32)
                        != k1["t"].view(torch.int32)).sum())
         differ = hk["tri"] != k1["tri"]
@@ -1160,37 +1191,44 @@ def phase8_kernels(r, label):
                 f"K1 {t_vs_k1}, tri {ties} ({not_ties} not ties), sums "
                 f"{sums_ok}")
         if order == "sort":
-            b_ms, b_by = bound(*trace_work(scene, "nodes8", (
+            b_ms, b_by = bound(*trace_work(scene, "nodes8c", (
                 o, d, torch.empty(o.shape[0])), 16, work, OPS_BVH8_NODE))
+            t_rows = kernel_ms(lambda: steps_probe.trace(scene, primary,
+                                                         False, **counted))
             out["bvh8_closest_steps"] = dict(
                 max_abs_err=float(mism), ms=sets[0]["ms_counting"],
                 cuda_ms=cuda_ms(lambda: steps_probe.trace(
-                    scene, primary, False, count_steps=True,
-                    push_order=order), 10, warmup=3),
+                    scene, primary, False, shape, **counted), 10, warmup=3),
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                launches=launches["bvh8_closest_steps"])
+                launches=launches["bvh8_closest_steps"],
+                variants=dict(rows_of_128=t_rows))
 
-        # any hit per light: counted kernel = plain, occlusion = K2's; the
-        # bound adds 8 bytes of counts per ray to K2's
+        # any hit per light: counted kernel (tiles and rows) = plain,
+        # occlusion = K2's; the bound adds 8 bytes of counts per ray
         tot = dict(plain_ms=0.0, bytes=0, ops=0)
+        rows_ms = {}
         for rays, occ2 in zip(shadow, k2):
-            ok, node, leaf = steps_probe.trace(scene, rays, True,
-                                               count_steps=True,
-                                               push_order=order)
+            ok, node, leaf = steps_probe.trace(scene, rays, True, shape,
+                                               **counted)
+            got_rows = steps_probe.trace(scene, rays, True, **counted)
             work = {}
             p_ms, (op, p_node, p_leaf) = timed_once(lambda: trace_any_plain(
                 scene, *rays, stats=work, count_steps=True,
                 push_order=order))
-            n_mis = int((ok != op).sum()) + int((ok != occ2).sum()) \
-                + int((node != p_node).sum()) + int((leaf != p_leaf).sum())
+            n_mis = int((ok != occ2).sum()) + sum(
+                int((x != y).sum()) for got in ((ok, node, leaf), got_rows)
+                for x, y in zip(got, (op, p_node, p_leaf)))
             sums_ok = int(node.sum()) == int(work["node_pops"]) \
                 and int(leaf.sum()) == int(work["leaf_pops"])
             require(n_mis == 0 and sums_ok,
                     f"[{label}] K7a any ({order}): {n_mis} mismatches vs "
                     f"plain and K2, sums {sums_ok}")
-            moved, ops = trace_work(scene, "nodes8", (rays[0], rays[1],
-                                                      rays[3]), 1 + 8, work,
+            moved, ops = trace_work(scene, "nodes8c", (rays[0], rays[1],
+                                                       rays[3]), 1 + 8, work,
                                     OPS_BVH8_NODE)
+            if order == "sort":
+                add_ms(rows_ms, kernel_ms(lambda: steps_probe.trace(
+                    scene, rays, True, **counted)))
             tot["plain_ms"] += p_ms
             tot["bytes"] += moved
             tot["ops"] += ops
@@ -1205,12 +1243,14 @@ def phase8_kernels(r, label):
             out["bvh8_any_steps"] = dict(
                 max_abs_err=0.0, ms=row["any_ms_counting"],
                 cuda_ms=sum(cuda_ms(lambda: steps_probe.trace(
-                    scene, rays, True, count_steps=True, push_order=order),
-                    10, warmup=3) for rays in shadow),
+                    scene, rays, True, shape, **counted), 10, warmup=3)
+                    for rays in shadow),
                 plain_ms=tot["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                launches=launches["bvh8_any_steps"])
-        log(f"[{label}] K7a {order}: bit-exact vs plain, t and occlusion "
-            f"equal to K1/K2's, tri ties vs K1 {ties}; closest "
+                launches=launches["bvh8_any_steps"],
+                variants=dict(rows_of_128=rows_ms))
+        log(f"[{label}] K7a {order}: bit-exact vs plain in tiles and on "
+            f"rows, t and occlusion equal to K1/K2's, tri ties vs K1 "
+            f"{ties}; closest "
             f"{row['closest_ms']:.4f} ms ({row['closest_ms_counting']:.4f} "
             f"counting), any over {len(shadow)} lights {row['any_ms']:.4f} "
             f"ms ({row['any_ms_counting']:.4f} counting); plain (once) "
@@ -1219,7 +1259,8 @@ def phase8_kernels(r, label):
             log(f"[{label}]   {name}: node pops {x['node_pops']}, leaf "
                 f"pops {x['leaf_pops']}, warp steps {x['warp_steps']} (sum "
                 f"{x['warp_steps_sum']}), SIMT efficiency "
-                f"{x['simt_efficiency']:.4f}, {x['ms']:.4f} ms, "
+                f"{x['simt_efficiency']:.4f} (warps of 32 consecutive rays: "
+                f"{x['simt_efficiency_rows']:.4f}), {x['ms']:.4f} ms, "
                 f"{x['ns_per_warp_step']:.3f} ns per warp step")
         orders[order] = row
     out["k7a_orders"] = orders
@@ -1373,6 +1414,8 @@ def main():
         [k for k in report if "bvh2_trace_kernel" in k["kernel"]]))
     log("ptxas K5: " + json.dumps(
         [k for k in report if "bvh8_any_multi_kernel" in k["kernel"]]))
+    log("ptxas K7a and K7b: " + json.dumps(
+        [k for k in report if "_variant_kernel" in k["kernel"]]))
 
     results, renderers = {}, {}
     try:
@@ -1451,6 +1494,13 @@ def main():
                             k: {name: v["kernels"][name]["variants"]
                                 for name in ("bvh8_any_multi",
                                              "bvh8_any_multi_pop2")}
+                            for k, v in results.items()},
+                        k7_variants={
+                            k: {name: v["kernels"][name]["variants"]
+                                for name in ("bvh8_closest_pop2",
+                                             "bvh8_any_pop2",
+                                             "bvh8_closest_steps",
+                                             "bvh8_any_steps")}
                             for k, v in results.items()},
                         k3_with_noise_table={
                             k: v["kernels"]["gtao_main"]["with_noise_table"]

@@ -9,12 +9,13 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 the machine with the card need not have.)
 
 Budgets (as chip_smoke.py holds them): K1, K2, K4, K5, K5p, K7a, K7b, K7c
-and K6 bit-identical with their plain versions (K1, K2 and K6 in pixel
-tiles and on consecutive rays, K1 and K6 also on triangle soups with
-equal-t ties and sibling boxes, K6 also on SAH trees with leaves of up to
-4, K2 also with K7a "none" over the rows, K5/K5p also with K2 per set
-(in pixel tiles and on consecutive rays, on soups and a deep tree),
-K7a's and K7b's t with K1's, K7a's occlusion with K2's); K3h's table
+and K6 bit-identical with their plain versions (K1, K2, K7a, K7b and K6 in
+pixel tiles and on consecutive rays, K1, K7a, K7b and K6 also on triangle
+soups with equal-t ties and sibling boxes and K7a/K7b on a deep tree, K6
+also on SAH trees with leaves of up to 4, K2 also with the plain any hit
+over the rows, K5/K5p also with K2 per set (in pixel tiles
+and on consecutive rays, on soups and a deep tree), K7a's and K7b's t
+with K1's, their occlusion with K2's); K3h's table
 within P1's ATOL_TRIG of its plain version; P1 within ATOL_TRIG /
 RTOL_POW of its plain version (kernels/trans_equiv.py); the LBVH, its
 nodes2c and the BVH8 refit built on the card equal to the same built on
@@ -298,8 +299,9 @@ def _bits(x):
 
 
 def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
-    """K7b (closest and any) and K7c against their plain versions on the
-    frame's rays; K7b's t equals K1's, and its tri differs only on ties."""
+    """K7b (closest and any, in 16x8 pixel tiles and on consecutive rays)
+    and K7c against their plain versions on the frame's rays; K7b's t
+    equals K1's, its tri differs only on ties, its occlusion is K2's."""
     from tpurt_torch.kernels import build
     from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
                                                    trace_any_plain,
@@ -311,13 +313,17 @@ def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
     r = cuda_frame
     cam, lights, _ = _inputs(r)
     sc = r.scene_device
-    o, d = camera_rays(cam, r.config.width, r.config.height)
+    w, h = r.config.width, r.config.height
+    o, d = camera_rays(cam, w, h)
     build.reset_counts()
     k1 = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX)
     hk = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, pop2=True)
+    tiles = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, pop2=True, height=h,
+                               width=w)
     hp = trace_closest_plain(sc, o, d, T_MIN, T_MAX, pop2=True)
     for k in ("t", "tri", "u", "v"):
         assert torch.equal(_bits(hk[k]), _bits(hp[k])), k
+        assert torch.equal(_bits(tiles[k]), _bits(hp[k])), k
     assert torch.equal(_bits(hk["t"]), _bits(k1["t"]))
     assert bool((hk["tri"] >= 0).any())
     uk = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, uv_payload=True)
@@ -327,14 +333,18 @@ def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
     for k in uk:
         assert torch.equal(_bits(uk[k]), _bits(up[k])), k
     for so, sd, stmax in shadow_rays(sc, cam, lights, k1):
+        want = trace_any_plain(sc, so, sd, SHADOW_T_MIN, stmax, pop2=True)
         assert torch.equal(trace_any_bvh8(sc, so, sd, SHADOW_T_MIN, stmax,
-                                          pop2=True),
-                           trace_any_plain(sc, so, sd, SHADOW_T_MIN, stmax,
-                                           pop2=True))
+                                          pop2=True), want)
+        assert torch.equal(trace_any_bvh8(sc, so, sd, SHADOW_T_MIN, stmax,
+                                          pop2=True, height=h, width=w),
+                           want)
+        assert torch.equal(want, trace_any_plain(sc, so, sd, SHADOW_T_MIN,
+                                                 stmax))
     assert build.launch_counts == _counts(bvh8_closest=1,
-                                          bvh8_closest_pop2=1,
+                                          bvh8_closest_pop2=2,
                                           bvh8_closest_uvp=1,
-                                          bvh8_any_pop2=3)
+                                          bvh8_any_pop2=6)
 
 
 @pytest.mark.parametrize("pop2", [False, True])
@@ -480,9 +490,10 @@ def test_variant_frames_on_card(cuda_frame):
 @pytest.mark.parametrize("order", ["sort", "nearlast", "none"])
 def test_step_count_kernels_bit_identical(cuda_frame, order):
     """K7a closest and any hit with step counts against the plain versions
-    on the frame's rays (t, tri, counts, occlusion bit for bit), for each
-    push order; t and occlusion equal to K1/K2's, tri differing only on
-    equal-t ties; the counts' sums equal to the plain traversal's work."""
+    on the frame's rays (t, tri, counts, occlusion bit for bit), in 16x8
+    pixel tiles and on consecutive rays, for each push order; t and
+    occlusion equal to K1/K2's, tri differing only on equal-t ties; the
+    counts' sums equal to the plain traversal's work."""
     from tpurt_torch.kernels import build
     from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
                                                    trace_any_plain,
@@ -494,18 +505,22 @@ def test_step_count_kernels_bit_identical(cuda_frame, order):
     r = cuda_frame
     cam, lights, _ = _inputs(r)
     sc = r.scene_device
-    o, d = camera_rays(cam, r.config.width, r.config.height)
+    w, h = r.config.width, r.config.height
+    o, d = camera_rays(cam, w, h)
     k1 = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX)
     rays = shadow_rays(sc, cam, lights, k1)
     build.reset_counts()
     hk = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, count_steps=True,
                             push_order=order)
+    tiles = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, count_steps=True,
+                               push_order=order, height=h, width=w)
     plain = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, push_order=order)
     work = {}
     hp = trace_closest_plain(sc, o, d, T_MIN, T_MAX, stats=work,
                              count_steps=True, push_order=order)
     for k in ("t", "tri", "u", "v"):
         assert torch.equal(_bits(hk[k]), _bits(hp[k])), k
+        assert torch.equal(_bits(tiles[k]), _bits(hp[k])), k
     assert torch.equal(_bits(hk["t"]), _bits(k1["t"]))
     assert torch.equal(_bits(plain["t"]), _bits(k1["t"]))
     assert torch.equal(plain["tri"], hk["tri"])
@@ -521,23 +536,75 @@ def test_step_count_kernels_bit_identical(cuda_frame, order):
             push_order=order)
         assert torch.equal(occ, p_occ) and torch.equal(node, p_node) \
             and torch.equal(leaf, p_leaf)
+        for got, want in zip(trace_any_bvh8(
+                sc, so, sd, SHADOW_T_MIN, stmax, count_steps=True,
+                push_order=order, height=h, width=w), (p_occ, p_node,
+                                                       p_leaf)):
+            assert torch.equal(got, want)
         assert torch.equal(occ, trace_any_bvh8(sc, so, sd, SHADOW_T_MIN,
                                                stmax))
         assert int(node.sum()) == int(work["node_pops"])
         assert int(leaf.sum()) == int(work["leaf_pops"])
         assert not bool(node[stmax <= SHADOW_T_MIN].any())
     # the uncounted K7a closest launch runs only for a push order of its own
-    want = _counts(bvh8_closest_steps=1 if order == "sort" else 2,
+    want = _counts(bvh8_closest_steps=2 if order == "sort" else 3,
                    bvh8_closest=1 if order == "sort" else 0,
-                   bvh8_any_steps=3, bvh8_any=3)
+                   bvh8_any_steps=6, bvh8_any=3)
     assert build.launch_counts == want
 
 
+@pytest.mark.parametrize("pop2", [False, True])
+def test_variant_kernels_on_soups_and_a_deep_tree(cuda_frame, pop2):
+    """K7a (every push order, counted and not) or K7b (two pops) against
+    the plain versions on the triangle soups of tests/torch_closest_cases.py
+    (equal-t ties, sibling slots with identical boxes, grazing and
+    axis-aligned rays, t_max <= t_min) and on its deep soup, whose 9-level
+    tree takes the 192-entry stack instantiation, in 16x8 pixel tiles and
+    on consecutive rays, bit for bit."""
+    from torch_closest_cases import (CASES, H, T_MIN, W, deep_soup,
+                                     frame_rays, port_scene, soup)
+    from tpurt_torch.kernels.traverse_bvh8 import (compact_stack_size,
+                                                   trace_any_bvh8,
+                                                   trace_any_plain,
+                                                   trace_closest_bvh8,
+                                                   trace_closest_plain)
+
+    traces = [dict(pop2=True)] if pop2 else [
+        dict(count_steps=c, push_order=o)
+        for o in ("sort", "nearlast", "none") for c in (False, True)]
+    cases = [(soup(), leaf_max) for leaf_max in CASES.values()]
+    cases.append((deep_soup(), 1))
+    for tris, leaf_max in cases:
+        scene, _, _ = port_scene(*tris, leaf_max, device="cuda")
+        deep = compact_stack_size(scene["depth8"], 2 if pop2 else 1) == 192
+        assert deep == (tris[0].shape[0] == 80)
+        rays = [torch.tensor(x, device="cuda") for x in frame_rays(*tris)]
+        args = (scene, rays[0], rays[1], T_MIN, rays[2])
+        for kw in traces:
+            want = trace_any_plain(*args, **kw)
+            want = want if isinstance(want, tuple) else (want,)
+            assert bool(want[0].any())
+            for frame in ({}, dict(height=H, width=W)):
+                got = trace_any_bvh8(*args, **kw, **frame)
+                got = got if isinstance(got, tuple) else (got,)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
+            if not kw.get("count_steps") and kw.get("push_order") == "sort":
+                continue  # K1's trace
+            want = trace_closest_plain(*args, **kw)
+            assert int((want["tri"] >= 0).sum()) > 0
+            for frame in ({}, dict(height=H, width=W)):
+                got = trace_closest_bvh8(*args, **kw, **frame)
+                assert all(torch.equal(_bits(got[k]), _bits(want[k]))
+                           for k in ("t", "tri", "u", "v")), kw
+
+
 def test_k7a_entries_refuse_other_traces():
-    """The K7a C entries take a counted trace or a push order of its own:
-    an uncounted "sort" closest hit (K1's) and an unknown order come back
-    as cudaErrorInvalidValue (1) before any launch; the any hit takes an
-    uncounted "sort" trace (K2 is bvh8_any.cu's "none")."""
+    """The K7a / K7b C entries (csrc/bvh8_variants.cu) take a counted
+    one-pop trace, a push order of its own, or an uncounted two-pop "sort"
+    trace: an uncounted one-pop trace at K1's order ("sort", closest hit)
+    or K2's ("none", any hit), an unknown order, a counted two-pop trace, a
+    two-pop trace at another order and a ragged frame come back as
+    cudaErrorInvalidValue (1) before any launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import ctypes
@@ -545,19 +612,23 @@ def test_k7a_entries_refuse_other_traces():
     from tpurt_torch.kernels import build
 
     vp = ctypes.c_void_p
-    for name, outs in (("tpurt_bvh8_closest_k7a", 5),
-                       ("tpurt_bvh8_any_k7a", 4)):
+    for name, outs in (("tpurt_bvh8_closest_variant", 5),
+                       ("tpurt_bvh8_any_variant", 4)):
         fn = build.function(name, [vp] * 4 + [ctypes.c_float, vp]
-                            + [ctypes.c_int] * 3 + [vp] * outs)
+                            + [ctypes.c_int] * 6 + [vp] * outs)
 
-        def call(count_steps, order):
-            # n = 0 rays: no pointer is read
-            return fn(None, None, None, None, 0.0, None, 0, count_steps,
-                      order, *[None] * outs)
+        def call(count_steps, order, pop2=0, n=0, tile_w=0):
+            # n = 0 rays (or a refusal): no pointer is read
+            return fn(None, None, None, None, 0.0, None, n, pop2,
+                      count_steps, order, 48, tile_w, *[None] * outs)
 
         assert [call(1, 3), call(0, -1)] == [1, 1], name
         assert [call(1, 0), call(0, 1), call(1, 2)] == [0, 0, 0], name
         assert call(0, 0) == (0 if "any" in name else 1), name
+        assert call(0, 2) == (1 if "any" in name else 0), name
+        assert [call(1, 0, pop2=1), call(0, 2, pop2=1)] == [1, 1], name
+        assert call(0, 0, pop2=1) == 0, name
+        assert call(1, 0, n=10, tile_w=3) == 1, name
 
 
 def test_trans_equiv_kernel_within_tolerance():
@@ -610,13 +681,13 @@ def test_profiler_and_stream_on_card(cuda_frame):
 
 
 def test_any_hit_kernel_over_compact_table(cuda_frame):
-    """K2 (csrc/bvh8_any.cu, nodes8c) against its plain version and K7a
-    "none" over the rows on the frame's shadow rays, t_max = 0 lanes
-    included, traced as shade() traces them (the frame's shape: 16x8
-    pixel tiles); on consecutive rays it gives the same bits; a frame that
-    is not a multiple of the tile; the deep-tree stack size."""
+    """K2 (csrc/bvh8_any.cu, nodes8c) against its plain version and the
+    plain any hit over the nodes8 rows on the frame's shadow rays, t_max =
+    0 lanes included, traced as shade() traces them (the frame's shape:
+    16x8 pixel tiles); on consecutive rays it gives the same bits; a frame
+    that is not a multiple of the tile; the deep-tree stack size."""
     from tpurt_torch.kernels import build
-    from tpurt_torch.kernels.traverse_bvh8 import (any_k7a, any_kernel,
+    from tpurt_torch.kernels.traverse_bvh8 import (_trace_plain, any_kernel,
                                                    compact_stack_size,
                                                    trace_any_bvh8,
                                                    trace_any_plain,
@@ -640,15 +711,16 @@ def test_any_hit_kernel_over_compact_table(cuda_frame):
                              width=w)
         assert torch.equal(got, trace_any_plain(sc, so, sd, SHADOW_T_MIN,
                                                 stmax))
-        assert torch.equal(got, any_k7a(sc, so, sd, SHADOW_T_MIN, stmax,
-                                        "none", False))
+        assert torch.equal(got, _trace_plain(
+            sc, so, sd, SHADOW_T_MIN, stmax, any_hit=True, order="none",
+            compact=False))
         assert torch.equal(got, any_kernel(sc, so, sd, SHADOW_T_MIN,
                                            stmax))
         # 37 of the 80 rows, 96 wide: the last tile row is partial
         n = 37 * w
         assert torch.equal(any_kernel(sc, so[:n], sd[:n], SHADOW_T_MIN,
                                       stmax[:n], tile_w=w), got[:n])
-    assert build.launch_counts == _counts(bvh8_any=9, bvh8_any_steps=3)
+    assert build.launch_counts == _counts(bvh8_any=9)
 
 
 @pytest.mark.parametrize("preset", [(1, 2), (2, 2), (3, 3), (9, 3), (4, 2)],

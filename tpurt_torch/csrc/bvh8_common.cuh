@@ -1,6 +1,6 @@
 // Device code shared by the traversal kernels (bvh8_closest.cu: K1;
-// bvh8_any.cu: K2; bvh8_trace.cu: K7a, K7b, K7c; bvh8_multi.cu: K5, K5p;
-// bvh2_trace.cu: K6).
+// bvh8_any.cu: K2; bvh8_variants.cu: K7a, K7b; bvh8_trace.cu: K7c;
+// bvh8_multi.cu: K5, K5p; bvh2_trace.cu: K6).
 //
 // Exactness: the slab test and Moller-Trumbore use the operation order of
 // tpurt's _Rays.slab / _Rays.mt; min/max propagate NaN like jnp.minimum;
@@ -10,10 +10,11 @@
 //
 // Node row layout (bvh/wide.py): lanes k*6..k*6+5 child box, 48+k internal
 // child index (-1 if none), 56+k leaf first triangle, 64+k leaf count.
-// Compact node (nodes8c, bvh/wide.py compact_bvh8; K1, K2, K5): the 8 child
-// boxes as structure of arrays (lo x, y, z, hi x, y, z, 8 floats each, the
-// bits of the row's box lanes), then 8 int32 child codes (EMPTY_CODE for an
-// empty slot): 224 bytes, 14 16-byte loads, no conversion.
+// Compact node (nodes8c, bvh/wide.py compact_bvh8; K1, K2, K5, K7a, K7b):
+// the 8 child boxes as structure of arrays (lo x, y, z, hi x, y, z, 8
+// floats each, the bits of the row's box lanes), then 8 int32 child codes
+// (EMPTY_CODE for an empty slot): 224 bytes, 14 16-byte loads, no
+// conversion.
 // Triangle rows (engine/convert.pack_tris): v0, e1, e2, global id, 0, 0.
 // Stack codes: node id >= 0, leaf -(first * 128 + count) - 1.
 #pragma once
@@ -177,6 +178,13 @@ __device__ __forceinline__ void load_codes(const float* __restrict__ nodes8c,
   codes[1] = c.y;
   codes[2] = c.z;
   codes[3] = c.w;
+}
+
+// whether the 4 codes of a half are all EMPTY_CODE (-1, every bit set);
+// slots fill in order, so an empty second half means a node of at most 4
+// children
+__device__ __forceinline__ bool all_empty(const int codes[4]) {
+  return (codes[0] & codes[1] & codes[2] & codes[3]) == EMPTY_CODE;
 }
 
 // half `half` of compact node `code`: its planes and its codes

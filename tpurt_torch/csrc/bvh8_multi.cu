@@ -143,11 +143,6 @@ __device__ __forceinline__ void push_half(float b[24], const int codes[4],
       stack[sp++] = make_int2(codes[j], (int)h[j]);
 }
 
-// whether the 4 codes of a half are all EMPTY_CODE (-1, every bit set)
-__device__ __forceinline__ bool all_empty(const int codes[4]) {
-  return (codes[0] & codes[1] & codes[2] & codes[3]) == EMPTY_CODE;
-}
-
 // both halves of node `code` for the sets of `mask`: the 8 codes and the
 // first half's planes loaded together, the second half's planes only when
 // it holds a child (slots fill in order, so about half of the bench tree's

@@ -6,19 +6,21 @@ orders (K7a) and the fused multi-set any hit (K5, two-pop K5p).
 replace tpurt's entry points of the same names
 (``tpurt/kernels/traverse_bvh8.py``). On CUDA tensors they launch
 ``csrc/bvh8_closest.cu`` (K1) / ``csrc/bvh8_any.cu`` (K2) /
-``csrc/bvh8_trace.cu`` / ``csrc/bvh8_multi.cu``; on CPU tensors they run
-the plain PyTorch versions below, which visit stack entries in the kernels'
-order and give bit-identical results. There is no fallback between the two.
+``csrc/bvh8_variants.cu`` (K7a, K7b) / ``csrc/bvh8_trace.cu`` (K7c) /
+``csrc/bvh8_multi.cu`` (K5, K5p); on CPU tensors they run the plain PyTorch
+versions below, which visit stack entries in the kernels' order and give
+bit-identical results. There is no fallback between the two.
 
-K1, the closest hit at tpurt's default push order "sort", K2, the any
-hit at its default "none", and K5/K5p, the fused multi-set any hit, read
-the scene's compact node table ``nodes8c`` (``bvh/wide.compact_bvh8``; 224
-bytes per node, child codes precomputed); K7a, K7b and K7c read the
-``nodes8`` rows. K1's and K2's stacks (local memory) have
-``COMPACT_STACK_SIZES`` entries, K5's and K5p's ``MULTI_STACK_SIZES``, the
-least that ``stack_entries(depth8, pops)`` fits: K1's entries are a code and
-an entry distance, K2's a code, K5's a code and a set mask. Given the
-frame's shape, all three run 16x8 pixel tiles per block (``tile_rays``).
+Every kernel but K7c reads the scene's compact node table ``nodes8c``
+(``bvh/wide.compact_bvh8``; 224 bytes per node, child codes precomputed):
+K1, the closest hit at tpurt's default push order "sort", K2, the any hit
+at its default "none", K7a and K7b, their counted, reordered and two-pop
+variants, and K5/K5p, the fused multi-set any hit. K7c reads the ``nodes8``
+rows. Their stacks (local memory) have ``STACK_SIZES[pops]`` entries, the
+least that ``stack_entries(depth8, pops)`` fits: a closest hit's entries
+are a code and an entry distance, an any hit's a code, K5's a code and a
+set mask. Given the frame's shape, all but K7c run 16x8 pixel tiles per
+block (``tile_rays``).
 
 Contract (tpurt's): ``t = t_max``, ``tri = -1``, ``u = v = 0`` on a miss;
 ``tri`` is the global triangle id; a ray with ``t_max <= t_min`` is never
@@ -48,7 +50,7 @@ Step counts and push orders (K7a, one pop): ``count_steps=True`` returns
 each ray's node pops and leaf pops, the popped entries whose node row is
 read or whose triangles are tested (an entry dropped by the entry-distance
 test counts nothing); tpurt counts per 32x32 packet, the port per ray
-(``csrc/bvh8_trace.cu``). ``push_order`` is ``"sort"`` (the order above),
+(``csrc/bvh8_variants.cu``). ``push_order`` is ``"sort"`` (the order above),
 ``"nearlast"`` (slot order, the first nearest hit child pushed last, so it
 pops first) or ``"none"`` (slot order, slot 7 on top). The closest hit's
 ``t`` and the occlusion do not depend on the order; ``tri`` may change on
@@ -89,18 +91,16 @@ MULTI_SETS_MAX = 4
 # the per-thread stack of the CUDA kernels (STACK_SIZE in
 # csrc/bvh8_common.cuh); the wrappers refuse trees that could need more
 STACK_SIZE = 192
-# K1's and K2's stack instantiations (csrc/bvh8_closest.cu, bvh8_any.cu);
-# the wrappers take the least that holds stack_entries(depth8)
-COMPACT_STACK_SIZES = (48, STACK_SIZE)
-# K5's and K5p's (csrc/bvh8_multi.cu), by pops per iteration: the least
-# that holds stack_entries(depth8, pops)
-MULTI_STACK_SIZES = {1: (48, STACK_SIZE), 2: (64, STACK_SIZE)}
-# pixels of a K1/K2/K5 block (a 16x8 tile) and of a warp (8x4) when the
-# rays are a frame's pixels (csrc/bvh8_common.cuh tile_ray_index)
+# the stack instantiations of the nodes8c kernels (K1, K2, K7a: one pop;
+# K7b: two; K5 / K5p: one / two), by pops per iteration: the wrappers take
+# the least that holds stack_entries(depth8, pops)
+STACK_SIZES = {1: (48, STACK_SIZE), 2: (64, STACK_SIZE)}
+# pixels of a K1/K2/K5/K7a/K7b block (a 16x8 tile) and of a warp (8x4)
+# when the rays are a frame's pixels (csrc/bvh8_common.cuh tile_ray_index)
 TILE = (16, 8)
 WARP_TILE = (8, 4)
 PAYLOAD_KEYS = ("texu", "texv", "img", "texh", "texw")
-# K7a's push orders, by their code in csrc/bvh8_trace.cu
+# K7a's push orders, by their code in csrc/bvh8_variants.cu
 PUSH_ORDERS = ("sort", "nearlast", "none")
 
 
@@ -219,13 +219,14 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
 
     pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b; uv_payload
     (default: UVP_DEFAULT when the scene carries "uvp" and the trace is
-    one-pop) takes K7c. The two do not compose (tpurt's rule).
-    count_steps=True returns each ray's node pops in u and leaf pops in v
-    (f32; t and tri unchanged); it and push_order "nearlast" / "none" take
-    K7a (module docstring). Otherwise the trace is K1's, over the scene's
-    nodes8c. height and width (0 when the rays are not a frame's pixels)
-    say that the rays are an H x W frame in row order: K1 then runs 16x8
-    pixel tiles per block. The result does not change."""
+    one-pop) takes K7c, over the nodes8 rows. The two do not compose
+    (tpurt's rule). count_steps=True returns each ray's node pops in u and
+    leaf pops in v (f32; t and tri unchanged); it and push_order "nearlast"
+    / "none" take K7a (module docstring). Otherwise the trace is K1's. K1,
+    K7a and K7b read the scene's nodes8c. height and width (0 when the rays
+    are not a frame's pixels) say that the rays are an H x W frame in row
+    order: K1, K7a and K7b then run 16x8 pixel tiles per block. The result
+    does not change."""
     name = "trace_closest_bvh8"
     pop2, order = _resolve_k7a(name, pop2, count_steps, push_order)
     k7a = count_steps or order != "sort"
@@ -247,47 +248,18 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
     _check_inputs(name, scene, origin, direction, tmx, uvp=uv_payload)
     pops = 2 if pop2 else 1
     _check_stack(name, scene, pops)
-    k1 = _is_k1(pop2, uv_payload, count_steps, order)
     if not origin.is_cuda:
         return _trace_plain(scene, origin, direction, float(t_min), tmx,
                             any_hit=False, pops=pops, uv_payload=uv_payload,
-                            count_steps=count_steps, order=order, compact=k1)
-    if k1:
+                            count_steps=count_steps, order=order,
+                            compact=not uv_payload)
+    if uv_payload:
+        return closest_uvp_kernel(scene, origin, direction, t_min, tmx)
+    if not pop2 and not k7a:
         return closest_kernel(scene, origin, direction, t_min, tmx,
                               tile_w=width)
-    dev = origin.device
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    tri = torch.empty(n, dtype=torch.int32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    p = build.ptr
-    out = dict(t=t, tri=tri, u=u, v=v)
-    if k7a:
-        fn = build.function("tpurt_bvh8_closest_k7a", [ctypes.c_void_p] * 4
-                            + [ctypes.c_float, ctypes.c_void_p]
-                            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
-        build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
-                       p(direction), float(t_min), p(tmx), n,
-                       int(count_steps), PUSH_ORDERS.index(order), p(t),
-                       p(tri), p(u), p(v), build.stream_of(origin)), name)
-        build.launch_counts["bvh8_closest_steps"] += 1
-        return out
-    fn = build.function("tpurt_bvh8_closest", [ctypes.c_void_p] * 5 + [
-        ctypes.c_float, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 6)
-    pay = torch.empty((5, n), dtype=torch.float32, device=dev) \
-        if uv_payload else None
-    build.check(fn(p(scene["nodes8"]), p(scene["tris"]),
-                   p(scene["uvp"]) if uv_payload else None, p(origin),
-                   p(direction), float(t_min), p(tmx), n, int(pop2),
-                   int(uv_payload), p(t), p(tri), p(u), p(v),
-                   p(pay) if uv_payload else None,
-                   build.stream_of(origin)), name)
-    kind = "bvh8_closest_pop2" if pop2 else "bvh8_closest_uvp"
-    build.launch_counts[kind] += 1
-    if uv_payload:
-        out.update(zip(PAYLOAD_KEYS, pay.unbind(0)))
-    return out
+    return closest_variant_kernel(scene, origin, direction, t_min, tmx,
+                                  pop2, count_steps, order, tile_w=width)
 
 
 def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max,
@@ -296,11 +268,12 @@ def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max,
     """Any hit (occlusion) for (N, 3) rays. Returns a (N,) bool mask, or
     with count_steps=True (mask, node pops, leaf pops), the counts (N,) f32.
     pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b; push_order
-    (default "none", tpurt's) "none" without counting takes K2 over the
-    scene's nodes8c, count_steps or "sort" / "nearlast" take K7a.
-    height and width (tpurt's frame shape; 0 when the rays are not a
-    frame's pixels) say that the rays are an H x W frame in row order: K2
-    then runs 16x8 pixel tiles per block. The result does not change."""
+    (default "none", tpurt's) "none" without counting takes K2,
+    count_steps or "sort" / "nearlast" take K7a; all read the scene's
+    nodes8c. height and width (tpurt's frame shape; 0 when the rays are
+    not a frame's pixels) say that the rays are an H x W frame in row
+    order: the kernels then run 16x8 pixel tiles per block. The result does
+    not change."""
     name = "trace_any_bvh8"
     pop2, order = _resolve_k7a(name, pop2, count_steps, push_order,
                                any_hit=True)
@@ -310,27 +283,15 @@ def trace_any_bvh8(scene: dict, origin, direction, t_min: float, t_max,
     _check_inputs(name, scene, origin, direction, tmx)
     pops = 2 if pop2 else 1
     _check_stack(name, scene, pops)
-    k2 = _is_k2(pop2, count_steps, order)
     if not origin.is_cuda:
         return _trace_plain(scene, origin, direction, float(t_min), tmx,
                             any_hit=True, pops=pops, count_steps=count_steps,
-                            order=order, compact=k2)
-    if k2:
+                            order=order, compact=True)
+    if not pop2 and not count_steps and order == "none":
         return any_kernel(scene, origin, direction, t_min, tmx,
                           tile_w=width)
-    if not pop2:
-        return any_k7a(scene, origin, direction, t_min, tmx, order,
-                       count_steps)
-    occ = torch.empty(n, dtype=torch.uint8, device=origin.device)
-    fn = build.function("tpurt_bvh8_any_pop2", [ctypes.c_void_p] * 4 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_int] + [
-        ctypes.c_void_p] * 2)
-    p = build.ptr
-    build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
-                   p(direction), float(t_min), p(tmx), n, p(occ),
-                   build.stream_of(origin)), name)
-    build.launch_counts["bvh8_any_pop2"] += 1
-    return occ.bool()
+    return any_variant_kernel(scene, origin, direction, t_min, tmx, pop2,
+                              count_steps, order, tile_w=width)
 
 
 def _check_frame(name, n, height, width):
@@ -339,38 +300,27 @@ def _check_frame(name, n, height, width):
                          f"frame")
 
 
-def _is_k1(pop2, uv_payload, count_steps, order) -> bool:
-    """Whether a closest-hit trace is K1's: one pop, no payload,
-    uncounted, "sort"."""
-    return not pop2 and not uv_payload and not count_steps \
-        and order == "sort"
-
-
-def _is_k2(pop2, count_steps, order) -> bool:
-    """Whether an any-hit trace is K2's: one pop, uncounted, "none"."""
-    return not pop2 and not count_steps and order == "none"
-
-
-def compact_stack_size(depth8: int) -> int:
-    """K1's and K2's stack instantiation for a BVH8 of `depth8` wide
-    levels."""
-    return build.pick_stack(stack_entries(depth8), COMPACT_STACK_SIZES,
-                            f"BVH8 depth {depth8}", "K1/K2")
+def compact_stack_size(depth8: int, pops: int = 1) -> int:
+    """The stack instantiation of K1, K2 and K7a (pops 1) or K7b (pops 2)
+    for a BVH8 of `depth8` wide levels."""
+    return build.pick_stack(stack_entries(depth8, pops), STACK_SIZES[pops],
+                            f"BVH8 depth {depth8}",
+                            "K7b" if pops == 2 else "K1/K2/K7a")
 
 
 def multi_stack_size(depth8: int, pops: int) -> int:
     """K5's (pops 1) or K5p's (pops 2) stack instantiation for a BVH8 of
     `depth8` wide levels."""
-    return build.pick_stack(stack_entries(depth8, pops),
-                            MULTI_STACK_SIZES[pops], f"BVH8 depth {depth8}",
+    return build.pick_stack(stack_entries(depth8, pops), STACK_SIZES[pops],
+                            f"BVH8 depth {depth8}",
                             "K5p" if pops == 2 else "K5")
 
 
 def tile_rays(width: int, height: int):
-    """The ray of each thread of a K1/K2/K5 launch over an H x W frame in
-    pixel tiles, as csrc/bvh8_common.cuh's tile_ray_index maps it: (blocks,
-    128) int64, -1 where a thread has no pixel. Block b covers the 16x8
-    tile b (row-major over the tiles), warp k of it the 8x4 pixels at
+    """The ray of each thread of a K1/K2/K5/K7a/K7b launch over an H x W
+    frame in pixel tiles, as csrc/bvh8_common.cuh's tile_ray_index maps it:
+    (blocks, 128) int64, -1 where a thread has no pixel. Block b covers the
+    16x8 tile b (row-major over the tiles), warp k of it the 8x4 pixels at
     ((k % 2) * 8, (k // 2) * 4) in the tile, lane l the pixel (l % 8,
     l // 8) in the warp's."""
     tiles_x = (width + TILE[0] - 1) // TILE[0]
@@ -443,29 +393,90 @@ def any_kernel(scene: dict, origin, direction, t_min: float, t_max,
     return occ.bool()
 
 
-def any_k7a(scene: dict, origin, direction, t_min: float, t_max,
-            order: str, count_steps: bool):
-    """K7a any hit on CUDA tensors over the nodes8 rows: any push order,
-    counted or not; returns what trace_any_bvh8 returns. trace_any_bvh8
-    sends an uncounted "none" trace to K2 instead; this entry keeps the
-    rows-based "none" kernel reachable for comparisons."""
+def closest_variant_kernel(scene: dict, origin, direction, t_min: float,
+                           t_max, pop2: bool, count_steps: bool, order: str,
+                           tile_w: int = 0):
+    """K7a (one pop, counted or at push order "nearlast" / "none") or K7b
+    (pop2: two pops, uncounted, "sort") closest hit on CUDA tensors over
+    scene["nodes8c"], t_max an (N,) f32 tensor: dict(t, tri, u, v), with
+    count_steps the node and leaf pops in u and v. tile_w > 0 (the frame's
+    width, N a multiple of it) runs 16x8 pixel tiles per block, as
+    trace_closest_bvh8 does when given the frame's shape. The C entry
+    refuses any other trace (K1's among them), and build.check raises."""
+    name = "trace_closest_bvh8"
+    n = _compact_launch_inputs(name, scene, origin, t_max, tile_w)
+    dev = origin.device
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    fn = build.function("tpurt_bvh8_closest_variant", [ctypes.c_void_p] * 4
+                        + [ctypes.c_float, ctypes.c_void_p]
+                        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5)
+    p = build.ptr
+    pops = 2 if pop2 else 1
+    build.check(fn(p(scene["nodes8c"]), p(scene["tris"]), p(origin),
+                   p(direction), float(t_min), p(t_max), n, int(pop2),
+                   int(count_steps), PUSH_ORDERS.index(order),
+                   compact_stack_size(scene["depth8"], pops), tile_w, p(t),
+                   p(tri), p(u), p(v), build.stream_of(origin)), name)
+    build.launch_counts["bvh8_closest_pop2" if pop2
+                        else "bvh8_closest_steps"] += 1
+    return dict(t=t, tri=tri, u=u, v=v)
+
+
+def any_variant_kernel(scene: dict, origin, direction, t_min: float, t_max,
+                       pop2: bool, count_steps: bool, order: str,
+                       tile_w: int = 0):
+    """K7a (one pop, counted or at push order "sort" / "nearlast") or K7b
+    (pop2: two pops, uncounted, "sort") any hit on CUDA tensors over
+    scene["nodes8c"], t_max an (N,) f32 tensor: what trace_any_bvh8
+    returns. tile_w and the refusals as closest_variant_kernel's (an
+    uncounted one-pop "none" trace is K2's)."""
     name = "trace_any_bvh8"
-    n = origin.shape[0]
+    n = _compact_launch_inputs(name, scene, origin, t_max, tile_w)
     dev = origin.device
     occ = torch.empty(n, dtype=torch.uint8, device=dev)
-    fn = build.function("tpurt_bvh8_any_k7a", [ctypes.c_void_p] * 4
+    fn = build.function("tpurt_bvh8_any_variant", [ctypes.c_void_p] * 4
                         + [ctypes.c_float, ctypes.c_void_p]
-                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
-    pops = [torch.empty(n, dtype=torch.float32, device=dev)
-            for _ in range(2)] if count_steps else [None, None]
+                        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
+    counts = [torch.empty(n, dtype=torch.float32, device=dev)
+              for _ in range(2)] if count_steps else [None, None]
     p = build.ptr
-    build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(origin),
-                   p(direction), float(t_min), p(t_max), n,
-                   int(count_steps), PUSH_ORDERS.index(order), p(occ),
-                   *(p(x) if count_steps else None for x in pops),
+    pops = 2 if pop2 else 1
+    build.check(fn(p(scene["nodes8c"]), p(scene["tris"]), p(origin),
+                   p(direction), float(t_min), p(t_max), n, int(pop2),
+                   int(count_steps), PUSH_ORDERS.index(order),
+                   compact_stack_size(scene["depth8"], pops), tile_w,
+                   p(occ), *(p(x) if count_steps else None for x in counts),
                    build.stream_of(origin)), name)
-    build.launch_counts["bvh8_any_steps"] += 1
-    return (occ.bool(), *pops) if count_steps else occ.bool()
+    build.launch_counts["bvh8_any_pop2" if pop2 else "bvh8_any_steps"] += 1
+    return (occ.bool(), *counts) if count_steps else occ.bool()
+
+
+def closest_uvp_kernel(scene: dict, origin, direction, t_min: float, t_max):
+    """K7c on CUDA tensors over the nodes8 rows and scene["uvp"]: dict(t,
+    tri, u, v, texu, texv, img, texh, texw), t_max an (N,) f32 tensor; rays
+    in consecutive blocks."""
+    name = "trace_closest_bvh8"
+    n = origin.shape[0]
+    dev = origin.device
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    pay = torch.empty((5, n), dtype=torch.float32, device=dev)
+    fn = build.function("tpurt_bvh8_closest_uvp", [ctypes.c_void_p] * 5
+                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_void_p] * 6)
+    p = build.ptr
+    build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(scene["uvp"]),
+                   p(origin), p(direction), float(t_min), p(t_max), n, p(t),
+                   p(tri), p(u), p(v), p(pay), build.stream_of(origin)),
+                name)
+    build.launch_counts["bvh8_closest_uvp"] += 1
+    return dict(t=t, tri=tri, u=u, v=v, **dict(zip(PAYLOAD_KEYS,
+                                                   pay.unbind(0))))
 
 
 def _multi_inputs(origin, dirs, t_maxs):
@@ -584,33 +595,30 @@ def trace_closest_plain(scene, origin, direction, t_min, t_max,
     """Plain PyTorch version of K1 (K7b with pop2, K7c with uv_payload, K7a
     with count_steps or another push_order) on any device. `stats`, a dict,
     gets the traversal work (see count_work), the entries dropped unread
-    (see count_dropped) and the deepest stack (max_stack). K1's trace, one
-    pop, no payload, uncounted, "sort", reads the compact table nodes8c as
-    K1 does."""
+    (see count_dropped) and the deepest stack (max_stack). It reads the
+    compact table nodes8c as K1, K7a and K7b do, the nodes8 rows with the
+    payload as K7c does."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), any_hit=False,
                         pops=2 if pop2 else 1, uv_payload=uv_payload,
                         stats=stats, count_steps=count_steps,
-                        order=push_order,
-                        compact=_is_k1(pop2, uv_payload, count_steps,
-                                       push_order))
+                        order=push_order, compact=not uv_payload)
 
 
 def trace_any_plain(scene, origin, direction, t_min, t_max, stats=None,
                     pop2=False, count_steps=False, push_order=None):
     """Plain PyTorch version of K2 (K7b with pop2, K7a with count_steps or
     another push_order) on any device (`stats` as above). push_order=None
-    is trace_any_bvh8's default ("none"; "sort" with pop2); K2's trace, one
-    pop, uncounted, "none", reads the compact table nodes8c as K2 does."""
+    is trace_any_bvh8's default ("none"; "sort" with pop2). It reads the
+    compact table nodes8c as the kernels do."""
     n = origin.shape[0]
     order = push_order if push_order is not None else \
         "sort" if pop2 else "none"
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), any_hit=True,
                         pops=2 if pop2 else 1, stats=stats,
-                        count_steps=count_steps, order=order,
-                        compact=_is_k2(pop2, count_steps, order))
+                        count_steps=count_steps, order=order, compact=True)
 
 
 def count_work(stats, node_pops, leaf_pops, tri_tests, node_tests=None):

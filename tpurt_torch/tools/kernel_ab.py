@@ -1,7 +1,8 @@
 """Time K1 (BVH8 closest hit), K2 (BVH8 any hit), K3 (GTAO main pass,
 with its noise table K3h where the checkout has one), K4 (GTAO denoise),
-K5 and K5p (the fused multi-light any hit, one and two pops) and K6
-(binary-BVH closest and any hit) of several checkouts of the port
+K5 and K5p (the fused multi-light any hit, one and two pops), K6
+(binary-BVH closest and any hit) and K7a, K7b, K7c (the BVH8 traversal's
+counted, two-pop and uv-payload variants) of several checkouts of the port
 on one card, in turns, on the bench scene at 800x800 and 1920x1080,
 through the public entry points every checkout has.
 
@@ -24,10 +25,12 @@ checkout's tpurt_torch, builds its kernels and times on the card alone
   pop2=False / True) on the frame's 3 shadow sets (one launch each), the
   rays in consecutive blocks (the fused frame passes its shape as well,
   for pixel tiles: chip_smoke.py times both);
-* K7a, K7b, K7c (the rows-based kernels that share the slab test):
-  trace_closest_bvh8(..., count_steps=True / pop2=True / uv_payload=True)
-  on the camera rays and trace_any_bvh8(..., count_steps=True /
-  pop2=True) on each light's shadow rays (3 launches, summed);
+* K7a, K7b, K7c: trace_closest_bvh8(..., count_steps=True / pop2=True /
+  uv_payload=True) on the camera rays and trace_any_bvh8(...,
+  count_steps=True, push_order="sort" / pop2=True) on each light's shadow
+  rays (3 launches, summed), the rays in consecutive blocks; K7a and K7b
+  also with the frame's shape (height=, width=; pixel tiles where the
+  checkout's kernels take them, consecutive rays where they do not);
 * K3: gtao_main at the frame's preset (ULTRA 9x3) on the frame's depth
   pyramid and G-buffer, every launch of it (chip_smoke.py times K3h and
   K3 apart);
@@ -140,23 +143,27 @@ def child(repo: str) -> dict:
             occ.append(trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st))
             res["k2_ms"] += device_ms(lambda: trace_any_bvh8(
                 scene, so, sd, SHADOW_T_MIN, st))
+        # K7a "sort" counted (PERF.md's K7a rows), K7b, K7c; K7a and K7b
+        # also with the frame's shape
         k7 = {}
-        for key, kw in (("k7a", dict(count_steps=True)),
-                        ("k7b", dict(pop2=True)),
-                        ("k7c", dict(uv_payload=True))):
+        frame = dict(height=h, width=w)
+        counted = dict(count_steps=True, push_order="sort")
+        for key, kw in (("k7a", counted), ("k7b", dict(pop2=True)),
+                        ("k7c", dict(uv_payload=True)),
+                        ("k7a_tiles", dict(counted, **frame)),
+                        ("k7b_tiles", dict(pop2=True, **frame))):
             k7[key] = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, **kw)
             res[f"{key}_ms"] = device_ms(lambda: trace_closest_bvh8(
                 scene, o, d, T_MIN, T_MAX, **kw))
-            res[f"{key}_any_ms"] = 0.0
-        for key, kw in (("k7a", dict(count_steps=True)),
-                        ("k7b", dict(pop2=True))):
-            k7[f"{key}_any"] = []
+        for key, kw in (("k7a_any", counted), ("k7b_any", dict(pop2=True)),
+                        ("k7a_any_tiles", dict(counted, **frame)),
+                        ("k7b_any_tiles", dict(pop2=True, **frame))):
+            k7[key], res[f"{key}_ms"] = [], 0.0
             for so, sd, st in rays:
-                k7[f"{key}_any"].append(trace_any_bvh8(
+                k7[key].append(trace_any_bvh8(scene, so, sd, SHADOW_T_MIN,
+                                              st, **kw))
+                res[f"{key}_ms"] += device_ms(lambda: trace_any_bvh8(
                     scene, so, sd, SHADOW_T_MIN, st, **kw))
-                res[f"{key}_any_ms"] += device_ms(lambda: trace_any_bvh8(
-                    scene, so, sd, SHADOW_T_MIN, st, **kw))
-        res.pop("k7c_any_ms")
         for key, got in k7.items():
             flat = got.values() if isinstance(got, dict) else [
                 x for one in got for x in (one if isinstance(one, tuple)
