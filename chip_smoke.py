@@ -57,10 +57,13 @@ once, at 64x64):
            closest and any kernels (K7b) over nodes8c, in 16x8 pixel tiles
            (as the pop2 frames trace them) and on consecutive rays, against
            their plain versions and against K1/K2 (t bit-equal, tri
-           differing only on ties); the uv-payload kernel (K7c, over the
-           rows) against its plain version; all bit-exact, with times and
-           bounds. Then >= 10 frames (after 2 warm-up
-           frames) of each variant with its launches checked per frame:
+           differing only on ties); the uv-payload kernel (K7c, K1's
+           kernel with the payload, over nodes8c in 16x8 pixel tiles, as
+           the uvp frame traces them, and on consecutive rays) against its
+           plain version in all nine outputs and against K1's t, tri, u
+           and v, timed beside K1 on the same rays in the same tiles; all
+           bit-exact, with times and bounds. Then >= 10 frames (after 2
+           warm-up frames) of each variant with its launches checked per frame:
            Renderer.render() with POP2_DEFAULT (K7b closest 1, K7b any 3),
            with UVP_DEFAULT (K7c 1, K2 3), the fused frame
            (render_frame_fused: K1 1, K5 1) and the fused frame with
@@ -84,12 +87,14 @@ once, at 64x64):
            (tpurt_torch/tools/trans_equiv_probe.py, one P1 launch): P1
            within its tolerance of its plain version (cos/sin 2e-6 absolute,
            pow 2e-6 relative), bit mismatches and ULPs of kernel, plain and
-           float64. render() and render_stream ms/frame at depth 1 and 3
-           over 10 frames each; profile_frame(r, 3) (render()'s launches
-           per frame). Last, after every other phase of both sizes (launches
-           after torch.profiler run slower): device_profile(r), kernel time
-           per pass, the device-busy share (sum of device_profile / sum of
-           profile_frame) and render() ms/frame right after it.
+           float64; P1's time beside the card-only timer's floor (an empty
+           kernel timed the same way). render() and render_stream ms/frame
+           at depth 1 and 3 over 10 frames each; profile_frame(r, 3)
+           (render()'s launches per frame). Last, after every other phase
+           of both sizes (launches after torch.profiler run slower):
+           device_profile(r), kernel time per pass, the device-busy share
+           (sum of device_profile / sum of profile_frame) and render()
+           ms/frame right after it.
 
 Every kernel is timed twice: on the card alone (`ms`,
 tpurt_torch/kernels/build.device_ms: the least of 3 runs, each queued
@@ -102,9 +107,9 @@ Every kernel's bound_ms is the larger of the bytes it must move (each
 input read once, each output written once) at 3.35 TB/s and its float
 operations at 67 TFLOP/s (H100 SXM peaks); traversal work is counted by
 the plain versions on this run's rays, each kernel's table once (nodes8c
-for K1, K2, K5, K7a, K7b; the nodes8 rows for K7c; K7a: its own work, with
-8 bytes of counts per shadow ray; the closest hit's counts replace u and
-v), GTAO and P1 work from the kernels' source.
+for every BVH8 kernel, K7c also the uvp table; K7a: its own work, with 8
+bytes of counts per shadow ray; the closest hit's counts replace u and v),
+GTAO and P1 work from the kernels' source.
 Any failed check exits non-zero before the last line. The line before the
 last is the {"kernels": [...]} summary; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -148,7 +153,7 @@ KERNELS = (
     ("bvh8_any_pop2", "tpurt_torch/csrc/bvh8_variants.cu",
      "tpurt/kernels/traverse_bvh8.py:497"),
     # the uv-payload outputs of _kernel_bvh8_single
-    ("bvh8_closest_uvp", "tpurt_torch/csrc/bvh8_trace.cu",
+    ("bvh8_closest_uvp", "tpurt_torch/csrc/bvh8_closest.cu",
      "tpurt/kernels/traverse_bvh8.py:118"),
     # K7a: step counts (and push orders), run by the steps probe
     ("bvh8_closest_steps", "tpurt_torch/csrc/bvh8_variants.cu",
@@ -868,7 +873,7 @@ def phase6():
 
 
 def phase7_kernels(r, label):
-    """K5, K5p, K7b and K7c against their plain versions (and K5/K5p/K7b
+    """K5, K5p, K7b and K7c against their plain versions (and K5/K5p/K7b/K7c
     against K1/K2) on the frame's real rays, with times and bounds."""
     import torch
 
@@ -1024,27 +1029,42 @@ def phase7_kernels(r, label):
                                 bound_ms=b_ms, bound_by=b_by,
                                 variants=dict(rows_of_128=t7_rows), **t7)
 
-    # K7c: the primary rays with the uv payload
-    hu = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, uv_payload=True)
+    # K7c: the primary rays with the uv payload, over nodes8c in 16x8 pixel
+    # tiles (the frame's shape, as the uvp frame traces them) and on
+    # consecutive rays, both bit-exact in all nine outputs; t, tri, u and v
+    # equal to K1's; timed beside K1 in tiles on the same rays
+    hu = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, uv_payload=True,
+                            **frame)
+    hu_rows = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, uv_payload=True)
     work = {}
     plain_ms, pu = timed_once(lambda: trace_closest_plain(
         scene, o, d, T_MIN, T_MAX, stats=work, uv_payload=True))
-    mism = {k: int((hu[k].view(torch.int32) != pu[k].view(torch.int32))
-                   .sum()) for k in hu}
-    same_hits = all(torch.equal(hu[k], hk[k]) for k in hk)
+    mism = {f"{k}{tag}": int((x[k].view(torch.int32)
+                              != pu[k].view(torch.int32)).sum())
+            for tag, x in (("", hu), ("_rows", hu_rows)) for k in pu}
+    same_hits = all(torch.equal(x[k], hk[k]) for x in (hu, hu_rows)
+                    for k in hk)
     t = kernel_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
-                                             uv_payload=True))
-    moved, ops = trace_work(scene, "nodes8", (o, d, torch.empty(w * h)), 36,
-                            work, OPS_BVH8_NODE)
+                                             uv_payload=True, **frame))
+    t_rows = kernel_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
+                                                  uv_payload=True))
+    t_k1 = kernel_ms(lambda: trace_closest_bvh8(scene, o, d, T_MIN, T_MAX,
+                                                **frame))
+    moved, ops = trace_work(scene, "nodes8c", primary, 36, work,
+                            OPS_BVH8_NODE)
     hits = int((hu["tri"] >= 0).sum())
     b_ms, b_by = bound(moved + nbytes(scene["uvp"]), ops + hits * OPS_PAYLOAD)
-    log(f"[{label}] bvh8_closest_uvp: bit mismatches vs plain {mism}, hits "
-        f"equal to K1's {same_hits}, kernel {fmt_ms(t)}, plain (once) "
-        f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"[{label}] bvh8_closest_uvp: bit mismatches vs plain (tiles and "
+        f"rows) {mism}, t/tri/u/v equal to K1's {same_hits}, kernel (tiles) "
+        f"{fmt_ms(t)}, on rows of 128 {fmt_ms(t_rows)}, K1 on the same rays "
+        f"(tiles) {fmt_ms(t_k1)}, ratio {t['ms'] / t_k1['ms']:.3f}, plain "
+        f"(once) {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
     require(sum(mism.values()) == 0 and same_hits,
             f"[{label}] K7c differs from plain or from K1")
     out["bvh8_closest_uvp"] = dict(max_abs_err=0.0, plain_ms=plain_ms,
-                                   bound_ms=b_ms, bound_by=b_by, **t)
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   variants=dict(rows_of_128=t_rows,
+                                                 k1_tiles=t_k1), **t)
     return out
 
 
@@ -1289,12 +1309,17 @@ def phase8_kernels(r, label):
     b_ms, b_by = bound(nbytes(planes) + rows * n * 4, n * trans_equiv_probe
                        .SLICES * (per_slice + trans_equiv_probe.STEPS
                                   * per_step))
+    t = kernel_ms(lambda: trans_equiv(*args), 20)
+    # the card-only timer's floor: an empty spin kernel timed the same way
+    floor_ms = build.device_ms(lambda: torch.cuda._sleep(0), 20)
+    log(f"[{label}] P1 {fmt_ms(t)}, the timer's floor (an empty kernel) "
+        f"{floor_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     out["trans_equiv"] = dict(
         max_abs_err=max(tol[op]["max_abs_err"] for op in ("cos", "sin",
                                                            "pow")),
-        **kernel_ms(lambda: trans_equiv(*args), 20),
-        plain_ms=cuda_ms(lambda: trans_equiv_plain(*args), 5),
-        bound_ms=b_ms, bound_by=b_by, launches=launches["trans_equiv"])
+        **t, plain_ms=cuda_ms(lambda: trans_equiv_plain(*args), 5),
+        bound_ms=b_ms, bound_by=b_by, launches=launches["trans_equiv"],
+        timer_floor_ms=floor_ms)
     return out
 
 
@@ -1407,7 +1432,7 @@ def main():
     from tpurt_torch.tools.kernel_ab import ptxas_report
 
     report = ptxas_report(build.build_log)
-    log("ptxas K1 and K4: " + json.dumps(
+    log("ptxas K1, K7c and K4: " + json.dumps(
         [k for k in report if "bvh8_closest_kernel" in k["kernel"]
          or "gtao_denoise_kernel" in k["kernel"]]))
     log("ptxas K6: " + json.dumps(
@@ -1499,8 +1524,12 @@ def main():
                             k: {name: v["kernels"][name]["variants"]
                                 for name in ("bvh8_closest_pop2",
                                              "bvh8_any_pop2",
+                                             "bvh8_closest_uvp",
                                              "bvh8_closest_steps",
                                              "bvh8_any_steps")}
+                            for k, v in results.items()},
+                        timer_floor_ms={
+                            k: v["kernels"]["trans_equiv"]["timer_floor_ms"]
                             for k, v in results.items()},
                         k3_with_noise_table={
                             k: v["kernels"]["gtao_main"]["with_noise_table"]

@@ -9,15 +9,17 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 the machine with the card need not have.)
 
 Budgets (as chip_smoke.py holds them): K1, K2, K4, K5, K5p, K7a, K7b, K7c
-and K6 bit-identical with their plain versions (K1, K2, K7a, K7b and K6 in
-pixel tiles and on consecutive rays, K1, K7a, K7b and K6 also on triangle
-soups with equal-t ties and sibling boxes and K7a/K7b on a deep tree, K6
+and K6 bit-identical with their plain versions (K1, K2, K7a, K7b, K7c and
+K6 in pixel tiles and on consecutive rays, K1, K7a, K7b, K7c and K6 also
+on triangle soups with equal-t ties and sibling boxes and K7a/K7b/K7c on
+a deep tree, K6
 also on SAH trees with leaves of up to 4, K2 also with the plain any hit
 over the rows, K5/K5p also with K2 per set (in pixel tiles
 and on consecutive rays, on soups and a deep tree), K7a's and K7b's t
-with K1's, their occlusion with K2's); K3h's table
-within P1's ATOL_TRIG of its plain version; P1 within ATOL_TRIG /
-RTOL_POW of its plain version (kernels/trans_equiv.py); the LBVH, its
+with K1's, their occlusion with K2's, K7c's t, tri, u and v with K1's);
+K3h's table within P1's ATOL_TRIG of its plain version; P1 within
+ATOL_TRIG / RTOL_POW of its plain version (kernels/trans_equiv.py; the
+probe's 9x3, and 1x2, 2x2 and 3x3); the LBVH, its
 nodes2c and the BVH8 refit built on the card equal to the same built on
 the host; K3 edges
 equal and AO within 1 u8 step on <= 0.1% of pixels (each preset's
@@ -299,9 +301,10 @@ def _bits(x):
 
 
 def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
-    """K7b (closest and any, in 16x8 pixel tiles and on consecutive rays)
-    and K7c against their plain versions on the frame's rays; K7b's t
-    equals K1's, its tri differs only on ties, its occlusion is K2's."""
+    """K7b (closest and any) and K7c (all nine outputs), in 16x8 pixel
+    tiles and on consecutive rays, against their plain versions on the
+    frame's rays; K7b's t equals K1's, its tri differs only on ties, its
+    occlusion is K2's; K7c's t, tri, u and v are K1's."""
     from tpurt_torch.kernels import build
     from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
                                                    trace_any_plain,
@@ -326,12 +329,17 @@ def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
         assert torch.equal(_bits(tiles[k]), _bits(hp[k])), k
     assert torch.equal(_bits(hk["t"]), _bits(k1["t"]))
     assert bool((hk["tri"] >= 0).any())
-    uk = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, uv_payload=True)
     up = trace_closest_plain(sc, o, d, T_MIN, T_MAX, uv_payload=True)
-    assert set(uk) == set(up) == {"t", "tri", "u", "v", "texu", "texv",
-                                  "img", "texh", "texw"}
-    for k in uk:
-        assert torch.equal(_bits(uk[k]), _bits(up[k])), k
+    assert bool((up["tri"] >= 0).any())
+    for frame in ({}, dict(height=h, width=w)):
+        uk = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, uv_payload=True,
+                                **frame)
+        assert set(uk) == set(up) == {"t", "tri", "u", "v", "texu", "texv",
+                                      "img", "texh", "texw"}
+        for k in uk:
+            assert torch.equal(_bits(uk[k]), _bits(up[k])), (k, frame)
+        for k in k1:
+            assert torch.equal(_bits(uk[k]), _bits(k1[k])), (k, frame)
     for so, sd, stmax in shadow_rays(sc, cam, lights, k1):
         want = trace_any_plain(sc, so, sd, SHADOW_T_MIN, stmax, pop2=True)
         assert torch.equal(trace_any_bvh8(sc, so, sd, SHADOW_T_MIN, stmax,
@@ -343,7 +351,7 @@ def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
                                                  stmax))
     assert build.launch_counts == _counts(bvh8_closest=1,
                                           bvh8_closest_pop2=2,
-                                          bvh8_closest_uvp=1,
+                                          bvh8_closest_uvp=2,
                                           bvh8_any_pop2=6)
 
 
@@ -555,12 +563,13 @@ def test_step_count_kernels_bit_identical(cuda_frame, order):
 
 @pytest.mark.parametrize("pop2", [False, True])
 def test_variant_kernels_on_soups_and_a_deep_tree(cuda_frame, pop2):
-    """K7a (every push order, counted and not) or K7b (two pops) against
-    the plain versions on the triangle soups of tests/torch_closest_cases.py
-    (equal-t ties, sibling slots with identical boxes, grazing and
-    axis-aligned rays, t_max <= t_min) and on its deep soup, whose 9-level
-    tree takes the 192-entry stack instantiation, in 16x8 pixel tiles and
-    on consecutive rays, bit for bit."""
+    """K7a (every push order, counted and not) and K7c (the uv payload,
+    over a random uvp table) or K7b (two pops) against the plain versions
+    on the triangle soups of tests/torch_closest_cases.py (equal-t ties,
+    sibling slots with identical boxes, grazing and axis-aligned rays,
+    t_max <= t_min) and on its deep soup, whose 9-level tree takes the
+    192-entry stack instantiation, in 16x8 pixel tiles and on consecutive
+    rays, bit for bit."""
     from torch_closest_cases import (CASES, H, T_MIN, W, deep_soup,
                                      frame_rays, port_scene, soup)
     from tpurt_torch.kernels.traverse_bvh8 import (compact_stack_size,
@@ -571,31 +580,39 @@ def test_variant_kernels_on_soups_and_a_deep_tree(cuda_frame, pop2):
 
     traces = [dict(pop2=True)] if pop2 else [
         dict(count_steps=c, push_order=o)
-        for o in ("sort", "nearlast", "none") for c in (False, True)]
+        for o in ("sort", "nearlast", "none") for c in (False, True)] + [
+        dict(uv_payload=True)]
     cases = [(soup(), leaf_max) for leaf_max in CASES.values()]
     cases.append((deep_soup(), 1))
     for tris, leaf_max in cases:
         scene, _, _ = port_scene(*tris, leaf_max, device="cuda")
+        scene["uvp"] = torch.tensor(np.random.default_rng(7).uniform(
+            -2.0, 2.0, (tris[0].shape[0], 9)), dtype=torch.float32,
+            device="cuda")
         deep = compact_stack_size(scene["depth8"], 2 if pop2 else 1) == 192
         assert deep == (tris[0].shape[0] == 80)
         rays = [torch.tensor(x, device="cuda") for x in frame_rays(*tris)]
         args = (scene, rays[0], rays[1], T_MIN, rays[2])
         for kw in traces:
-            want = trace_any_plain(*args, **kw)
-            want = want if isinstance(want, tuple) else (want,)
-            assert bool(want[0].any())
-            for frame in ({}, dict(height=H, width=W)):
-                got = trace_any_bvh8(*args, **kw, **frame)
-                got = got if isinstance(got, tuple) else (got,)
-                assert all(torch.equal(a, b) for a, b in zip(got, want)), kw
-            if not kw.get("count_steps") and kw.get("push_order") == "sort":
-                continue  # K1's trace
+            if "uv_payload" not in kw:
+                want = trace_any_plain(*args, **kw)
+                want = want if isinstance(want, tuple) else (want,)
+                assert bool(want[0].any())
+                for frame in ({}, dict(height=H, width=W)):
+                    got = trace_any_bvh8(*args, **kw, **frame)
+                    got = got if isinstance(got, tuple) else (got,)
+                    assert all(torch.equal(a, b)
+                               for a, b in zip(got, want)), kw
+                if not kw.get("count_steps") \
+                        and kw.get("push_order") == "sort":
+                    continue  # K1's trace
             want = trace_closest_plain(*args, **kw)
             assert int((want["tri"] >= 0).sum()) > 0
             for frame in ({}, dict(height=H, width=W)):
                 got = trace_closest_bvh8(*args, **kw, **frame)
+                assert got.keys() == want.keys(), kw
                 assert all(torch.equal(_bits(got[k]), _bits(want[k]))
-                           for k in ("t", "tri", "u", "v")), kw
+                           for k in want), kw
 
 
 def test_k7a_entries_refuse_other_traces():
@@ -634,10 +651,13 @@ def test_k7a_entries_refuse_other_traces():
 def test_trans_equiv_kernel_within_tolerance():
     """P1 on the card against its plain version (torch on the card): cos
     and sin within ATOL_TRIG, pow within RTOL_POW; the arguments of both
-    equal to the host's bit for bit."""
+    equal to the host's bit for bit. The same at the other preset counts
+    (1x2, 2x2, 3x3: other grid heights and rows per slice)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.trans_equiv import (row_ops, trans_equiv,
+                                                 trans_equiv_plain)
     from tpurt_torch.tools import trans_equiv_probe
 
     build.reset_counts()
@@ -647,6 +667,15 @@ def test_trans_equiv_kernel_within_tolerance():
     for op in ("cos", "sin", "pow"):
         assert report["tolerance"][op]["outside"] == 0, report
         assert report["kernel_vs_float64"][op]["max_ulp"] <= 4, report
+    planes = trans_equiv_probe.noise_planes().cuda()
+    for counts in ((1, 2), (2, 2), (3, 3)):
+        args = (planes, trans_equiv_probe.SDP, *counts)
+        got, want = trans_equiv(*args), trans_equiv_plain(*args)
+        assert got.shape == want.shape == (counts[0] * (2 + counts[1]),
+                                           *planes.shape[1:])
+        tol = trans_equiv_probe.within_tolerance(got, want,
+                                                 row_ops(*counts))
+        assert all(x["outside"] == 0 for x in tol.values()), (counts, tol)
 
 
 def test_profiler_and_stream_on_card(cuda_frame):

@@ -12,10 +12,11 @@
 //   * the compact node table nodes8c (engine/convert.py, bvh/wide.py
 //     compact_bvh8): per node the 8 child boxes as structure of arrays
 //     (lo x/y/z, hi x/y/z, 8 floats each, the bits of the nodes8 row's box
-//     lanes) and 8 int32 child codes precomputed as child_code encodes them
-//     (EMPTY_CODE for an empty slot): 224 bytes read as 14 16-byte loads,
-//     against 288 bytes and 8 float-to-int conversions per pop before,
-//     in two halves (children 0-3, then 4-7) to hold fewer registers;
+//     lanes) and 8 int32 stack codes precomputed (a node's index, a leaf's
+//     -(first * 128 + count) - 1, EMPTY_CODE for an empty slot): 224
+//     bytes read as 14 16-byte loads, against 288 bytes and 8
+//     float-to-int conversions per pop before, in two halves (children
+//     0-3, then 4-7) to hold fewer registers;
 //   * pushes in slot order straight from the slab test (tpurt's "none"),
 //     slot 7 on top: no keys, no sort, no entry distances on the stack (an
 //     any hit never reads them);

@@ -1,6 +1,6 @@
-// Device code shared by the traversal kernels (bvh8_closest.cu: K1;
-// bvh8_any.cu: K2; bvh8_variants.cu: K7a, K7b; bvh8_trace.cu: K7c;
-// bvh8_multi.cu: K5, K5p; bvh2_trace.cu: K6).
+// Device code shared by the traversal kernels (bvh8_closest.cu: K1, K7c;
+// bvh8_any.cu: K2; bvh8_variants.cu: K7a, K7b; bvh8_multi.cu: K5, K5p;
+// bvh2_trace.cu: K6).
 //
 // Exactness: the slab test and Moller-Trumbore use the operation order of
 // tpurt's _Rays.slab / _Rays.mt; min/max propagate NaN like jnp.minimum;
@@ -8,13 +8,11 @@
 // The plain PyTorch versions (kernels/traverse_bvh8.py) repeat every
 // operation in the same order.
 //
-// Node row layout (bvh/wide.py): lanes k*6..k*6+5 child box, 48+k internal
-// child index (-1 if none), 56+k leaf first triangle, 64+k leaf count.
-// Compact node (nodes8c, bvh/wide.py compact_bvh8; K1, K2, K5, K7a, K7b):
-// the 8 child boxes as structure of arrays (lo x, y, z, hi x, y, z, 8
-// floats each, the bits of the row's box lanes), then 8 int32 child codes
+// Compact node (nodes8c, bvh/wide.py compact_bvh8; every BVH8 kernel): the
+// 8 child boxes as structure of arrays (lo x, y, z, hi x, y, z, 8 floats
+// each, the bits of the nodes8 row's box lanes), then 8 int32 child codes
 // (EMPTY_CODE for an empty slot): 224 bytes, 14 16-byte loads, no
-// conversion.
+// conversion. No kernel reads the (M, 128) nodes8 rows.
 // Triangle rows (engine/convert.pack_tris): v0, e1, e2, global id, 0, 0.
 // Stack codes: node id >= 0, leaf -(first * 128 + count) - 1.
 #pragma once
@@ -23,13 +21,7 @@
 #include <math.h>
 #include <stdint.h>
 
-// the per-thread stack; kernels/traverse_bvh8.stack_entries gives what a
-// tree needs (one pop: 7 * depth + 1, two pops: 14 * depth - 6) and the
-// wrappers refuse deeper trees
-#define STACK_SIZE 192
 #define LEAF_CODE_BASE 128
-#define NODE_FLOATS 128
-#define NODE_LANES 72
 #define TRI_FLOATS 12
 #define COMPACT_FLOATS 56
 #define EMPTY_CODE (-1)
@@ -79,22 +71,6 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
   return r;
 }
 
-// the 72 lanes of a node row that traversal reads, as 16-byte loads
-// through the read-only path
-__device__ __forceinline__ void load_node(const float* __restrict__ nodes,
-                                          int code, float lanes[NODE_LANES]) {
-  const float4* row =
-      reinterpret_cast<const float4*>(nodes + (size_t)code * NODE_FLOATS);
-#pragma unroll
-  for (int i = 0; i < NODE_LANES / 4; ++i) {
-    const float4 q = __ldg(row + i);
-    lanes[4 * i] = q.x;
-    lanes[4 * i + 1] = q.y;
-    lanes[4 * i + 2] = q.z;
-    lanes[4 * i + 3] = q.w;
-  }
-}
-
 // the slab test's reduction (tpurt's order) over the six plane distances
 // (box plane - origin) * inverse direction: hit, and the entry distance
 // in *tnear
@@ -110,8 +86,8 @@ __device__ __forceinline__ bool slab_t(float tx0, float tx1, float ty0,
   return tn <= tf;
 }
 
-// slab test of the box at lanes 6k..6k+5 (min x, y, z, max x, y, z): hit,
-// and its entry distance in *tnear
+// slab test of the box at lanes 6k..6k+5 (min x, y, z, max x, y, z) of a
+// nodes2c row (bvh2_trace.cu): hit, and its entry distance in *tnear
 __device__ __forceinline__ bool slab(const float* lanes, int k, const Ray& r,
                                      float t_min, float tfar, float* tnear) {
   const float* b = lanes + 6 * k;
@@ -119,18 +95,6 @@ __device__ __forceinline__ bool slab(const float* lanes, int k, const Ray& r,
                 (b[1] - r.oy) * r.iy, (b[4] - r.oy) * r.iy,
                 (b[2] - r.oz) * r.iz, (b[5] - r.oz) * r.iz, t_min, tfar,
                 tnear);
-}
-
-// a slot holds an internal child or a non-empty leaf
-__device__ __forceinline__ bool child_valid(const float* lanes, int k) {
-  return lanes[48 + k] >= 0.0f || lanes[64 + k] > 0.0f;
-}
-
-__device__ __forceinline__ int child_code(const float* lanes, int k) {
-  const float child = lanes[48 + k];
-  return child >= 0.0f
-             ? (int)child
-             : -((int)lanes[56 + k] * LEAF_CODE_BASE + (int)lanes[64 + k]) - 1;
 }
 
 __device__ __forceinline__ void leaf_range(int code, int* first, int* count) {

@@ -1,4 +1,5 @@
-// The transcendental probe (P1), one thread per noise element.
+// The transcendental probe (P1), one thread per noise element and output
+// row.
 //
 // Replaces tools/trans_equiv_probe.py:104 mosaic_side, tpurt's probe of
 // whether Mosaic lowers cos/sin/pow/mod as XLA does. It evaluates the
@@ -13,8 +14,16 @@
 //
 // What bounds it on an H100: nothing of note; 45 outputs per element of
 // two (32, 128) planes, about 0.77 MB written, far below a microsecond of
-// memory time. It launches once per probe; the design is the plain one,
-// each thread writing its element of every output row (coalesced rows).
+// memory time. What its time is made of is latency: each output is a libm
+// call (cosf, sinf, powf) of some tens of dependent instructions, and one
+// thread per element made 45 of them in a row on 32 blocks, a quarter of
+// the SMs. So every output gets its own thread: a grid of (ceil(n / 128),
+// slices * (2 + steps)) blocks, 1,440 for the probe's 4,096 elements at
+// 9 slices of 3 steps, each thread one call on arguments built as before.
+// One thread per element and slice (K3h's grid in gtao_main.cu: 288
+// blocks, 2 + steps calls in a row) took 1.07x its time on an H100
+// (PERF.md). Rows stay coalesced: a warp writes 32 consecutive elements
+// of one row.
 //
 // Output layout (tpurt's): per slice the rows cos, sin, then pow of each
 // step, so row (2 + steps) * s + k of (slices * (2 + steps), n).
@@ -31,22 +40,23 @@ trans_equiv_kernel(const float* __restrict__ noise_slice,
                    const float* __restrict__ noise_sample, float sdp, int n,
                    int slices, int steps, float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y;
   if (i >= n) return;
-  const float a = noise_slice[i];
-  const float b = noise_sample[i];
-  size_t row = 0;
-  for (int s = 0; s < slices; ++s) {
-    const float sf = (float)s;
-    const float phi = ((sf + a) / (float)slices) * PI_F;
-    out[row++ * n + i] = cosf(phi);
-    out[row++ * n + i] = sinf(phi);
-    for (int st = 0; st < steps; ++st) {
-      const float stf = (float)st;
-      const float base = (sf + stf * (float)steps) * GOLDEN_F;
-      const float s0 = (stf + fmodf(b + base, 1.0f)) / (float)steps;
-      out[row++ * n + i] = powf(s0, sdp);
-    }
+  const int per = 2 + steps;
+  const int s = r / per, k = r - s * per;
+  const float sf = (float)s;
+  float val;
+  if (k < 2) {
+    const float phi = ((sf + noise_slice[i]) / (float)slices) * PI_F;
+    val = k == 0 ? cosf(phi) : sinf(phi);
+  } else {
+    const float stf = (float)(k - 2);
+    const float base = (sf + stf * (float)steps) * GOLDEN_F;
+    const float s0 =
+        (stf + fmodf(noise_sample[i] + base, 1.0f)) / (float)steps;
+    val = powf(s0, sdp);
   }
+  out[(size_t)r * n + i] = val;
 }
 
 }  // namespace
@@ -57,9 +67,10 @@ extern "C" int tpurt_trans_equiv(const float* noise_slice,
                                  const float* noise_sample, float sdp, int n,
                                  int slices, int steps, float* out,
                                  cudaStream_t stream) {
-  if (n > 0) {
-    trans_equiv_kernel<<<(n + 127) / 128, 128, 0, stream>>>(
-        noise_slice, noise_sample, sdp, n, slices, steps, out);
+  if (n > 0 && slices > 0) {
+    const dim3 grid((n + 127) / 128, slices * (2 + steps));
+    trans_equiv_kernel<<<grid, 128, 0, stream>>>(noise_slice, noise_sample,
+                                                 sdp, n, slices, steps, out);
   }
   return (int)cudaGetLastError();
 }

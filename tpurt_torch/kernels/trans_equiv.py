@@ -4,10 +4,11 @@
 (``tools/trans_equiv_probe.py:104``): the GTAO main pass's noise-only
 expressions, the cos and sin of each slice angle and the
 sample-distribution pow of each step, on two noise planes. On CUDA tensors
-it launches ``csrc/trans_equiv.cu`` (CUDA's libm); on CPU tensors it runs
-``trans_equiv_plain``, which makes the same f32 arguments and calls
-torch's cos/sin/pow on them. ``tools/trans_equiv_probe.py`` holds the two
-against each other and against float64.
+it launches ``csrc/trans_equiv.cu`` (CUDA's libm) on a grid of one thread
+per noise element and output row, each making one libm call; on CPU
+tensors it runs ``trans_equiv_plain``, which makes the same f32 arguments
+and calls torch's cos/sin/pow on them. ``tools/trans_equiv_probe.py``
+holds the two against each other and against float64.
 """
 from __future__ import annotations
 

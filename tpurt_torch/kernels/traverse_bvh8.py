@@ -5,21 +5,22 @@ orders (K7a) and the fused multi-set any hit (K5, two-pop K5p).
 ``trace_closest_bvh8``, ``trace_any_bvh8`` and ``trace_any_bvh8_multi``
 replace tpurt's entry points of the same names
 (``tpurt/kernels/traverse_bvh8.py``). On CUDA tensors they launch
-``csrc/bvh8_closest.cu`` (K1) / ``csrc/bvh8_any.cu`` (K2) /
-``csrc/bvh8_variants.cu`` (K7a, K7b) / ``csrc/bvh8_trace.cu`` (K7c) /
-``csrc/bvh8_multi.cu`` (K5, K5p); on CPU tensors they run the plain PyTorch
-versions below, which visit stack entries in the kernels' order and give
-bit-identical results. There is no fallback between the two.
+``csrc/bvh8_closest.cu`` (K1, K7c) / ``csrc/bvh8_any.cu`` (K2) /
+``csrc/bvh8_variants.cu`` (K7a, K7b) / ``csrc/bvh8_multi.cu`` (K5, K5p); on
+CPU tensors they run the plain PyTorch versions below, which visit stack
+entries in the kernels' order and give bit-identical results. There is no
+fallback between the two.
 
-Every kernel but K7c reads the scene's compact node table ``nodes8c``
+Every kernel reads the scene's compact node table ``nodes8c``
 (``bvh/wide.compact_bvh8``; 224 bytes per node, child codes precomputed):
-K1, the closest hit at tpurt's default push order "sort", K2, the any hit
-at its default "none", K7a and K7b, their counted, reordered and two-pop
-variants, and K5/K5p, the fused multi-set any hit. K7c reads the ``nodes8``
-rows. Their stacks (local memory) have ``STACK_SIZES[pops]`` entries, the
-least that ``stack_entries(depth8, pops)`` fits: a closest hit's entries
-are a code and an entry distance, an any hit's a code, K5's a code and a
-set mask. Given the frame's shape, all but K7c run 16x8 pixel tiles per
+K1, the closest hit at tpurt's default push order "sort", and K7c, the
+same kernel with the uv payload, K2, the any hit at its default "none",
+K7a and K7b, their counted, reordered and two-pop variants, and K5/K5p,
+the fused multi-set any hit. Only the refit reads the ``nodes8`` rows.
+Their stacks (local memory) have ``STACK_SIZES[pops]`` entries, the least
+that ``stack_entries(depth8, pops)`` fits: a closest hit's entries are a
+code and an entry distance, an any hit's a code, K5's a code and a set
+mask. Given the frame's shape, every kernel runs 16x8 pixel tiles per
 block (``tile_rays``).
 
 Contract (tpurt's): ``t = t_max``, ``tri = -1``, ``u = v = 0`` on a miss;
@@ -88,14 +89,14 @@ POP2_DEFAULT = False
 UVP_DEFAULT = False
 # ray sets per fused any-hit launch (MULTI_SETS_MAX in csrc/bvh8_multi.cu)
 MULTI_SETS_MAX = 4
-# the per-thread stack of the CUDA kernels (STACK_SIZE in
-# csrc/bvh8_common.cuh); the wrappers refuse trees that could need more
+# the largest per-thread stack of the CUDA kernels; the wrappers refuse
+# trees that could need more
 STACK_SIZE = 192
-# the stack instantiations of the nodes8c kernels (K1, K2, K7a: one pop;
-# K7b: two; K5 / K5p: one / two), by pops per iteration: the wrappers take
-# the least that holds stack_entries(depth8, pops)
+# the stack instantiations of the kernels (K1, K7c, K2, K7a: one pop; K7b:
+# two; K5 / K5p: one / two), by pops per iteration: the wrappers take the
+# least that holds stack_entries(depth8, pops)
 STACK_SIZES = {1: (48, STACK_SIZE), 2: (64, STACK_SIZE)}
-# pixels of a K1/K2/K5/K7a/K7b block (a 16x8 tile) and of a warp (8x4)
+# pixels of a kernel's block (a 16x8 tile) and of a warp (8x4)
 # when the rays are a frame's pixels (csrc/bvh8_common.cuh tile_ray_index)
 TILE = (16, 8)
 WARP_TILE = (8, 4)
@@ -219,14 +220,13 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
 
     pop2 (default POP2_DEFAULT) takes the two-pop kernel K7b; uv_payload
     (default: UVP_DEFAULT when the scene carries "uvp" and the trace is
-    one-pop) takes K7c, over the nodes8 rows. The two do not compose
-    (tpurt's rule). count_steps=True returns each ray's node pops in u and
-    leaf pops in v (f32; t and tri unchanged); it and push_order "nearlast"
-    / "none" take K7a (module docstring). Otherwise the trace is K1's. K1,
-    K7a and K7b read the scene's nodes8c. height and width (0 when the rays
-    are not a frame's pixels) say that the rays are an H x W frame in row
-    order: K1, K7a and K7b then run 16x8 pixel tiles per block. The result
-    does not change."""
+    one-pop) takes K7c. The two do not compose (tpurt's rule).
+    count_steps=True returns each ray's node pops in u and leaf pops in v
+    (f32; t and tri unchanged); it and push_order "nearlast" / "none" take
+    K7a (module docstring). Otherwise the trace is K1's. All read the
+    scene's nodes8c. height and width (0 when the rays are not a frame's
+    pixels) say that the rays are an H x W frame in row order: the kernels
+    then run 16x8 pixel tiles per block. The result does not change."""
     name = "trace_closest_bvh8"
     pop2, order = _resolve_k7a(name, pop2, count_steps, push_order)
     k7a = count_steps or order != "sort"
@@ -252,12 +252,10 @@ def trace_closest_bvh8(scene: dict, origin, direction, t_min: float, t_max,
         return _trace_plain(scene, origin, direction, float(t_min), tmx,
                             any_hit=False, pops=pops, uv_payload=uv_payload,
                             count_steps=count_steps, order=order,
-                            compact=not uv_payload)
-    if uv_payload:
-        return closest_uvp_kernel(scene, origin, direction, t_min, tmx)
+                            compact=True)
     if not pop2 and not k7a:
         return closest_kernel(scene, origin, direction, t_min, tmx,
-                              tile_w=width)
+                              tile_w=width, uv_payload=uv_payload)
     return closest_variant_kernel(scene, origin, direction, t_min, tmx,
                                   pop2, count_steps, order, tile_w=width)
 
@@ -348,11 +346,13 @@ def _compact_launch_inputs(name, scene, origin, t_max, tile_w):
 
 
 def closest_kernel(scene: dict, origin, direction, t_min: float, t_max,
-                   tile_w: int = 0):
+                   tile_w: int = 0, uv_payload: bool = False):
     """K1 on CUDA tensors (trace_closest_bvh8's default path): dict(t,
     tri, u, v) over scene["nodes8c"], t_max an (N,) f32 tensor; tile_w > 0
     (the frame's width, N a multiple of it) runs 16x8 pixel tiles per
-    block, as trace_closest_bvh8 does when given the frame's shape."""
+    block, as trace_closest_bvh8 does when given the frame's shape. With
+    uv_payload it is K7c, the same kernel's payload instantiation, which
+    also reads scene["uvp"] and returns texu, texv, img, texh, texw."""
     name = "trace_closest_bvh8"
     n = _compact_launch_inputs(name, scene, origin, t_max, tile_w)
     dev = origin.device
@@ -360,16 +360,25 @@ def closest_kernel(scene: dict, origin, direction, t_min: float, t_max,
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    fn = build.function("tpurt_bvh8_closest_compact", [ctypes.c_void_p] * 4
+    out = dict(t=t, tri=tri, u=u, v=v)
+    if uv_payload:
+        build.require_cuda(name, dict(uvp=scene["uvp"]), dev)
+        pay = torch.empty((5, n), dtype=torch.float32, device=dev)
+        out.update(zip(PAYLOAD_KEYS, pay.unbind(0)))
+    fn = build.function("tpurt_bvh8_closest_compact", [ctypes.c_void_p] * 5
                         + [ctypes.c_float, ctypes.c_void_p]
-                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
     p = build.ptr
-    build.check(fn(p(scene["nodes8c"]), p(scene["tris"]), p(origin),
-                   p(direction), float(t_min), p(t_max), n,
+    build.check(fn(p(scene["nodes8c"]), p(scene["tris"]),
+                   p(scene["uvp"]) if uv_payload else None, p(origin),
+                   p(direction),
+                   float(t_min), p(t_max), n,
                    compact_stack_size(scene["depth8"]), tile_w, p(t), p(tri),
-                   p(u), p(v), build.stream_of(origin)), name)
-    build.launch_counts["bvh8_closest"] += 1
-    return dict(t=t, tri=tri, u=u, v=v)
+                   p(u), p(v), p(pay) if uv_payload else None,
+                   build.stream_of(origin)), name)
+    build.launch_counts["bvh8_closest_uvp" if uv_payload
+                        else "bvh8_closest"] += 1
+    return out
 
 
 def any_kernel(scene: dict, origin, direction, t_min: float, t_max,
@@ -452,31 +461,6 @@ def any_variant_kernel(scene: dict, origin, direction, t_min: float, t_max,
                    build.stream_of(origin)), name)
     build.launch_counts["bvh8_any_pop2" if pop2 else "bvh8_any_steps"] += 1
     return (occ.bool(), *counts) if count_steps else occ.bool()
-
-
-def closest_uvp_kernel(scene: dict, origin, direction, t_min: float, t_max):
-    """K7c on CUDA tensors over the nodes8 rows and scene["uvp"]: dict(t,
-    tri, u, v, texu, texv, img, texh, texw), t_max an (N,) f32 tensor; rays
-    in consecutive blocks."""
-    name = "trace_closest_bvh8"
-    n = origin.shape[0]
-    dev = origin.device
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    tri = torch.empty(n, dtype=torch.int32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    pay = torch.empty((5, n), dtype=torch.float32, device=dev)
-    fn = build.function("tpurt_bvh8_closest_uvp", [ctypes.c_void_p] * 5
-                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int]
-                        + [ctypes.c_void_p] * 6)
-    p = build.ptr
-    build.check(fn(p(scene["nodes8"]), p(scene["tris"]), p(scene["uvp"]),
-                   p(origin), p(direction), float(t_min), p(t_max), n, p(t),
-                   p(tri), p(u), p(v), p(pay), build.stream_of(origin)),
-                name)
-    build.launch_counts["bvh8_closest_uvp"] += 1
-    return dict(t=t, tri=tri, u=u, v=v, **dict(zip(PAYLOAD_KEYS,
-                                                   pay.unbind(0))))
 
 
 def _multi_inputs(origin, dirs, t_maxs):
@@ -596,14 +580,13 @@ def trace_closest_plain(scene, origin, direction, t_min, t_max,
     with count_steps or another push_order) on any device. `stats`, a dict,
     gets the traversal work (see count_work), the entries dropped unread
     (see count_dropped) and the deepest stack (max_stack). It reads the
-    compact table nodes8c as K1, K7a and K7b do, the nodes8 rows with the
-    payload as K7c does."""
+    compact table nodes8c as the kernels do."""
     n = origin.shape[0]
     return _trace_plain(scene, origin, direction, float(t_min),
                         _t_max_tensor(t_max, n, origin), any_hit=False,
                         pops=2 if pop2 else 1, uv_payload=uv_payload,
                         stats=stats, count_steps=count_steps,
-                        order=push_order, compact=not uv_payload)
+                        order=push_order, compact=True)
 
 
 def trace_any_plain(scene, origin, direction, t_min, t_max, stats=None,

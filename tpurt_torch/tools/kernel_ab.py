@@ -3,8 +3,9 @@ with its noise table K3h where the checkout has one), K4 (GTAO denoise),
 K5 and K5p (the fused multi-light any hit, one and two pops), K6
 (binary-BVH closest and any hit) and K7a, K7b, K7c (the BVH8 traversal's
 counted, two-pop and uv-payload variants) of several checkouts of the port
-on one card, in turns, on the bench scene at 800x800 and 1920x1080,
-through the public entry points every checkout has.
+on one card, in turns, on the bench scene at 800x800 and 1920x1080, and P1
+(the transcendental probe's kernel) on the probe's noise planes, through
+the public entry points every checkout has.
 
     python tpurt_torch/tools/kernel_ab.py --repo PARENT --repo . \\
         --repo . --repo PARENT [--out PATH]
@@ -28,8 +29,8 @@ checkout's tpurt_torch, builds its kernels and times on the card alone
 * K7a, K7b, K7c: trace_closest_bvh8(..., count_steps=True / pop2=True /
   uv_payload=True) on the camera rays and trace_any_bvh8(...,
   count_steps=True, push_order="sort" / pop2=True) on each light's shadow
-  rays (3 launches, summed), the rays in consecutive blocks; K7a and K7b
-  also with the frame's shape (height=, width=; pixel tiles where the
+  rays (3 launches, summed), the rays in consecutive blocks; K7a, K7b and
+  K7c also with the frame's shape (height=, width=; pixel tiles where the
   checkout's kernels take them, consecutive rays where they do not);
 * K3: gtao_main at the frame's preset (ULTRA 9x3) on the frame's depth
   pyramid and G-buffer, every launch of it (chip_smoke.py times K3h and
@@ -42,14 +43,18 @@ checkout's tpurt_torch, builds its kernels and times on the card alone
   the bench animation's last pose (rotation_frames(transforms, 8)[-1]),
   the rays in consecutive blocks (the rebuild frame passes its shape as
   well, for pixel tiles: chip_smoke.py times both);
+* P1: trans_equiv(planes, sdp, 9, 3) on tools/trans_equiv_probe's noise
+  planes, once per checkout, beside the card-only timer's floor (an empty
+  kernel, torch.cuda._sleep(0), timed the same way); its outputs at 9x3
+  and at 1x2, 2x2 and 3x3 hashed;
 
 and reports the ptxas registers, stack frame and spills of each kernel it
 built (those of csrc/bvh8_multi.cu also on stderr, one line per
 checkout), hashes of the closest hits, the occlusion masks, K5's and K5p's
-masks, the AO and edges, the denoised AO, K6's hits and masks and of one
-rendered frame (so the versions can be held equal bit for bit), and the
-card's name and power limit. It prints one JSON object and writes it to
---out when given.
+masks, the AO and edges, the denoised AO, K6's hits and masks, P1's rows
+and one rendered frame (so the versions can be held equal bit for bit),
+and the card's name and power limit. It prints one JSON object and writes
+it to --out when given.
 """
 from __future__ import annotations
 
@@ -112,6 +117,7 @@ def child(repo: str) -> dict:
     from tpurt_torch.kernels import gtao_main as k3
     from tpurt_torch.kernels.build import device_ms
     from tpurt_torch.kernels.gtao_denoise import denoise_chain
+    from tpurt_torch.kernels.trans_equiv import trans_equiv
     from tpurt_torch.kernels.traverse_bvh2 import (trace_any_bvh2,
                                                    trace_closest_bvh2)
     from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
@@ -122,12 +128,20 @@ def child(repo: str) -> dict:
     from tpurt_torch.passes.gtao import noise_maps_64, prefilter_depths
     from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
     from tpurt_torch.passes.shade import SHADOW_T_MIN, shade, shadow_rays
+    from tpurt_torch.tools import trans_equiv_probe as probe
 
     t0 = time.perf_counter()
     build.get_lib()
     out = dict(repo=repo, build_s=time.perf_counter() - t0,
                ptxas=ptxas_report(build.build_log),
                sizes={})
+    planes = probe.noise_planes().cuda()
+    p1 = [trans_equiv(planes, probe.SDP, *counts) for counts in (
+        (probe.SLICES, probe.STEPS), (1, 2), (2, 2), (3, 3))]
+    out.update(p1_ms=device_ms(lambda: trans_equiv(
+        planes, probe.SDP, probe.SLICES, probe.STEPS), 20),
+        timer_floor_ms=device_ms(lambda: torch.cuda._sleep(0), 20),
+        p1_digest=_digest(*p1))
     for w, h in SHAPES:
         r = build_bench_scene(Renderer(RendererConfig(width=w, height=h,
                                                       device="cuda")))
@@ -143,14 +157,15 @@ def child(repo: str) -> dict:
             occ.append(trace_any_bvh8(scene, so, sd, SHADOW_T_MIN, st))
             res["k2_ms"] += device_ms(lambda: trace_any_bvh8(
                 scene, so, sd, SHADOW_T_MIN, st))
-        # K7a "sort" counted (PERF.md's K7a rows), K7b, K7c; K7a and K7b
-        # also with the frame's shape
+        # K7a "sort" counted (PERF.md's K7a rows), K7b, K7c; each also
+        # with the frame's shape
         k7 = {}
         frame = dict(height=h, width=w)
         counted = dict(count_steps=True, push_order="sort")
         for key, kw in (("k7a", counted), ("k7b", dict(pop2=True)),
                         ("k7c", dict(uv_payload=True)),
                         ("k7a_tiles", dict(counted, **frame)),
+                        ("k7c_tiles", dict(uv_payload=True, **frame)),
                         ("k7b_tiles", dict(pop2=True, **frame))):
             k7[key] = trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, **kw)
             res[f"{key}_ms"] = device_ms(lambda: trace_closest_bvh8(
