@@ -71,6 +71,18 @@ once, at 64x64):
            default frame's
            (bit-identical for the payload and fused frames, >= 99.9% equal
            and <= 0.1% off by > 2 for the two-pop frames).
+  phase 9  the ground-truth path, before phase 8's profilers: the
+           anti-aliased frame (RendererConfig.spp = 4: K1 4, K2 12, K3h,
+           K3 and K4 1 each), accumulate_samples of 8 samples (K1 1 and K2
+           3 per sample) and rtao_frame with 4 samples (K1 1, K2 4), each
+           with its launches checked on one call and timed by the host wall
+           clock and the card-only timer. Once, at 64x64, the same on the
+           card against the plain versions on the host: the spp frame and
+           the mean of 4 accumulation samples from one seed (as u8) at
+           phase 3's bars, an RTAO frame from one CPU generator seeded
+           alike (hit masks equal, visibility equal on >= 99.5% of hit
+           pixels), and the frame resized to 100x60 and back at phase 3's
+           bars.
   phase 8  the diagnostics path. The steps probe
            (tpurt_torch/tools/steps_probe.py) on the frame's rays with the
            counts at 0: K7a closest 1 and K7a any 3 (one per light), over
@@ -577,6 +589,199 @@ def phase3():
     # the host's pow/cos/log2 come from another math library than the card's
     require(eq >= 0.999 and far <= 1e-3,
             "64x64 frame on the card disagrees with the host")
+
+
+GT_SPP = 4            # the anti-aliased frame's samples
+GT_SAMPLES = 8        # accumulation samples per timed call
+GT_RTAO_SAMPLES = 4   # RTAO samples per frame
+
+
+def counted_once(fn, want, what):
+    """Launches of one call of fn(), which must equal `want` (every other
+    kernel 0); returns fn's result."""
+    import torch
+
+    from tpurt_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(build.launch_counts)
+    require(counts == dict(ALL_ZERO, **want),
+            f"{what} launched {counts}, want {want}")
+    return out
+
+
+def wall_and_device_ms(fn, reps):
+    """fn()'s ms per call by the host wall clock (reps calls ending in one
+    synchronize, after one warm-up call) and by kernels/build.device_ms
+    (the card-only timer, the least of 3 runs of reps calls queued behind a
+    spin kernel; on a host-bound path it waits for the host too)."""
+    import torch
+
+    from tpurt_torch.kernels.build import device_ms
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1000.0 / reps
+    return dict(wall_ms=wall, ms=device_ms(fn, reps))
+
+
+def phase9(r, label):
+    """The ground-truth path at full width: the spp frame, accumulation
+    samples and RTAO frames, their launches and times."""
+    import torch
+
+    from tpurt_torch.engine.accumulate import (accumulate_samples,
+                                              init_accumulation)
+    from tpurt_torch.passes.rtao import rtao_frame
+
+    c = r.config
+    w, h = c.width, c.height
+    shadow = r.stats()["shadow_casting_lights"]
+    cam, lights, _ = r._frame_inputs()
+    out = {}
+
+    c.spp = GT_SPP
+    try:
+        frame = counted_once(
+            lambda: r.render(block=False),
+            dict(bvh8_closest=GT_SPP, bvh8_any=GT_SPP * shadow,
+                 gtao_noise=1, gtao_main=1, gtao_denoise=1),
+            f"[{label}] spp={GT_SPP} frame")
+        out["spp_frame"] = wall_and_device_ms(
+            lambda: r.render(block=False), 3)
+    finally:
+        c.spp = 1
+    image = frame["image"]
+    lit = float((image.amax(dim=-1) > 0).float().mean())
+    require(tuple(image.shape) == (h, w, 3) and lit > 0.2
+            and bool(torch.isfinite(frame["color"]).all()),
+            f"[{label}] spp={GT_SPP} frame is black or not finite")
+
+    empty = init_accumulation(h, w, 0)
+    empty.color_sum = empty.color_sum.to(r.device)
+
+    def accumulate():
+        return accumulate_samples(empty, r.scene_device, cam, lights,
+                                  GT_SAMPLES, width=w, height=h)
+
+    st = counted_once(accumulate, dict(bvh8_closest=GT_SAMPLES,
+                                       bvh8_any=GT_SAMPLES * shadow),
+                      f"[{label}] accumulate_samples({GT_SAMPLES})")
+    t = wall_and_device_ms(accumulate, 2)
+    out["accumulate_per_sample"] = {k: v / GT_SAMPLES for k, v in t.items()}
+    mean = st.mean
+    require(st.num_samples == GT_SAMPLES and mean.shape == (h, w, 3)
+            and bool(torch.isfinite(mean).all())
+            and float((mean.amax(dim=-1) > 1e-3).float().mean()) > 0.2,
+            f"[{label}] accumulated mean is black or not finite")
+
+    def rtao():
+        return rtao_frame(r.scene_device, cam, None, width=w, height=h,
+                          samples_per_frame=GT_RTAO_SAMPLES)
+
+    vis, valid = counted_once(rtao, dict(bvh8_closest=1,
+                                         bvh8_any=GT_RTAO_SAMPLES),
+                              f"[{label}] rtao_frame")
+    out["rtao_frame"] = wall_and_device_ms(rtao, 5)
+    hit = valid
+    occluded = float((vis[hit] < 1.0).float().mean())
+    require(float(hit.float().mean()) > 0.3 and float(vis.min()) >= 0.0
+            and float(vis.max()) <= 1.0 and bool((vis[~hit] == 1.0).all())
+            and occluded > 0.0, f"[{label}] rtao frame out of range")
+    out["rtao_occluded_share"] = occluded
+    log(f"[{label}] ground truth: spp={GT_SPP} frame "
+        f"{out['spp_frame']['wall_ms']:.3f} ms wall, "
+        f"{out['spp_frame']['ms']:.3f} ms card-only timer; "
+        f"accumulate_samples per sample "
+        f"{out['accumulate_per_sample']['wall_ms']:.3f} / "
+        f"{out['accumulate_per_sample']['ms']:.3f} ms; rtao_frame "
+        f"({GT_RTAO_SAMPLES} samples) {out['rtao_frame']['wall_ms']:.3f} / "
+        f"{out['rtao_frame']['ms']:.3f} ms; RTAO occluded share of hits "
+        f"{occluded:.4f}")
+    return out
+
+
+def images_agree(a, b, what):
+    """Phase 3's bars on two (H, W, 3) u8 images, card's and host's."""
+    import torch
+
+    a, b = a.cpu().to(torch.int32), b.cpu().to(torch.int32)
+    require(a.shape == b.shape, f"{what}: shapes {a.shape} / {b.shape}")
+    d = (a - b).abs().amax(dim=-1)
+    eq = float((d == 0).float().mean())
+    far = float((d > 2).float().mean())
+    lit = float((a.amax(-1) > 0).float().mean())
+    log(f"[ground truth] {what}, card vs host plain: equal pixels "
+        f"{eq:.4f}, off by > 2 {far:.4f}, max diff {int(d.max())}, lit "
+        f"share {lit:.4f}")
+    require(eq >= 0.999 and far <= 1e-3 and lit > 0.2,
+            f"{what} on the card disagrees with the host")
+    return dict(equal=eq, off_by_more_than_2=far, max_diff=int(d.max()))
+
+
+def phase9_small():
+    """The ground-truth path at 64x64 on the card against the plain
+    versions on the host: the spp frame, accumulation from one seed, RTAO
+    from one CPU generator seeded alike, and a resize and back."""
+    import torch
+
+    from tpurt_torch.engine.accumulate import (accumulate_samples,
+                                              init_accumulation)
+    from tpurt_torch.passes.encodings import pack_unorm8
+    from tpurt_torch.passes.rtao import rtao_frame
+
+    rs = {dev: build_renderer(64, 64, dev) for dev in ("cuda", "cpu")}
+    out = {}
+    for r in rs.values():
+        r.config.spp = GT_SPP
+    out["spp_frame"] = images_agree(*(rs[d].render()["image"]
+                                      for d in ("cuda", "cpu")),
+                                    f"64x64 spp={GT_SPP} frame")
+    for r in rs.values():
+        r.config.spp = 1
+
+    means, rtaos = [], []
+    for dev in ("cuda", "cpu"):
+        r = rs[dev]
+        cam, lights, _ = r._frame_inputs()
+        st = accumulate_samples(init_accumulation(64, 64, 3), r.scene_device,
+                                cam, lights, 4, width=64, height=64)
+        means.append(st.mean)
+        rtaos.append(rtao_frame(r.scene_device, cam,
+                                torch.Generator().manual_seed(5), width=64,
+                                height=64,
+                                samples_per_frame=GT_RTAO_SAMPLES))
+    out["accumulate"] = images_agree(
+        *(pack_unorm8(torch.clamp(m, 0.0, 1.0)) for m in means),
+        "64x64 mean of 4 accumulation samples")
+    out["accumulate"]["max_abs_hdr"] = float(
+        (means[0].cpu() - means[1]).abs().max())
+    (vis_c, valid_c), (vis_h, valid_h) = rtaos
+    valid_c, vis_c = valid_c.cpu(), vis_c.cpu()
+    require(torch.equal(valid_c, valid_h), "RTAO hit masks differ")
+    eq = float((vis_c[valid_h] == vis_h[valid_h]).float().mean())
+    log(f"[ground truth] 64x64 rtao_frame, card vs host plain from one CPU "
+        f"generator: "
+        f"hit masks equal, visibility equal on {eq:.4f} of hit pixels")
+    require(eq >= 0.995, "RTAO on the card disagrees with the host")
+    out["rtao_equal_share"] = eq
+
+    for size, what in (((100, 60), "frame resized to 100x60"),
+                       ((64, 64), "frame resized back to 64x64")):
+        for r in rs.values():
+            r.resize(*size)
+        imgs = [rs[d].render()["image"] for d in ("cuda", "cpu")]
+        require(tuple(imgs[0].shape) == (size[1], size[0], 3),
+                f"{what}: shape {tuple(imgs[0].shape)}")
+        out[what] = images_agree(*imgs, what)
+    return out
 
 
 def bits_equal(a, b):
@@ -1457,12 +1662,15 @@ def main():
             k.update(phase7_kernels(r, label))
             var = phase7_frames(r, label)
             k.update(phase8_kernels(r, label))
+            gt = phase9(r, label)
             prof = phase8_profile(r, label)
             results[label] = dict(kernels=k, frame=f, dynamic=dyn,
-                                  variants=var, profile=prof)
+                                  variants=var, profile=prof,
+                                  ground_truth=gt)
             renderers[label] = r
         phase3()
         phase6()
+        gt_small = phase9_small()
         # torch.profiler last: launches after it run slower (PERF.md)
         for label, r in renderers.items():
             phase8_device(r, label, results[label]["profile"])
@@ -1501,6 +1709,10 @@ def main():
                                   for k, v in results.items()},
                         dynamic={k: v["dynamic"]
                                  for k, v in results.items()},
+                        ground_truth=dict(
+                            {k: v["ground_truth"]
+                             for k, v in results.items()},
+                            card_vs_host_64=gt_small),
                         lbvh={k: v["kernels"]["lbvh"]
                               for k, v in results.items()},
                         profile={k: v["profile"] for k, v in results.items()},

@@ -74,8 +74,9 @@ def test_renderer_surface(frames):
     s, rs = port_r.stats(), ref_r.stats()
     for k in ("resolution", "rays_per_frame", "lights",
               "shadow_casting_lights", "models", "device_resident_models",
-              "tris", "primitives"):
+              "tris", "primitives", "bvh_nodes", "gtao"):
         assert s[k] == rs[k], k
+    assert s["gtao"]["bent_normals"] is False
     assert s["tracer_tier"] == "bvh8" and s["device"] == "cpu"
     img = port_r.render_image()
     assert isinstance(img, np.ndarray) and img.shape == (SIZE, SIZE, 3)

@@ -4,7 +4,9 @@ import, and 32x32 CPU frames render through Renderer.render() and
 Renderer.render_dynamic() (refit and rebuild), as do a fused-shadow frame
 with two pops and a uv-payload frame, and the diagnostics (the profiler,
 render_stream, FrameTimer, the steps and transcendental probes, a counted
-trace). Each check runs in a fresh subprocess: the test session itself has
+trace) and the ground-truth path (an spp frame, a resize, accumulation
+with a checkpoint round trip, an RTAO frame, the image metrics). Each
+check runs in a fresh subprocess: the pytest process itself has
 both packages loaded.
 """
 import os
@@ -79,6 +81,38 @@ CHECKS = {
         assert "uvp" in r.scene_device
         assert torch.equal(uvp, base) and int(fused.max()) > 0
         assert (fused.int() - base.int()).abs().max() <= 2
+    """,
+    "ground_truth": """
+        import os
+        import tempfile
+        import numpy as np
+        import torch
+        from tpurt_torch.app.bench_scene import build_bench_scene
+        from tpurt_torch.engine import Renderer, RendererConfig
+        from tpurt_torch.engine import accumulate
+        from tpurt_torch.passes.rtao import rtao_frame
+        from tpurt_torch.utils import image_metrics
+        r = build_bench_scene(Renderer(RendererConfig(
+            width=32, height=32, device="cpu", spp=3)),
+            field=dict(nx=2, nz=2, subdiv=1), cubes=2)
+        aa = r.render()["image"]
+        r.resize(40, 24)
+        assert r.render()["image"].shape == (24, 40, 3)
+        r.resize(32, 32)
+        cam, lights, _ = r._frame_inputs()
+        st = accumulate.accumulate_samples_scan(
+            accumulate.init_accumulation(32, 32, 1), r.scene_device, cam,
+            lights, 2, width=32, height=32)
+        with tempfile.TemporaryDirectory() as d:
+            accumulate.save_checkpoint(os.path.join(d, "a"), st)
+            back = accumulate.load_checkpoint(os.path.join(d, "a"))
+        assert back.num_samples == 2
+        assert torch.equal(back.color_sum, st.color_sum)
+        vis, valid = rtao_frame(r.scene_device, cam,
+                                torch.Generator().manual_seed(0),
+                                width=32, height=32)
+        assert vis.shape == (32, 32) and bool(valid.any())
+        assert image_metrics.psnr(aa.numpy(), aa.numpy()) == float("inf")
     """,
     "diagnostics": """
         import torch

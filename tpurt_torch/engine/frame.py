@@ -23,15 +23,22 @@ tpurt's frame never fuses the shadow traces; ``render_frame_fused`` (one
 K5 launch for all lights) composes the same passes with
 ``shade(fuse_shadows=True)``, as tpurt's ``tools/shadow_fusion_probe.py``
 composes its fused frame.
+
+``spp > 1`` is tpurt's anti-aliased frame: R2-jittered samples (K1 once
+and K2 once per shadow-casting light each), their HDR colors averaged,
+GTAO on the center sample's G-buffer. ``render_gbuffer`` also traces a
+band of rows, and ``render_sample_hdr`` is one jittered sample of the
+ground-truth accumulation (``engine/accumulate.py``).
 """
 from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from ..kernels.traverse_bvh8 import trace_closest_bvh8
-from ..passes.encodings import (pack_unorm8, quantize_r11g11b10f,
+from ..passes.encodings import (divide, pack_unorm8, quantize_r11g11b10f,
                                 quantize_r16f)
 from ..passes.gtao import GtaoSettings, ao_visibility_u8, compute_ao
 from ..passes.rays import T_MAX, T_MIN, camera_rays
@@ -80,19 +87,85 @@ def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
     return dict(image=image, color=color, depth=depth, normal=normal, ao=ao)
 
 
+def _aa_jitters(spp: int) -> np.ndarray:
+    """The R2 sub-pixel offsets of the anti-aliased frame, (spp, 2) f32:
+    the plastic-constant sequence in float64, cast to f32, sample 0 at the
+    pixel center (so spp=1 is the reference's frame)."""
+    g = 1.32471795724474602596  # plastic constant (2-D R2 sequence)
+    a1, a2 = 1.0 / g, 1.0 / (g * g)
+    idx = np.arange(spp, dtype=np.float64)
+    jit = np.stack([np.mod(0.5 + a1 * idx, 1.0) - 0.5,
+                    np.mod(0.5 + a2 * idx, 1.0) - 0.5], axis=1)
+    jit[0] = 0.0
+    return jit.astype(np.float32)
+
+
+# tpurt unrolls up to this many samples and scans the rest (one compiled
+# program at any spp); eager PyTorch runs every spp as the same loop, with
+# the same sums
+SPP_UNROLL = 4
+
+
+def _gbuffer(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
+             *, width: int, height: int, row_start: int = 0, num_rows=None,
+             spp: int = 1, step=no_step) -> dict:
+    """render_gbuffer, with the frame's shadow fusion and step wrapper: the
+    spp samples' rays run in the "rays" step, their traces in "trace" and
+    their shading and color sum in "shade"."""
+    band = height if num_rows is None else num_rows
+    jitters = [None] + [(float(jx), float(jy))
+                        for jx, jy in _aa_jitters(spp)[1:]]
+    with step("rays"):
+        rays = [camera_rays(camera, width, height, row_start, num_rows,
+                            jitter=jit) for jit in jitters]
+    with step("trace"):
+        hits = [trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, height=band,
+                                   width=width) for o, d in rays]
+    with step("shade"):
+        kw = dict(fuse_shadows=fuse_shadows, height=band, width=width)
+        g = shade(scene, camera, lights, hits[0], **kw)
+        if spp > 1:
+            acc = g["color"]
+            for h in hits[1:]:
+                acc = acc + shade(scene, camera, lights, h, **kw)["color"]
+            g = dict(g, color=divide(acc, spp))
+    return g
+
+
+def render_gbuffer(scene: dict, camera: dict, lights: dict, *, width: int,
+                   height: int, row_start: int = 0, num_rows=None,
+                   spp: int = 1) -> dict:
+    """Trace and shade the pixel grid, or the band of `num_rows` rows from
+    `row_start`: the unquantized G-buffer dict(color (R*W, 3), depth
+    (R*W,), normal_enc (R*W, 3)). With spp > 1 the color is the mean of
+    the R2-jittered samples, summed in tpurt's order (the center sample,
+    then samples 1..spp-1, then / spp); depth and normals come from the
+    center sample."""
+    return _gbuffer(False, scene, camera, lights, width=width,
+                    height=height, row_start=row_start, num_rows=num_rows,
+                    spp=spp)
+
+
+def render_sample_hdr(scene: dict, camera: dict, lights: dict, jitter, *,
+                      width: int, height: int):
+    """One progressive-accumulation sample: the linear HDR radiance (H, W,
+    3) f32 with the sub-pixel camera jitter `jitter` (jx, jy) in [-0.5,
+    0.5] pixels (``camera_rays``'s forms). ``engine/accumulate.py`` sums
+    these."""
+    origin, direction = camera_rays(camera, width, height, jitter=jitter)
+    hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX,
+                              height=height, width=width)
+    g = shade(scene, camera, lights, hits, height=height, width=width)
+    return g["color"].reshape(height, width, 3)
+
+
 def _frame(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
            gtao: dict, lpm: dict, noise_index: int, *, width: int,
            height: int, gtao_settings: GtaoSettings = GtaoSettings(),
            enable_gtao: bool = True, enable_tonemap: bool = True,
-           step=no_step) -> dict:
-    with step("rays"):
-        origin, direction = camera_rays(camera, width, height)
-    with step("trace"):
-        hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX,
-                                  height=height, width=width)
-    with step("shade"):
-        g = shade(scene, camera, lights, hits, fuse_shadows=fuse_shadows,
-                  height=height, width=width)
+           spp: int = 1, step=no_step) -> dict:
+    g = _gbuffer(fuse_shadows, scene, camera, lights, width=width,
+                 height=height, spp=spp, step=step)
     return finish_frame(g, gtao, lpm, noise_index, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,
@@ -101,12 +174,15 @@ def _frame(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
 
 def render_frame(*args, **kwargs) -> dict:
     """Render one frame: (scene, camera, lights, gtao, lpm, noise_index, *,
-    width, height, gtao_settings, enable_gtao, enable_tonemap, step) -> the
-    outputs of ``finish_frame``."""
+    width, height, gtao_settings, enable_gtao, enable_tonemap, spp, step)
+    -> the outputs of ``finish_frame``. spp > 1 averages R2-jittered HDR
+    samples (``render_gbuffer``); GTAO reads the center sample's depth and
+    normals."""
     return _frame(False, *args, **kwargs)
 
 
 def render_frame_fused(*args, **kwargs) -> dict:
     """``render_frame`` with every light's shadow rays in one fused trace
-    (``shade(fuse_shadows=True)``); the same image bit for bit."""
+    (``shade(fuse_shadows=True)``) per sample; the same image bit for
+    bit."""
     return _frame(True, *args, **kwargs)

@@ -44,6 +44,8 @@ class RendererConfig:
     lpm: LpmParams = field(default_factory=LpmParams)
     enable_gtao: bool = True
     enable_tonemap: bool = True
+    # anti-aliasing samples per pixel (R2-jittered; 1 = the reference)
+    spp: int = 1
     device: str = "cuda"
 
 
@@ -127,6 +129,15 @@ class Renderer:
 
     # -- frame loop -----------------------------------------------------------
 
+    def resize(self, width: int, height: int):
+        """Render the next frames at `width` x `height` (tpurt's resize).
+        What depends on the frame size follows: the camera's aspect, and
+        with it the camera and GTAO-constant tensors, which re-upload
+        because their host values change; no other state holds a size."""
+        self.config.width = width
+        self.config.height = height
+        self.camera.set_aspect(width / height)
+
     def _frame_inputs(self):
         """The camera, light and GTAO-constant tensors of this frame."""
         c = self.config
@@ -156,7 +167,8 @@ class Renderer:
         return render_frame(self._scene_device, cam, lights, gtao, self._lpm,
                             noise_index, width=c.width, height=c.height,
                             gtao_settings=c.gtao, enable_gtao=c.enable_gtao,
-                            enable_tonemap=c.enable_tonemap, step=step)
+                            enable_tonemap=c.enable_tonemap, spp=c.spp,
+                            step=step)
 
     def render(self, block: bool = True) -> dict:
         """Render one frame; returns the output dict of device tensors."""
@@ -257,6 +269,7 @@ class Renderer:
             1 for light in self.lights.all_lights() if light.casts_shadows)
         out = dict(
             resolution=(c.width, c.height),
+            # tpurt's count, which leaves spp out (ROADMAP F17)
             rays_per_frame=c.width * c.height * (1 + shadow_lights),
             lights=self.lights.get_lights_count(),
             shadow_casting_lights=shadow_lights,
@@ -265,11 +278,13 @@ class Renderer:
             device_resident_models=sum(
                 1 for m in self.models if m.is_device_resident()),
             gtao=dict(slices=c.gtao.slice_count, steps=c.gtao.steps_per_slice,
-                      denoise=c.gtao.denoise),
+                      denoise=c.gtao.denoise,
+                      bent_normals=c.gtao.bent_normals),
             device=str(self.device),
         )
         if self._scene is not None:
             out.update(tris=int(self._scene.geom["v0"].shape[0]),
+                       bvh_nodes=int(self._scene.bvh["aabb_min"].shape[0]),
                        bvh8_nodes=int(self._scene.bvh["nodes8"].shape[0]),
                        bvh8_depth=self._scene_device["depth8"],
                        primitives=self._scene.num_prims,
