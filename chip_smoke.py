@@ -83,6 +83,19 @@ once, at 64x64):
            alike (hit masks equal, visibility equal on >= 99.5% of hit
            pixels), and the frame resized to 100x60 and back at phase 3's
            bars.
+  phase 10 the GTAO variants and the output libraries, after phase 9:
+           >= 5 frames each through Renderer.render() with bent normals,
+           precision "half", "fp16" and bent + fp16 (launches per frame:
+           K1 1, K2 3, the variant's K3h, K3 and K4 1 each, no exact one;
+           ms/frame; finite, lit images; bent_normals (H, W, 3) finite);
+           each variant's instantiation against its plain version on that
+           frame's G-buffer (K3 edges equal, AO within 1 u8 step, per byte
+           of the packed term, on <= 0.1% of pixels; K3h's fp16 table
+           and the K4 variants bit-exact), timed by the
+           card-only timer beside the exact K3/K4 of phase 1; the default
+           frame's checksum after the variants equal to phase 2's;
+           gtao_debug_image in its three modes; tonemap_frame_hdr10 on the
+           frame against the same on the host (<= 1e-4).
   phase 8  the diagnostics path. The steps probe
            (tpurt_torch/tools/steps_probe.py) on the frame's rays with the
            counts at 0: K7a closest 1 and K7a any 3 (one per light), over
@@ -175,6 +188,27 @@ KERNELS = (
     # P1, run by the transcendental probe
     ("trans_equiv", "tpurt_torch/csrc/trans_equiv.cu",
      "tools/trans_equiv_probe.py:104"),
+    # the GTAO variants' instantiations, run by phase 10's frames: K3h's
+    # fp16 table, K3 with bent normals, "half" (tpurt's Pallas precision),
+    # fp16 and bent + fp16 (tpurt computes bent and fp16 on its XLA
+    # main_pass, tpurt/passes/gtao.py:402), K4 over the packed bent term,
+    # in fp16 and both (tpurt's XLA denoise_pass, :628)
+    ("gtao_noise_fp16", "tpurt_torch/csrc/gtao_main.cu",
+     "tpurt/kernels/gtao_main_pallas.py:246"),
+    ("gtao_main_bent", "tpurt_torch/csrc/gtao_main.cu",
+     "tpurt/kernels/gtao_main_pallas.py:317"),
+    ("gtao_main_half", "tpurt_torch/csrc/gtao_main.cu",
+     "tpurt/kernels/gtao_main_pallas.py:392"),
+    ("gtao_main_fp16", "tpurt_torch/csrc/gtao_main.cu",
+     "tpurt/kernels/gtao_main_pallas.py:317"),
+    ("gtao_main_bent_fp16", "tpurt_torch/csrc/gtao_main.cu",
+     "tpurt/kernels/gtao_main_pallas.py:317"),
+    ("gtao_denoise_bent", "tpurt_torch/csrc/gtao_denoise.cu",
+     "tpurt/kernels/gtao_pallas.py:131"),
+    ("gtao_denoise_fp16", "tpurt_torch/csrc/gtao_denoise.cu",
+     "tpurt/kernels/gtao_pallas.py:131"),
+    ("gtao_denoise_bent_fp16", "tpurt_torch/csrc/gtao_denoise.cu",
+     "tpurt/kernels/gtao_pallas.py:131"),
 )
 # the frames whose launches each new kernel's summary entry reports
 VARIANT_OF = {"bvh8_any_multi": "fused", "bvh8_any_multi_pop2": "fused_pop2",
@@ -183,8 +217,12 @@ VARIANT_OF = {"bvh8_any_multi": "fused", "bvh8_any_multi_pop2": "fused_pop2",
 ALL_ZERO = {name: 0 for name, _, _ in KERNELS}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) ops/s
+# and fp16 outside the tensor cores, twice the fp32 rate (the H100
+# whitepaper's SXM5 table: 133.8 TFLOP/s), the rate of the fp16 variants'
+# lpfloat operations
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_FP16_PER_S = 134e12
 # operations per unit of work, counted in the CUDA sources (each float add,
 # multiply, divide, min/max, compare, conversion and special function = 1)
 OPS_SLAB = 25          # one slab test (bvh8_common.cuh slab_t + 6 planes)
@@ -193,13 +231,49 @@ OPS_RAY = 3            # the reciprocal direction
 OPS_BVH8_NODE = 8 * OPS_SLAB
 OPS_BVH2_NODE = 2 * OPS_SLAB + 1
 OPS_PAYLOAD = 12       # w = 1 - u - v and the two interpolated uvs, per hit
-# gtao_main.cu's main kernel per pixel: setup 125, per slice 132, per step
-# 15, per side sample 45 (the noise-only work, TRANS_EQUIV_OPS, is K3h's);
-# gtao_denoise.cu per pixel and pass: 71 (4 symmetry products, the AO leak
-# 20, the diagonal weights 16, the 9 taps 25, the divide, the store's 5;
-# a texel's /255 and /3 are table reads)
-GTAO_MAIN_OPS = (125, 132, 15, 45)
-GTAO_DENOISE_OPS = 71
+# The GTAO kernels count also negations, abs, rint and the conversions
+# where a value crosses between f32 and f16; integer address arithmetic is
+# not counted, nor the lpfloat emulation's roundings (lp(): native f16
+# arithmetic gives the same bits as f32 and one rounding, for +, -, *, /
+# and sqrt, in one operation).
+# gtao_main.cu's main kernel (K3) per pixel, f32: setup 127 (the screen
+# position 8, the edges 64, the normal 16, the view position and vector
+# 20, the radius and visibility 8, the output 11), per slice 121 (the
+# direction 3, the slice plane 11, the axis 19, the projected normal 33,
+# its arccos 9, the low horizons 4, the arc integral 42), per step 18, per
+# side sample 51 (its position and fetch 18, the delta and its length 14,
+# the horizon 19); the noise-only work, TRANS_EQUIV_OPS, is K3h's.
+GTAO_MAIN_OPS = (127, 121, 18, 51)
+# K3 with bent normals more, f32: per pixel 52 (the rotation 17, the
+# normalization 10, the encoding 28 less the u8 store's 3), per slice 65
+# (11 sinf/cosf, their arguments 8, t0v 11 and t1v 8, the local normal 3,
+# the rotation 18, the accumulator 6); "half" 2 per side sample (the bf16
+# round trip)
+GTAO_BENT_OPS = (52, 65)
+GTAO_HALF_OPS_PER_SIDE = 2
+# K3 in fp16: the same operations, the lpfloat ones in f16, as (f32, f16):
+# setup (62, 73) (the screen position, the edges' packing, the normal's
+# decode, the view position and vector and the output stay f32, with 8
+# conversions), per slice (15, 112) (each of 3 arccos keeps its f32 tail
+# of 3 with 2 conversions), per step (4, 16) (the mip index, 2
+# conversions), per side sample (38, 19) (the position, fetch and delta
+# stay f32, with 6 conversions); with bent normals all f16 (per pixel 51:
+# the encoding's 4 byte conversions take the u8 store's place; per slice
+# 65). K3h in fp16 (f32, f16): per slice (4, 5) and per step (4, 5) (the
+# noise's and the outputs' conversions and the step base stay f32).
+GTAO_LP_OPS = ((62, 73), (15, 112), (4, 16), (38, 19))
+GTAO_BENT_LP_OPS = (51, 65)
+GTAO_NOISE_LP_OPS = ((4, 5), (4, 5))
+# gtao_denoise.cu (K4) per pixel and pass as (f32, f16), by (bent, fp16):
+# exact (71, 0) (4 symmetry products, the AO leak 20, the diagonal weights
+# 16, the 9 taps 25, the divide, the store's 5; a texel's /255 and /3 are
+# table reads); fp16 (5, 66) (the store stays f32);
+# bent normals (165, 0): 94 more (3 more channels' taps and divides 54, the
+# output 34: the visibility's scale, the normalization 10 and the encoding
+# 28 less the u8 store's 5; the decode's 6 per texel); bent + fp16 (4,
+# 161) (the encoding's byte conversions stay f32)
+GTAO_DENOISE_WORK = {(False, False): (71, 0), (False, True): (5, 66),
+                     (True, False): (165, 0), (True, True): (4, 161)}
 # trans_equiv.cu and gtao_main.cu's noise kernel (K3h) per element: per
 # slice 5 (add, divide, multiply, cos, sin), per step 8 (3 for the step's
 # base, add, fmod, add, divide, pow)
@@ -261,12 +335,31 @@ def fmt_ms(t):
     return f"{t['ms']:.4f} ms (cuda_ms {t['cuda_ms']:.4f})"
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops16=0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the fp32 rate."""
+    the operations' time, f32 ones over the fp32 rate and f16 ones
+    (`ops16`) over the fp16 rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    t_ops = (ops / PEAK_FP32_PER_S + ops16 / PEAK_FP16_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gtao_main_work(slices, steps, bent, precision):
+    """K3's (f32, f16) operations per pixel in one instantiation."""
+    def per_pixel(c):
+        return c[0] + slices * (c[1] + steps * (c[2] + 2 * c[3]))
+
+    if precision == "fp16":
+        f16 = per_pixel([c[1] for c in GTAO_LP_OPS])
+        if bent:
+            f16 += GTAO_BENT_LP_OPS[0] + slices * GTAO_BENT_LP_OPS[1]
+        return per_pixel([c[0] for c in GTAO_LP_OPS]), f16
+    f32 = per_pixel(GTAO_MAIN_OPS)
+    if bent:
+        f32 += GTAO_BENT_OPS[0] + slices * GTAO_BENT_OPS[1]
+    elif precision == "half":
+        f32 += slices * steps * 2 * GTAO_HALF_OPS_PER_SIDE
+    return f32, 0
 
 
 def nbytes(*tensors):
@@ -483,8 +576,7 @@ def phase1(r, label):
     log(f"[{label}] K3h {fmt_ms(t_h)}; K3 {fmt_ms(t_k3)}; gtao_main (both "
         f"launches) {fmt_ms(t_all)}; plain {plain_ms:.2f} ms (table "
         f"{plain_h_ms:.2f})")
-    setup, per_slice, per_step, per_side = GTAO_MAIN_OPS
-    px_ops = setup + st[0] * (per_slice + st[1] * (per_step + 2 * per_side))
+    px_ops = gtao_main_work(*st, False, "exact")[0]
     b_ms, b_by = bound(nbytes(*mips, normal, gvec, table) + 2 * w * h,
                        px_ops * w * h)
     out["gtao_main"] = dict(max_abs_err=dao_main, plain_ms=plain_ms,
@@ -525,7 +617,8 @@ def phase1(r, label):
     # per pass: AO and edges in (u8 each), the pass's output out (u8, the
     # last one int32)
     b_ms, b_by = bound(n_pass * 2 * w * h + (n_pass - 1) * w * h
-                       + 4 * w * h, n_pass * GTAO_DENOISE_OPS * w * h)
+                       + 4 * w * h, n_pass * GTAO_DENOISE_WORK[
+                           (False, False)][0] * w * h)
     out["gtao_denoise"] = dict(max_abs_err=float(dd.max()),
                                plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, **t)
@@ -569,7 +662,7 @@ def phase2(r, label):
     require(checksum > 0 and lit > 0.2, f"[{label}] frame is black")
     return dict(ms_per_frame=ms, mrays_per_s=rays / ms / 1e3,
                 rays_per_frame=rays, launches=counts, checksum=checksum,
-                lit_share=lit)
+                lit_share=lit, noise_index=(r.noise_index - 1) % 64)
 
 
 def phase3():
@@ -706,6 +799,238 @@ def phase9(r, label):
         f"{out['rtao_frame']['ms']:.3f} ms; RTAO occluded share of hits "
         f"{occluded:.4f}")
     return out
+
+
+# phase 10's variants: (name, GtaoSettings overrides) and frames per size
+GTAO_VARIANT_FRAMES = (("bent", dict(bent_normals=True)),
+                       ("half", dict(precision="half")),
+                       ("fp16", dict(precision="fp16")),
+                       ("bent_fp16", dict(bent_normals=True,
+                                          precision="fp16")))
+VARIANT_FRAME_COUNT = 5
+# tonemap_frame_hdr10 on the card against the host (PQ's pow(x, 78.84)
+# multiplies a last-bit difference of the libraries' pow by ~80)
+HDR10_ATOL = 1e-4
+
+
+def _ao_diff(a, b, bent):
+    """Per-pixel u8 differences of two AO terms (the largest over the four
+    bytes of the packed term with bent normals)."""
+    import torch
+
+    if bent:
+        a = a.contiguous().view(torch.uint8).reshape(*a.shape, 4)
+        b = b.contiguous().view(torch.uint8).reshape(*b.shape, 4)
+        return (a.int() - b.int()).abs().amax(dim=-1)
+    return (a.int() - b.int()).abs()
+
+
+def phase10(r, label, default_frame, exact_kernels):
+    """The GTAO variants and the output libraries: frames through
+    Renderer.render() with bent normals, "half", fp16 and bent + fp16
+    (launches per frame, ms/frame, outputs); each variant's K3h/K3/K4
+    instantiation against its plain version on that frame's G-buffer, timed
+    beside the exact K3/K4 at the same shapes; the default frame's hash
+    after the variants; gtao_debug_image in its three modes;
+    tonemap_frame_hdr10 on the frame against the same on the host."""
+    import dataclasses
+
+    import torch
+
+    from tpurt_torch.engine import convert
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.gtao_denoise import (count_key as dn_key,
+                                                  denoise_chain,
+                                                  denoise_pass_plain)
+    from tpurt_torch.kernels.gtao_main import (count_key, gtao_noise_table,
+                                               main_kernel, main_pass_plain,
+                                               noise_table_plain)
+    from tpurt_torch.passes.gtao import (DEBUG_MODES, noise_maps_64,
+                                         prefilter_depths)
+    from tpurt_torch.passes.tonemap import lpm_setup_hdr10, \
+        tonemap_frame_hdr10
+
+    c = r.config
+    w, h = c.width, c.height
+    shadow = r.stats()["shadow_casting_lights"]
+    _, _, gtao = r._frame_inputs()
+    default = c.gtao
+    frames, kernels = {}, {}
+    exact_ms = dict(gtao_main=exact_kernels["gtao_main"]["ms"],
+                    gtao_denoise=exact_kernels["gtao_denoise"]["ms"])
+    try:
+        for name, over in GTAO_VARIANT_FRAMES:
+            st = c.gtao = dataclasses.replace(default, **over)
+            bent, prec = st.bent_normals, st.precision
+            main_key = count_key(bent, prec)
+            noise_key = "gtao_noise_fp16" if st.fp16 else "gtao_noise"
+            den_key = dn_key(bent, st.fp16)
+            n_pass = st.num_denoise_passes
+            r.render()
+            torch.cuda.synchronize()
+            build.reset_counts()
+            t0 = time.perf_counter()
+            for _ in range(VARIANT_FRAME_COUNT):
+                out = r.render(block=False)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1000.0 / VARIANT_FRAME_COUNT
+            counts = dict(build.launch_counts)
+            n = VARIANT_FRAME_COUNT
+            want = dict(ALL_ZERO, bvh8_closest=n, bvh8_any=shadow * n,
+                        **{noise_key: n, main_key: n, den_key: n * n_pass})
+            require(counts == want, f"[{label}] {name} frames launched "
+                    f"{counts}, want {want}")
+            image = out["image"]
+            lit = float((image.amax(dim=-1) > 0).float().mean())
+            require(lit > 0.2 and all(bool(torch.isfinite(out[k]).all())
+                                      for k in ("color", "depth", "normal")),
+                    f"[{label}] {name} frame is black or not finite")
+            if bent:
+                bn = out["bent_normals"]
+                require(tuple(bn.shape) == (h, w, 3)
+                        and bool(torch.isfinite(bn).all())
+                        and float(bn.abs().amax()) > 0.5,
+                        f"[{label}] {name} bent normals")
+            else:
+                require("bent_normals" not in out, f"[{label}] {name}: "
+                        f"bent normals without the setting")
+            frames[name] = dict(ms_per_frame=ms, launches=counts,
+                                lit_share=lit,
+                                checksum=int(image.to(torch.int64).sum()))
+
+            # the instantiations on this frame's G-buffer
+            mips = prefilter_depths(out["depth"], gtao["host"],
+                                    fp16=st.fp16)
+            normal = out["normal"]
+            gvec = gtao["vec16" if st.fp16 else "vec"]
+            noise = noise_maps_64(0, r.device)
+            kw = dict(slice_count=st.slice_count,
+                      steps_per_slice=st.steps_per_slice)
+            table = gtao_noise_table(noise, gvec, fp16=st.fp16, **kw)
+            ao_k, ed_k = main_kernel(mips, normal, gvec, table, bent=bent,
+                                     precision=prec, **kw)
+            ao_p, ed_p = main_pass_plain(mips, normal, gvec, noise,
+                                         bent=bent, precision=prec, **kw)
+            torch.cuda.synchronize()
+            d = _ao_diff(ao_k, ao_p, bent)
+            frac = float((d > 0).float().mean())
+            ed_mis = int((ed_k != ed_p).sum())
+            require(ed_mis == 0 and int(d.max()) <= AO_MAX_STEP
+                    and frac <= AO_MAX_FRACTION,
+                    f"[{label}] {main_key} outside budget: max step "
+                    f"{int(d.max())}, share {frac}, edges {ed_mis}")
+            t_k3 = kernel_ms(lambda: main_kernel(
+                mips, normal, gvec, table, bent=bent, precision=prec, **kw))
+            plain_ms = cuda_ms(lambda: main_pass_plain(
+                mips, normal, gvec, noise, bent=bent, precision=prec,
+                **kw), 1)
+            ops32, ops16 = gtao_main_work(st.slice_count,
+                                          st.steps_per_slice, bent, prec)
+            b_ms, b_by = bound(nbytes(*mips, normal, gvec, table)
+                               + (4 if bent else 1) * w * h + w * h,
+                               ops32 * w * h, ops16 * w * h)
+            kernels[main_key] = dict(max_abs_err=float(d.max()),
+                                     differing_share=frac,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, launches=n, **t_k3)
+            if st.fp16 and noise_key not in kernels:
+                table_p = noise_table_plain(noise, gvec, fp16=True, **kw)
+                tab_err = float((table - table_p).abs().max())
+                # the plain version calls the same device math: equal bits
+                require(tab_err == 0.0, f"[{label}] K3h fp16 table differs "
+                        f"from plain by {tab_err}")
+                t_h = kernel_ms(lambda: gtao_noise_table(
+                    noise, gvec, fp16=True, **kw))
+                (sl32, sl16), (st32, st16) = GTAO_NOISE_LP_OPS
+                el = noise[0].numel() * st.slice_count
+                b_ms, b_by = bound(nbytes(noise, gvec, table),
+                                   el * (sl32 + st.steps_per_slice * st32),
+                                   el * (sl16 + st.steps_per_slice * st16))
+                kernels[noise_key] = dict(
+                    max_abs_err=tab_err, launches=n, plain_ms=cuda_ms(
+                        lambda: noise_table_plain(noise, gvec, fp16=True,
+                                                  **kw), 3),
+                    bound_ms=b_ms, bound_by=b_by, **t_h)
+
+            if bent or st.fp16:
+                def plain_chain():
+                    a = ao_k
+                    for i in range(n_pass):
+                        final = i == n_pass - 1
+                        a = denoise_pass_plain(
+                            a, ed_k, st.denoise_blur_beta if final
+                            else st.denoise_blur_beta / 5.0, final,
+                            bent=bent, fp16=st.fp16)
+                    return a
+
+                dkw = dict(n_passes=n_pass, blur_beta=st.denoise_blur_beta,
+                           bent=bent, fp16=st.fp16)
+                dk = denoise_chain(ao_k, ed_k, **dkw)
+                dp = plain_chain()
+                torch.cuda.synchronize()
+                dmis = int((dk != dp).sum())
+                require(dmis == 0, f"[{label}] {den_key} differs from "
+                        f"plain on {dmis} pixels")
+                t_k4 = kernel_ms(lambda: denoise_chain(ao_k, ed_k, **dkw),
+                                 20)
+                ops32, ops16 = GTAO_DENOISE_WORK[(bent, st.fp16)]
+                term = 4 if bent else 1
+                b_ms, b_by = bound(n_pass * (term + 1) * w * h
+                                   + (n_pass - 1) * term * w * h
+                                   + 4 * w * h, n_pass * ops32 * w * h,
+                                   n_pass * ops16 * w * h)
+                kernels[den_key] = dict(max_abs_err=float(dmis),
+                                        plain_ms=cuda_ms(plain_chain, 3),
+                                        bound_ms=b_ms, bound_by=b_by,
+                                        launches=n * n_pass, **t_k4)
+            log(f"[{label}] {name} frames {n}: launches {counts}, "
+                f"{ms:.3f} ms/frame, lit share {lit:.4f}; {main_key} "
+                f"{fmt_ms(t_k3)} (exact K3 {exact_ms['gtao_main']:.4f} ms), "
+                f"max step {int(d.max())}, differing {frac:.6f}, plain "
+                f"{plain_ms:.2f} ms"
+                + (f"; {den_key} {fmt_ms(kernels[den_key])} (exact K4 "
+                   f"{exact_ms['gtao_denoise']:.4f} ms), bit-exact"
+                   if den_key in kernels else ""))
+    finally:
+        c.gtao = default
+
+    # the default frame after the variants: phase 2's bits
+    again = r.render_passes(default_frame["noise_index"])["image"]
+    checksum = int(again.to(torch.int64).sum())
+    require(checksum == default_frame["checksum"], f"[{label}] default "
+            f"frame checksum {checksum} != phase 2's "
+            f"{default_frame['checksum']}")
+
+    frame = r.render()
+    debug = {}
+    for mode in DEBUG_MODES:
+        want = dict(gtao_noise=1, gtao_main=1) if mode == "ao" else {}
+        img = counted_once(lambda: r.gtao_debug_image(mode, out=frame),
+                           want, f"[{label}] gtao_debug_image({mode!r})")
+        require(tuple(img.shape) == (h, w, 4) and img.dtype == torch.float16
+                and bool(torch.isfinite(img).all())
+                and float(img[..., :3].float().mean()) > 0.0,
+                f"[{label}] gtao_debug_image({mode!r})")
+        debug[mode] = float(img[..., :3].float().mean())
+
+    derived = lpm_setup_hdr10()[1]
+    on_card = tonemap_frame_hdr10(frame["color"], frame["ao"],
+                                  convert.lpm_tensors(derived, r.device))
+    on_host = tonemap_frame_hdr10(frame["color"].cpu(), frame["ao"].cpu(),
+                                  convert.lpm_tensors(derived, "cpu"))
+    hdr_err = float((on_card.cpu() - on_host).abs().max())
+    require(hdr_err <= HDR10_ATOL and bool(torch.isfinite(on_card).all())
+            and float(on_card.max()) > 0.0,
+            f"[{label}] tonemap_frame_hdr10: card vs host {hdr_err}")
+    hdr_ms = cuda_ms(lambda: tonemap_frame_hdr10(
+        frame["color"], frame["ao"], convert.lpm_tensors(derived, r.device)),
+        5)
+    log(f"[{label}] default frame after the variants: checksum {checksum} "
+        f"(phase 2's); gtao_debug_image mean rgb {debug}; "
+        f"tonemap_frame_hdr10 card vs host max abs {hdr_err:.3g} (<= "
+        f"{HDR10_ATOL}), {hdr_ms:.3f} ms")
+    return dict(frames=frames, kernels=kernels, debug_image_mean=debug,
+                hdr10=dict(max_abs_err=hdr_err, ms=hdr_ms))
 
 
 def images_agree(a, b, what):
@@ -1645,7 +1970,13 @@ def main():
     log("ptxas K5: " + json.dumps(
         [k for k in report if "bvh8_any_multi_kernel" in k["kernel"]]))
     log("ptxas K7a and K7b: " + json.dumps(
-        [k for k in report if "_variant_kernel" in k["kernel"]]))
+        [k for k in report if "_variant_kernel" in k["kernel"]
+         and "bvh8" in k["kernel"]]))
+    # K3h and K3 in each instantiation (template <slices, steps, bent,
+    # half, lp>); K4's (<bent, lp, final>) are on the K1 and K4 line
+    log("ptxas K3h and K3: " + json.dumps(
+        [k for k in report if "gtao_main_kernel" in k["kernel"]
+         or "gtao_noise_kernel" in k["kernel"]]))
 
     results, renderers = {}, {}
     try:
@@ -1663,10 +1994,12 @@ def main():
             var = phase7_frames(r, label)
             k.update(phase8_kernels(r, label))
             gt = phase9(r, label)
+            gv = phase10(r, label, f, k)
+            k.update(gv["kernels"])
             prof = phase8_profile(r, label)
             results[label] = dict(kernels=k, frame=f, dynamic=dyn,
                                   variants=var, profile=prof,
-                                  ground_truth=gt)
+                                  ground_truth=gt, gtao_variants=gv)
             renderers[label] = r
         phase3()
         phase6()
@@ -1742,6 +2075,15 @@ def main():
                             for k, v in results.items()},
                         timer_floor_ms={
                             k: v["kernels"]["trans_equiv"]["timer_floor_ms"]
+                            for k, v in results.items()},
+                        gtao_variants={
+                            k: {key: v["gtao_variants"][key] for key in
+                                ("frames", "debug_image_mean", "hdr10")}
+                            for k, v in results.items()},
+                        k3_variant_shares={
+                            k: {name: v["kernels"][name].get(
+                                "differing_share") for name, _, _ in KERNELS
+                                if name.startswith("gtao_main_")}
                             for k, v in results.items()},
                         k3_with_noise_table={
                             k: v["kernels"]["gtao_main"]["with_noise_table"]

@@ -23,7 +23,10 @@ probe's 9x3, and 1x2, 2x2 and 3x3); the LBVH, its
 nodes2c and the BVH8 refit built on the card equal to the same built on
 the host; K3 edges
 equal and AO within 1 u8 step on <= 0.1% of pixels (each preset's
-compile-time instantiation and a generic count). The frame on the card
+compile-time instantiation and a generic count); the GTAO variants' K3
+instantiations (bent normals, "half", fp16, bent + fp16) the same, per
+byte of the packed term, with K3h's fp16 table bit-exact, and K4's
+(bent, fp16, bent + fp16) bit-exact. The frame on the card
 against the plain frame on the host:
 equal on >= 99.9% of pixels, <= 0.1% off by more than 2.
 """
@@ -786,6 +789,104 @@ def test_gtao_main_with_noise_table(cuda_frame, preset):
                  .abs().max()) <= ATOL_TRIG
     alone = main_kernel(mips, out["normal"], gtao["vec"], table, **kw)
     assert torch.equal(alone[0], ao_k) and torch.equal(alone[1], ed_k)
+
+
+GTAO_VARIANTS = [(True, "exact"), (False, "half"), (False, "fp16"),
+                 (True, "fp16")]
+
+
+def _bytes_diff(a, b, bent):
+    """Per-pixel u8 differences of two AO terms: the largest over the four
+    bytes of the packed term with bent normals."""
+    if bent:
+        a = a.contiguous().view(torch.uint8).reshape(*a.shape, 4)
+        b = b.contiguous().view(torch.uint8).reshape(*b.shape, 4)
+        return (a.int() - b.int()).abs().amax(dim=-1)
+    return (a.int() - b.int()).abs()
+
+
+@pytest.mark.parametrize("preset", [(9, 3), (4, 2)],
+                         ids=lambda p: f"{p[0]}x{p[1]}")
+@pytest.mark.parametrize("bent,precision", GTAO_VARIANTS,
+                         ids=["bent", "half", "fp16", "bent_fp16"])
+def test_gtao_main_variants(cuda_frame, bent, precision, preset):
+    """K3h + K3's variant instantiations (bent normals, "half", fp16 and
+    bent + fp16) against their plain versions on a 64x64 cut of the frame's
+    G-buffer, at ULTRA and a generic count: edges equal, the AO term within
+    1 u8 step (per byte of the packed term) on <= 0.1% of pixels; the fp16
+    table equal to its plain version bit for bit (the same device math),
+    the f32 one within ATOL_TRIG; one K3h and one K3 launch of the variant
+    per call."""
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.gtao_main import (count_key, gtao_main,
+                                               gtao_noise_table,
+                                               main_pass_plain,
+                                               noise_table_plain)
+    from tpurt_torch.kernels.trans_equiv import ATOL_TRIG
+    from tpurt_torch.passes.gtao import noise_maps_64, prefilter_depths
+
+    r = cuda_frame
+    out = r.render()
+    _, _, gtao = _inputs(r)
+    fp16 = precision == "fp16"
+    depth = out["depth"][:64, :64].contiguous()
+    normal = out["normal"][:64, :64].contiguous()
+    mips = prefilter_depths(depth, gtao["host"], fp16=fp16)
+    gvec = gtao["vec16" if fp16 else "vec"]
+    noise = noise_maps_64(7, r.device)
+    kw = dict(slice_count=preset[0], steps_per_slice=preset[1], bent=bent,
+              precision=precision)
+    build.reset_counts()
+    ao_k, ed_k = gtao_main(mips, normal, gvec, noise, **kw)
+    assert build.launch_counts == _counts(
+        **{"gtao_noise_fp16" if fp16 else "gtao_noise": 1,
+           count_key(bent, precision): 1})
+    ao_p, ed_p = main_pass_plain(mips, normal, gvec, noise, **kw)
+    assert torch.equal(ed_k, ed_p)
+    d = _bytes_diff(ao_k, ao_p, bent)
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    tkw = dict(slice_count=preset[0], steps_per_slice=preset[1], fp16=fp16)
+    table = gtao_noise_table(noise, gvec, **tkw)
+    table_p = noise_table_plain(noise, gvec, **tkw)
+    if fp16:
+        assert torch.equal(table, table_p)
+    else:
+        assert float((table - table_p).abs().max()) <= ATOL_TRIG
+
+
+@pytest.mark.parametrize("shape,passes", [((64, 64), 1), ((37, 50), 2),
+                                          ((20, 136), 2)],
+                         ids=["64x64", "37x50-2pass", "20x136-2pass"])
+@pytest.mark.parametrize("bent,fp16", [(True, False), (False, True),
+                                       (True, True)],
+                         ids=["bent", "fp16", "bent_fp16"])
+def test_denoise_variants_bit_exact(cuda_frame, bent, fp16, shape, passes):
+    """K4's variant instantiations (the packed bent-normal term, fp16 and
+    both) bit for bit against their plain versions on random AO terms and
+    packed edges, on a tile and a half with 16-byte stores too, one launch
+    of the variant per pass."""
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.gtao_denoise import (count_key, denoise_chain,
+                                                  denoise_pass_plain)
+
+    h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(h * w + passes)
+    ao = torch.randint(0, 256, (h, w, 4) if bent else (h, w), generator=g,
+                       device="cuda", dtype=torch.int32).to(torch.uint8)
+    if bent:
+        ao = ao.view(torch.int32).reshape(h, w)
+    ed = torch.randint(0, 256, (h, w), generator=g, device="cuda",
+                       dtype=torch.int32).to(torch.uint8)
+    build.reset_counts()
+    got = denoise_chain(ao, ed, n_passes=passes, blur_beta=1.2, bent=bent,
+                        fp16=fp16)
+    assert build.launch_counts == _counts(**{count_key(bent, fp16): passes})
+    want = ao
+    for i in range(passes):
+        final = i == passes - 1
+        want = denoise_pass_plain(want, ed, 1.2 if final else 1.2 / 5.0,
+                                  final, bent=bent, fp16=fp16)
+    assert torch.equal(got, want)
 
 
 def test_closest_kernel_over_compact_table(cuda_frame):

@@ -171,12 +171,17 @@ def test_cuda_device_without_card_raises():
 
 
 def test_unported_gtao_options_raise():
+    """tpurt's diagnostic precisions (wrong AO by design) stay unported and
+    raise; bent normals, "half" and "fp16" are ported."""
     from tpurt_torch.passes.gtao import GtaoSettings
 
     with pytest.raises(NotImplementedError):
-        GtaoSettings(bent_normals=True)
+        GtaoSettings(precision="debug_nofetch")
     with pytest.raises(NotImplementedError):
-        GtaoSettings(precision="fp16")
+        GtaoSettings(precision="debug_noconds")
+    for kw in (dict(bent_normals=True), dict(precision="half"),
+               dict(precision="fp16")):
+        GtaoSettings(**kw)
 
 
 def test_upload_refuses_a_bvh8_that_could_overflow_the_stack():

@@ -5,7 +5,9 @@ Renderer.render_dynamic() (refit and rebuild), as do a fused-shadow frame
 with two pops and a uv-payload frame, and the diagnostics (the profiler,
 render_stream, FrameTimer, the steps and transcendental probes, a counted
 trace) and the ground-truth path (an spp frame, a resize, accumulation
-with a checkpoint round trip, an RTAO frame, the image metrics). Each
+with a checkpoint round trip, an RTAO frame, the image metrics), the GTAO
+variants' frames with their debug images and the output libraries (HDR10,
+color spaces, legacy tonemaps, encodings, validation). Each
 check runs in a fresh subprocess: the pytest process itself has
 both packages loaded.
 """
@@ -81,6 +83,43 @@ CHECKS = {
         assert "uvp" in r.scene_device
         assert torch.equal(uvp, base) and int(fused.max()) > 0
         assert (fused.int() - base.int()).abs().max() <= 2
+    """,
+    "outputs": """
+        import dataclasses
+        import torch
+        from tpurt_torch.app.bench_scene import build_bench_scene
+        from tpurt_torch.engine import Renderer, RendererConfig, convert
+        from tpurt_torch.passes import (color_spaces, encodings,
+                                        tonemaps_legacy)
+        from tpurt_torch.passes.tonemap import (a_from_pq, lpm_setup_hdr10,
+                                                tonemap_frame_hdr10)
+        from tpurt_torch.utils import debug
+        r = build_bench_scene(Renderer(RendererConfig(
+            width=32, height=32, device="cpu")),
+            field=dict(nx=2, nz=2, subdiv=1), cubes=2)
+        base = r.config.gtao
+        for over in (dict(bent_normals=True), dict(precision="half"),
+                     dict(precision="fp16"),
+                     dict(bent_normals=True, precision="fp16")):
+            r.config.gtao = dataclasses.replace(base, **over)
+            out = r.render()
+            assert ("bent_normals" in out) == r.config.gtao.bent_normals
+            assert int(out["image"].max()) > 0
+            for mode in ("normals", "edges", "ao"):
+                img = r.gtao_debug_image(mode, out=out)
+                assert img.shape == (32, 32, 4) and img.dtype == torch.float16
+        hdr = tonemap_frame_hdr10(out["color"], out["ao"], convert.lpm_tensors(
+            lpm_setup_hdr10()[1], "cpu"))
+        assert bool(torch.isfinite(a_from_pq(hdr)).all())
+        rgb = torch.rand(8, 3)
+        assert color_spaces.ycbcr_to_hcv(rgb).shape == (8, 3)
+        assert tonemaps_legacy.aces_fitted(rgb).shape == (8, 3)
+        packed = encodings.r11g11b10_unorm_pack(rgb)
+        assert encodings.r11g11b10_unorm_unpack(packed).shape == (8, 3)
+        debug.validate_scene(r.scene_device)
+        debug.validate_camera(r._frame_inputs()[0])
+        with debug.validation(eager=True):
+            r.render()
     """,
     "ground_truth": """
         import os

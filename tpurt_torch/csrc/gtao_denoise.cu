@@ -33,7 +33,23 @@
 //
 // Exactness: the operation order of denoise_pass (edge symmetry, AO leak,
 // diagonal weights, the 9 taps added in tpurt's order); --fmad=false.
+//
+// The variants of tpurt's denoise_pass (passes/gtao.py:628-709), which
+// tpurt runs on its XLA chain, are the same kernel's template flags,
+// gtao_denoise_kernel<BENT, LP, FINAL>, on the same tile:
+//   * BENT: the AO term is the packed uint32 (bn, vis) texel; staging
+//     decodes it once per texel into four shared planes (bn * 2 - 1 through
+//     the /255 table, and vis), each pixel blurs the four channels with the
+//     same weights, normalizes the bent normal and re-encodes it (the final
+//     pass scales vis by 1.5 first). The texels are staged one 4-byte load
+//     each (the 1-byte path's loop) and a thread's 4 outputs leave in one
+//     16-byte store.
+//   * LP: tpurt's lpfloat blur, every staged value, edge weight and
+//     weighted sum rounded to f16 after its operation (csrc/gtao_common.cuh
+//     lp, in kernels/gtao_denoise.py's plain order).
+// With both false the operations are the exact pass's.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 // threads of a block, a tile's rows, pixels per thread and the tile's width
@@ -53,30 +69,35 @@
 #define DN_WORDS ((DN_SROWS * DN_TILE_W / 4 + DN_THREADS - 1) / DN_THREADS)
 #define DN_TEXELS ((DN_SROWS * DN_TILE_W + DN_THREADS - 1) / DN_THREADS)
 
+#include "gtao_common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float nmin(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float clip01(float x) {
-  return nmin(nmax(x, 0.0f), 1.0f);
-}
+using namespace gtao;
 
+// AO channels of a staged texel: the bent normal and visibility, or the
+// visibility alone
+template <bool BENT>
 struct Tile {
-  float vis[DN_SROWS][DN_SCOLS];
+  float vis[BENT ? 4 : 1][DN_SROWS][DN_SCOLS];
   // edges l, r, t, b
   float e[4][DN_SROWS][DN_SCOLS];
 };
 
-// one texel into the tile: AO through the /255 table, its four 2-bit
-// edges (l, r, t, b from the high bits down) through the /3 values
-__device__ __forceinline__ void stage(Tile& s, int row, int col, int a,
-                                      int p, const float* tab,
+// one texel into the tile: the AO term through the /255 table, its four
+// 2-bit edges (l, r, t, b from the high bits down) through the /3 values
+template <bool BENT, bool LP>
+__device__ __forceinline__ void stage(Tile<BENT>& s, int row, int col,
+                                      uint32_t a, int p, const float* tab,
                                       const float third[4]) {
-  s.vis[row][col] = tab[a];
+  if constexpr (BENT) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      s.vis[k][row][col] = lp<LP>(tab[(a >> (8 * k)) & 255u] * 2.0f - 1.0f);
+    s.vis[3][row][col] = lp<LP>(tab[a >> 24]);
+  } else {
+    s.vis[0][row][col] = lp<LP>(tab[a]);
+  }
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int q = (p >> (6 - 2 * k)) & 3;
@@ -87,6 +108,13 @@ __device__ __forceinline__ void stage(Tile& s, int row, int col, int a,
   }
 }
 
+// the AO term of texel `at`: packed uint32 (BENT) or u8
+template <bool BENT>
+__device__ __forceinline__ uint32_t term_at(const void* ao, size_t at) {
+  if constexpr (BENT) return static_cast<const uint32_t*>(ao)[at];
+  return static_cast<const uint8_t*>(ao)[at];
+}
+
 __device__ __forceinline__ void load4(const float* p, float out[4]) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   out[0] = q.x;
@@ -95,26 +123,28 @@ __device__ __forceinline__ void load4(const float* p, float out[4]) {
   out[3] = q.w;
 }
 
-template <bool FINAL>
+template <bool BENT, bool LP, bool FINAL>
 __global__ void __launch_bounds__(DN_THREADS)
-gtao_denoise_kernel(const uint8_t* __restrict__ ao,
+gtao_denoise_kernel(const void* __restrict__ ao,
                     const uint8_t* __restrict__ edges, int h, int w,
                     int wide, float blur, void* __restrict__ out) {
+  constexpr int NV = BENT ? 4 : 1;
   __shared__ float tab[256];
   __shared__ float third_s[4];
-  __shared__ __align__(16) Tile s;
+  __shared__ __align__(16) Tile<BENT> s;
 
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * DN_TILE_W, y0 = blockIdx.y * DN_ROWS;
   tab[tid] = (float)tid / 255.0f;
-  if (tid < 4) third_s[tid] = (float)tid / 3.0f;
+  if (tid < 4) third_s[tid] = lp<LP>((float)tid / 3.0f);
   __syncthreads();
   float third[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) third[k] = third_s[k];
 
   // the tile's texels, rows and columns clamped to the image
-  if (wide && x0 + DN_TILE_W <= w) {
+  if (!BENT && wide && x0 + DN_TILE_W <= w) {
+    const uint8_t* ao8 = static_cast<const uint8_t*>(ao);
     uint32_t a[DN_WORDS], p[DN_WORDS];
 #pragma unroll
     for (int j = 0; j < DN_WORDS; ++j) {
@@ -122,7 +152,7 @@ gtao_denoise_kernel(const uint8_t* __restrict__ ao,
       const int row = min(i / (DN_TILE_W / 4), DN_SROWS - 1);
       const int gy = min(max(y0 - 1 + row, 0), h - 1);
       const size_t at = (size_t)gy * w + x0 + 4 * (i % (DN_TILE_W / 4));
-      a[j] = *reinterpret_cast<const uint32_t*>(ao + at);
+      a[j] = *reinterpret_cast<const uint32_t*>(ao8 + at);
       p[j] = *reinterpret_cast<const uint32_t*>(edges + at);
     }
 #pragma unroll
@@ -132,26 +162,28 @@ gtao_denoise_kernel(const uint8_t* __restrict__ ao,
       const int row = i / (DN_TILE_W / 4), word = i % (DN_TILE_W / 4);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        stage(s, row, DN_COL0 + 4 * word + k, (a[j] >> (8 * k)) & 255,
-              (p[j] >> (8 * k)) & 255, tab, third);
+        stage<BENT, LP>(s, row, DN_COL0 + 4 * word + k,
+                        (a[j] >> (8 * k)) & 255, (p[j] >> (8 * k)) & 255,
+                        tab, third);
     }
   } else {
-    int a[DN_TEXELS], p[DN_TEXELS];
+    uint32_t a[DN_TEXELS];
+    int p[DN_TEXELS];
 #pragma unroll
     for (int j = 0; j < DN_TEXELS; ++j) {
       const int i = tid + j * DN_THREADS;
       const int row = min(i / DN_TILE_W, DN_SROWS - 1);
       const int gy = min(max(y0 - 1 + row, 0), h - 1);
       const size_t at = (size_t)gy * w + min(x0 + i % DN_TILE_W, w - 1);
-      a[j] = ao[at];
+      a[j] = term_at<BENT>(ao, at);
       p[j] = edges[at];
     }
 #pragma unroll
     for (int j = 0; j < DN_TEXELS; ++j) {
       const int i = tid + j * DN_THREADS;
       if (i >= DN_SROWS * DN_TILE_W) break;
-      stage(s, i / DN_TILE_W, DN_COL0 + i % DN_TILE_W, a[j], p[j], tab,
-            third);
+      stage<BENT, LP>(s, i / DN_TILE_W, DN_COL0 + i % DN_TILE_W, a[j], p[j],
+                      tab, third);
     }
   }
   if (tid < 2 * DN_SROWS) {
@@ -159,8 +191,8 @@ gtao_denoise_kernel(const uint8_t* __restrict__ ao,
     const int gy = min(max(y0 - 1 + row, 0), h - 1);
     const int gx = right ? min(x0 + DN_TILE_W, w - 1) : max(x0 - 1, 0);
     const size_t at = (size_t)gy * w + gx;
-    stage(s, row, right ? DN_COL0 + DN_TILE_W : DN_COL0 - 1, ao[at],
-          edges[at], tab, third);
+    stage<BENT, LP>(s, row, right ? DN_COL0 + DN_TILE_W : DN_COL0 - 1,
+                    term_at<BENT>(ao, at), edges[at], tab, third);
   }
   __syncthreads();
 
@@ -192,12 +224,15 @@ gtao_denoise_kernel(const uint8_t* __restrict__ ao,
   load4(&s.e[0][R + 1][c], bl);
   load4(&s.e[1][R + 1][c], br);
   load4(&s.e[2][R + 1][c], bt);
-  float vis[3][6];
+  float vis[NV][3][6];
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    vis[dy][0] = s.vis[R - 1 + dy][c - 1];
-    load4(&s.vis[R - 1 + dy][c], vis[dy] + 1);
-    vis[dy][5] = s.vis[R - 1 + dy][c + 4];
+  for (int ch = 0; ch < NV; ++ch) {
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      vis[ch][dy][0] = s.vis[ch][R - 1 + dy][c - 1];
+      load4(&s.vis[ch][R - 1 + dy][c], vis[ch][dy] + 1);
+      vis[ch][dy][5] = s.vis[ch][R - 1 + dy][c + 4];
+    }
   }
 
   uint32_t packed[DN_PX];
@@ -205,54 +240,76 @@ gtao_denoise_kernel(const uint8_t* __restrict__ ao,
   for (int k = 0; k < DN_PX; ++k) {
     const int j = k + 1;
     // symmetry enforcement
-    float ecl = cl[j] * cr[j - 1];
-    float ecr = cr[j] * cl[j + 1];
-    float ect = ct[j] * tb[k];
-    float ecb = cb[j] * bt[k];
+    float ecl = lp<LP>(cl[j] * cr[j - 1]);
+    float ecr = lp<LP>(cr[j] * cl[j + 1]);
+    float ect = lp<LP>(ct[j] * tb[k]);
+    float ecb = lp<LP>(cb[j] * bt[k]);
     // AO leak for pixels with 3-4 edges
-    const float esum = ecl + ecr + ect + ecb;
-    const float edginess = (clip01(1.5f - esum) / 1.5f) * 0.5f;
-    ecl = clip01(ecl + edginess);
-    ecr = clip01(ecr + edginess);
-    ect = clip01(ect + edginess);
-    ecb = clip01(ecb + edginess);
+    const float esum = lp<LP>(ecl + ecr + ect + ecb);
+    const float edginess = lp<LP>(
+        lp<LP>(clip(lp<LP>(lit<LP>(1.5) - esum), 0.0f, 1.0f) /
+               lit<LP>(1.5)) *
+        lit<LP>(0.5));
+    ecl = clip(lp<LP>(ecl + edginess), 0.0f, 1.0f);
+    ecr = clip(lp<LP>(ecr + edginess), 0.0f, 1.0f);
+    ect = clip(lp<LP>(ect + edginess), 0.0f, 1.0f);
+    ecb = clip(lp<LP>(ecb + edginess), 0.0f, 1.0f);
 
-    const float diag = 0.425f;
-    const float w_tl = diag * (ecl * ct[j - 1] + ect * tl[k]);
-    const float w_tr = diag * (ect * tr[k] + ecr * ct[j + 1]);
-    const float w_bl = diag * (ecb * bl[k] + ecl * cb[j - 1]);
-    const float w_br = diag * (ecr * cb[j + 1] + ecb * br[k]);
+    const float diag = lit<LP>(0.425);
+    const float w_tl =
+        lp<LP>(diag * lp<LP>(lp<LP>(ecl * ct[j - 1]) + lp<LP>(ect * tl[k])));
+    const float w_tr =
+        lp<LP>(diag * lp<LP>(lp<LP>(ect * tr[k]) + lp<LP>(ecr * ct[j + 1])));
+    const float w_bl =
+        lp<LP>(diag * lp<LP>(lp<LP>(ecb * bl[k]) + lp<LP>(ecl * cb[j - 1])));
+    const float w_br =
+        lp<LP>(diag * lp<LP>(lp<LP>(ecr * cb[j + 1]) + lp<LP>(ecb * br[k])));
 
+    // the 9 taps in tpurt's order: centre, l, r, t, b, tl, tr, bl, br
+    const float wt[8] = {ecl, ecr, ect, ecb, w_tl, w_tr, w_bl, w_br};
+    const int ty_[8] = {1, 1, 0, 2, 0, 0, 2, 2};
+    const int tx_[8] = {j - 1, j + 1, j, j, j - 1, j + 1, j - 1, j + 1};
     float sum_weight = blur;
-    float total = vis[1][j] * sum_weight;
-    total = total + vis[1][j - 1] * ecl;
-    sum_weight = sum_weight + ecl;
-    total = total + vis[1][j + 1] * ecr;
-    sum_weight = sum_weight + ecr;
-    total = total + vis[0][j] * ect;
-    sum_weight = sum_weight + ect;
-    total = total + vis[2][j] * ecb;
-    sum_weight = sum_weight + ecb;
-    total = total + vis[0][j - 1] * w_tl;
-    sum_weight = sum_weight + w_tl;
-    total = total + vis[0][j + 1] * w_tr;
-    sum_weight = sum_weight + w_tr;
-    total = total + vis[2][j - 1] * w_bl;
-    sum_weight = sum_weight + w_bl;
-    total = total + vis[2][j + 1] * w_br;
-    sum_weight = sum_weight + w_br;
+    float o[NV];
+#pragma unroll
+    for (int ch = 0; ch < NV; ++ch) {
+      float total = lp<LP>(vis[ch][1][j] * blur);
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+        total = lp<LP>(total + lp<LP>(vis[ch][ty_[t]][tx_[t]] * wt[t]));
+      o[ch] = total;
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) sum_weight = lp<LP>(sum_weight + wt[t]);
+#pragma unroll
+    for (int ch = 0; ch < NV; ++ch) o[ch] = lp<LP>(o[ch] / sum_weight);
 
-    const float o = total / sum_weight;
-    // the final pass keeps the u16 store's bits (no clamp above 1)
-    packed[k] = FINAL ? (uint32_t)(uint16_t)(int)(nmax(o * 1.5f, 0.0f) *
-                                                       255.0f + 0.5f)
-                      : (uint32_t)(uint8_t)(int)(clip01(o) * 255.0f + 0.5f);
+    if constexpr (BENT) {
+      // XeGTAO_Output, bent-normal branch
+      const float v = FINAL ? lp<LP>(o[3] * lit<LP>(1.5)) : o[3];
+      const float eps = LP ? 0.0f : 1e-20f;
+      const float blen = nmax(
+          lp<LP>(sqrtf(lp<LP>(lp<LP>(o[0] * o[0]) + lp<LP>(o[1] * o[1]) +
+                              lp<LP>(o[2] * o[2])))),
+          eps);
+      packed[k] = encode_bent<LP>(v, lp<LP>(o[0] / blen),
+                                  lp<LP>(o[1] / blen), lp<LP>(o[2] / blen));
+    } else if constexpr (FINAL) {
+      // the final pass keeps the u16 store's bits (no clamp above 1)
+      packed[k] =
+          (uint32_t)(uint16_t)(int)(nmax(o[0] * 1.5f, 0.0f) * 255.0f + 0.5f);
+    } else {
+      packed[k] =
+          (uint32_t)(uint8_t)(int)(clip(o[0], 0.0f, 1.0f) * 255.0f + 0.5f);
+    }
   }
 
+  // 4-byte output texels: the packed bent term, or the final pass's int32
+  constexpr bool WORDS = BENT || FINAL;
   const size_t at = (size_t)y * w + x;
   if (wide) {
     // w % 4 == 0, so all 4 pixels lie in the image and `at` is 4-aligned
-    if (FINAL)
+    if (WORDS)
       *reinterpret_cast<uint4*>(static_cast<int32_t*>(out) + at) =
           make_uint4(packed[0], packed[1], packed[2], packed[3]);
     else
@@ -264,7 +321,7 @@ gtao_denoise_kernel(const uint8_t* __restrict__ ao,
 #pragma unroll
   for (int k = 0; k < DN_PX; ++k) {
     if (x + k < w) {
-      if (FINAL)
+      if (WORDS)
         static_cast<int32_t*>(out)[at + k] = (int32_t)packed[k];
       else
         static_cast<uint8_t*>(out)[at + k] = (uint8_t)packed[k];
@@ -272,26 +329,46 @@ gtao_denoise_kernel(const uint8_t* __restrict__ ao,
   }
 }
 
+template <bool BENT, bool LP>
+int launch(const void* ao, const uint8_t* edges, int h, int w, int wide,
+           float blur, int final_pass, void* out, cudaStream_t stream) {
+  const dim3 grid((w + DN_TILE_W - 1) / DN_TILE_W,
+                  (h + DN_ROWS - 1) / DN_ROWS);
+  if (final_pass)
+    gtao_denoise_kernel<BENT, LP, true><<<grid, DN_THREADS, 0, stream>>>(
+        ao, edges, h, w, wide, blur, out);
+  else
+    gtao_denoise_kernel<BENT, LP, false><<<grid, DN_THREADS, 0, stream>>>(
+        ao, edges, h, w, wide, blur, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// one pass over (h, w) u8 AO and packed edges into `out`, (h, w) int32
-// when final_pass (the scaled AO term, u16 values) else u8
-extern "C" int tpurt_gtao_denoise(const uint8_t* ao, const uint8_t* edges,
+// one pass over (h, w) AO and packed edges into `out`. ao: u8, or the
+// packed uint32 term with bent; out: the packed uint32 with bent, else
+// int32 u16 values when final_pass, else u8. lp: the fp16 instantiation
+// (blur is then already f16-valued, kernels/gtao_denoise.py).
+extern "C" int tpurt_gtao_denoise(const void* ao, const uint8_t* edges,
                                   int h, int w, float blur, int final_pass,
-                                  void* out, cudaStream_t stream) {
-  if (h > 0 && w > 0) {
-    // 4-byte loads and stores need rows of a multiple of 4 bytes and
-    // 4-byte aligned inputs (out is a fresh allocation)
-    const int wide = (w % 4 == 0) && ((uintptr_t)ao % 4 == 0) &&
-                     ((uintptr_t)edges % 4 == 0);
-    const dim3 grid((w + DN_TILE_W - 1) / DN_TILE_W,
-                    (h + DN_ROWS - 1) / DN_ROWS);
-    if (final_pass)
-      gtao_denoise_kernel<true><<<grid, DN_THREADS, 0, stream>>>(
-          ao, edges, h, w, wide, blur, out);
-    else
-      gtao_denoise_kernel<false><<<grid, DN_THREADS, 0, stream>>>(
-          ao, edges, h, w, wide, blur, out);
-  }
-  return (int)cudaGetLastError();
+                                  int bent, int lp, void* out,
+                                  cudaStream_t stream) {
+  if (h <= 0 || w <= 0) return (int)cudaGetLastError();
+  // 16-byte (int32, uint32) and 4-byte (u8) stores need rows of a multiple
+  // of 4 pixels (out is a fresh allocation); the u8 staging's 4-byte loads
+  // need 4-byte aligned inputs too
+  const int wide = (w % 4 == 0) &&
+                   (bent || (((uintptr_t)ao % 4 == 0) &&
+                             ((uintptr_t)edges % 4 == 0)));
+  if (bent && lp)
+    return launch<true, true>(ao, edges, h, w, wide, blur, final_pass, out,
+                              stream);
+  if (bent)
+    return launch<true, false>(ao, edges, h, w, wide, blur, final_pass, out,
+                               stream);
+  if (lp)
+    return launch<false, true>(ao, edges, h, w, wide, blur, final_pass, out,
+                               stream);
+  return launch<false, false>(ao, edges, h, w, wide, blur, final_pass, out,
+                              stream);
 }

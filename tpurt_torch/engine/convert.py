@@ -11,7 +11,7 @@ jitted frame) and returns the port's tensors on an explicit device:
 and ``compact_bvh2`` builds K6's compact child-pair table from its rows.
   camera_tensors  Camera.uniform()
   light_tensors   Lights.shader_arrays()
-  gtao_tensors    gtao_constants(...)
+  gtao_tensors    gtao_constants(...)              (f32 and fp16 vectors)
   lpm_tensors     lpm_setup(...)[1]
 
 The tests use these to feed identical inputs to both packages. Texel rows
@@ -235,7 +235,8 @@ def gtao_tensors(consts: dict, device) -> dict:
     (effect radius, falloff) is derived in double precision from the Python
     floats and applied in f32, exactly as the jnp code does. Returns the
     (14,) f32 vector the main pass reads (kernel and plain version alike,
-    laid out as GTAO_VEC) plus the Python floats the prefilter needs."""
+    laid out as GTAO_VEC), ``vec16``, the same for the fp16 main pass
+    (``gtao_vec16``), and the Python floats the prefilter needs."""
     effect_radius = consts["effect_radius"] * consts["radius_multiplier"]
     falloff_range = consts["effect_falloff_range"] * effect_radius
     falloff_from = effect_radius * (1.0 - consts["effect_falloff_range"])
@@ -250,7 +251,38 @@ def gtao_tensors(consts: dict, device) -> dict:
         consts["final_value_power"], consts["depth_mip_sampling_offset"],
         consts["ndc_to_view_mul_x_pixel_size"][0]], np.float32)
     assert len(vec) == len(GTAO_VEC)
-    return dict(vec=_t(vec, device), host=dict(consts))
+    return dict(vec=_t(vec, device), vec16=_t(gtao_vec16(consts), device),
+                host=dict(consts))
+
+
+def gtao_vec16(consts: dict) -> np.ndarray:
+    """The constants vector of the fp16 main pass: tpurt's lpfloat scalar
+    block (``lp(x)`` is ``jnp.asarray(x).astype(f16)``, an f32 rounded to
+    f16; a bare literal meeting an f16 operand is its f16 nearest), each
+    operation rounded to f16 as numpy's float16 arithmetic rounds. The view
+    reconstruction's entries stay f32, as tpurt keeps them."""
+    f16 = np.float16
+
+    def lp(x):
+        return f16(np.float32(x))
+
+    effect_radius = lp(consts["effect_radius"]) * lp(
+        consts["radius_multiplier"])
+    falloff_k = lp(consts["effect_falloff_range"])
+    falloff_range = falloff_k * effect_radius
+    falloff_from = effect_radius * (f16(1.0) - falloff_k)
+    falloff_mul = f16(-1.0) / falloff_range
+    falloff_add = falloff_from / falloff_range + f16(1.0)
+    vec = [lp(consts["viewport_pixel_size"][0]),
+           lp(consts["viewport_pixel_size"][1]),
+           consts["ndc_to_view_mul"][0], consts["ndc_to_view_mul"][1],
+           consts["ndc_to_view_add"][0], consts["ndc_to_view_add"][1],
+           effect_radius, lp(consts["sample_distribution_power"]),
+           f16(1.0) + lp(consts["thin_occluder_compensation"]),
+           falloff_mul, falloff_add, f16(consts["final_value_power"]),
+           f16(consts["depth_mip_sampling_offset"]),
+           consts["ndc_to_view_mul_x_pixel_size"][0]]
+    return np.asarray([np.float32(v) for v in vec], np.float32)
 
 
 def lpm_tensors(derived: dict, device) -> dict:

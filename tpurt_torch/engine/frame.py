@@ -29,6 +29,9 @@ and K2 once per shadow-casting light each), their HDR colors averaged,
 GTAO on the center sample's G-buffer. ``render_gbuffer`` also traces a
 band of rows, and ``render_sample_hdr`` is one jittered sample of the
 ground-truth accumulation (``engine/accumulate.py``).
+
+Inside ``utils/debug.validation()`` every frame checks its float outputs
+for NaN and raises on one.
 """
 from __future__ import annotations
 
@@ -40,10 +43,12 @@ import torch
 from ..kernels.traverse_bvh8 import trace_closest_bvh8
 from ..passes.encodings import (divide, pack_unorm8, quantize_r11g11b10f,
                                 quantize_r16f)
-from ..passes.gtao import GtaoSettings, ao_visibility_u8, compute_ao
+from ..passes.gtao import (GtaoSettings, ao_bent_normals, ao_visibility_u8,
+                           compute_ao)
 from ..passes.rays import T_MAX, T_MIN, camera_rays
 from ..passes.shade import shade
 from ..passes.tonemap import tonemap_frame
+from ..utils.debug import check_outputs
 
 
 # the frame's steps, in the order they run
@@ -62,7 +67,9 @@ def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
                  step=no_step) -> dict:
     """Quantize the shaded G-buffer `g`, run GTAO and the tonemap. Returns
     dict: image (H, W, 3) u8 sRGB, color and normal (H, W, 3) f32, depth
-    (H, W) f32, ao (H, W) int32 (0..~383)."""
+    (H, W) f32, ao (H, W) int32 (0..~383; the packed term's visibility,
+    0..255, with bent normals) and, when the settings ask for bent normals,
+    bent_normals (H, W, 3) f32."""
     with step("quantize_color"):
         color = quantize_r11g11b10f(g["color"]).reshape(height, width, 3)
     with step("quantize_depth_normal"):
@@ -70,11 +77,13 @@ def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
         normal = quantize_r11g11b10f(g["normal_enc"]).reshape(height, width,
                                                                3)
 
+    bent = None
     with step("gtao"):
         if enable_gtao:
-            ao = ao_visibility_u8(compute_ao(depth, normal, gtao,
-                                             gtao_settings, noise_index),
-                                  gtao_settings)
+            ao_term = compute_ao(depth, normal, gtao, gtao_settings,
+                                 noise_index)
+            ao = ao_visibility_u8(ao_term, gtao_settings)
+            bent = ao_bent_normals(ao_term, gtao_settings)
         else:
             ao = torch.full((height, width), 255, dtype=torch.int32,
                             device=depth.device)
@@ -84,7 +93,11 @@ def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
             image = pack_unorm8(tonemap_frame(color, ao, lpm))
         else:
             image = pack_unorm8(torch.clamp(color, 0.0, 1.0))
-    return dict(image=image, color=color, depth=depth, normal=normal, ao=ao)
+    out = dict(image=image, color=color, depth=depth, normal=normal, ao=ao)
+    if bent is not None:
+        out["bent_normals"] = bent
+    check_outputs(out)
+    return out
 
 
 def _aa_jitters(spp: int) -> np.ndarray:

@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..passes.gtao import GtaoSettings, gtao_constants
+from ..passes.gtao import GtaoSettings, gtao_constants, gtao_debug_image
 from ..passes.tonemap import LpmParams, lpm_setup
 from ..scene.camera import Camera
 from ..scene.lights import Lights
@@ -262,6 +262,19 @@ class Renderer:
                 yield ready()
         while q:
             yield ready()
+
+    def gtao_debug_image(self, mode: str = "normals", out=None):
+        """(H, W, 4) float16 GTAO debug image of a render() output `out`
+        (tpurt's ``Renderer.gtao_debug_image``): mode "normals", "edges"
+        or "ao" (``passes/gtao.gtao_debug_image``). Renders a frame when
+        `out` is not given; the noise index is that of the last rendered
+        frame."""
+        if out is None:
+            out = self.render(block=True)
+        _, _, gtao = self._frame_inputs()
+        return gtao_debug_image(out["depth"], out["normal"], gtao,
+                                self.config.gtao,
+                                max(self._frame_idx - 1, 0) % 64, mode)
 
     def stats(self) -> dict:
         c = self.config

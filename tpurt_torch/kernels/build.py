@@ -35,12 +35,19 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# one plain integer per kernel entry point, bumped only where it launches;
-# bvh8_closest_steps / bvh8_any_steps count every K7a launch, counted or
-# with another push order
+# one plain integer per kernel entry point (and per GTAO variant), bumped
+# only where it launches; bvh8_closest_steps / bvh8_any_steps count every
+# K7a launch, counted or with another push order
 launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_noise": 0,
-                 "gtao_main": 0, "gtao_denoise": 0, "bvh2_closest": 0,
-                 "bvh2_any": 0, "bvh8_any_multi": 0, "bvh8_any_multi_pop2": 0,
+                 "gtao_main": 0, "gtao_denoise": 0,
+                 # the GTAO variants' instantiations (kernels/gtao_main.py,
+                 # kernels/gtao_denoise.py)
+                 "gtao_noise_fp16": 0, "gtao_main_bent": 0,
+                 "gtao_main_half": 0, "gtao_main_fp16": 0,
+                 "gtao_main_bent_fp16": 0, "gtao_denoise_bent": 0,
+                 "gtao_denoise_fp16": 0, "gtao_denoise_bent_fp16": 0,
+                 "bvh2_closest": 0, "bvh2_any": 0, "bvh8_any_multi": 0,
+                 "bvh8_any_multi_pop2": 0,
                  "bvh8_closest_pop2": 0, "bvh8_any_pop2": 0,
                  "bvh8_closest_uvp": 0, "bvh8_closest_steps": 0,
                  "bvh8_any_steps": 0, "trans_equiv": 0}

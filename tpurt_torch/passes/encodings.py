@@ -2,7 +2,8 @@
 
 The frame stores color and encoded normals in B10G11R11_UFLOAT, view depth
 in R16F and the image in unorm8, at the same points as the reference. The
-small floats round-trip exactly through their f16 bit patterns.
+small floats round-trip exactly through their f16 bit patterns. XeGTAO's
+R11G11B10 unorm packing holds its uint32 words as int32 bits.
 """
 from __future__ import annotations
 
@@ -84,3 +85,31 @@ def pack_unorm8(x):
 def srgb_approx(rgb):
     """Linear -> sRGB, pow(1/2.2)."""
     return torch.pow(torch.clamp_min(rgb, 0.0), 1.0 / 2.2)
+
+
+def unpack_unorm8(x):
+    """u8 -> float [0, 1]."""
+    return divide(x.to(torch.float32), 255.0)
+
+
+def r11g11b10_unorm_pack(v):
+    """XeGTAO's R11G11B10 unorm packing of (..., 3) in [0, 1]: the uint32
+    word as int32 bits."""
+    q = [(torch.clamp(v[..., i], 0.0, 1.0) * scale + 0.5).to(torch.int64)
+         for i, scale in enumerate((2047.0, 2047.0, 1023.0))]
+    return (q[0] | (q[1] << 11) | (q[2] << 22)).to(torch.int32)
+
+
+def r11g11b10_unorm_unpack(p):
+    """The inverse of r11g11b10_unorm_pack: (..., 3) f32."""
+    p = p.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([divide((p & 0x7FF).to(torch.float32), 2047.0),
+                        divide(((p >> 11) & 0x7FF).to(torch.float32),
+                               2047.0),
+                        divide(((p >> 22) & 0x3FF).to(torch.float32),
+                               1023.0)], dim=-1)
+
+
+def srgb_inverse_approx(srgb):
+    """sRGB -> linear, pow(2.2)."""
+    return torch.pow(torch.clamp_min(srgb, 0.0), 2.2)

@@ -1,8 +1,10 @@
-"""FidelityFX-LPM tonemapper — port of ``tpurt/passes/tonemap.py:1-279``.
+"""FidelityFX-LPM tonemapper — port of ``tpurt/passes/tonemap.py``.
 
 ``lpm_setup`` (the host control block) stays numpy and is copied as is;
-``lpm_filter`` and ``tonemap_frame`` run on tensors. The renderer runs the
-LPM_CONFIG_709_709 path.
+``lpm_filter``, ``tonemap_frame`` and the HDR10 output
+(``tonemap_frame_hdr10``: LpmFilter with HDR10RAW_709 into scaled Rec.2020,
+then the PQ transfer) run on tensors, as do ffx_a.h's transfer functions
+``a_to_*`` / ``a_from_*``. The renderer runs the LPM_CONFIG_709_709 path.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .encodings import divide, srgb_approx
+from .encodings import divide, sqrt, srgb_approx
 
 
 def _col_xy_to_z(s):
@@ -31,13 +33,33 @@ def _col_rgb_to_xyz(r, g, b, w):
 LPM_COL_709_R = (0.64, 0.33)
 LPM_COL_709_G = (0.30, 0.60)
 LPM_COL_709_B = (0.15, 0.06)
+LPM_COL_P3_R = (0.680, 0.320)
+LPM_COL_P3_G = (0.265, 0.690)
+LPM_COL_P3_B = (0.150, 0.060)
+LPM_COL_2020_R = (0.708, 0.292)
+LPM_COL_2020_G = (0.170, 0.797)
+LPM_COL_2020_B = (0.131, 0.046)
 LPM_COL_D65 = (0.3127, 0.3290)
 
 _709 = (LPM_COL_709_R, LPM_COL_709_G, LPM_COL_709_B, LPM_COL_D65)
+_P3 = (LPM_COL_P3_R, LPM_COL_P3_G, LPM_COL_P3_B, LPM_COL_D65)
+_2020 = (LPM_COL_2020_R, LPM_COL_2020_G, LPM_COL_2020_B, LPM_COL_D65)
 
-# (con, soft, con2, clip, scaleOnly) and (working, output, container) gamuts
+# (con, soft, con2, clip, scaleOnly) and (working, output, container)
+# gamuts: the prefabs of ffx_lpm.h that tpurt carries
 LPM_CONFIG_709_709 = (False, False, False, False, False)
 LPM_COLORS_709_709 = (_709, _709, _709)
+LPM_CONFIG_HDR10RAW_709 = (False, False, True, True, False)
+LPM_COLORS_HDR10RAW_709 = (_709, _709, _2020)
+LPM_CONFIG_709_P3 = (True, True, False, False, False)
+LPM_COLORS_709_P3 = (_P3, _709, _709)
+LPM_CONFIG_HDR10RAW_2020 = (False, False, False, False, True)
+LPM_COLORS_HDR10RAW_2020 = (_2020, _2020, _2020)
+
+
+def lpm_hdr10_raw_scalar(display_max_nits: float = 1000.0) -> float:
+    """LpmHdr10RawScalar: PQ-space output scale for HDR10 (nits / 10000)."""
+    return display_max_nits / 10000.0
 
 
 def _f32_bits(x) -> int:
@@ -244,3 +266,88 @@ def tonemap_frame(color, ao, derived: dict):
     color = color * divide(ao.to(torch.float32), 255.0)[..., None]
     color = lpm_filter(color, derived)
     return srgb_approx(color)
+
+
+# ---- ffx_a.h output transfer functions (ffx_a.h:1869-1894) ----------------
+# Divisions by a constant go through encodings.divide, so they round once
+# on the card too.
+
+def a_to_709(c):
+    """ATo709F1."""
+    c = torch.clamp_min(c, 0.0)
+    return torch.maximum(torch.clamp_max(c * 4.5, 0.018),
+                         1.099 * torch.pow(c, 0.45) - 0.099)
+
+
+def a_from_709(c):
+    """AFrom709F1."""
+    c = torch.clamp_min(c, 0.0)
+    return torch.maximum(torch.clamp_max(c * (1.0 / 4.5), 0.081),
+                         torch.pow(divide(c + 0.099, 1.099), 1.0 / 0.45))
+
+
+def a_to_gamma(c, rcp_x):
+    """AToGammaF1."""
+    return torch.pow(torch.clamp_min(c, 0.0), rcp_x)
+
+
+def a_from_gamma(c, x):
+    """AFromGammaF1."""
+    return torch.pow(torch.clamp_min(c, 0.0), x)
+
+
+def a_to_pq(x):
+    """AToPqF1: linear {0..1, 1.0 = 10000 nits} -> PQ."""
+    p = torch.pow(torch.clamp_min(x, 0.0), 0.159302)
+    return torch.pow((0.835938 + 18.8516 * p) / (1.0 + 18.6875 * p),
+                     78.8438)
+
+
+def a_from_pq(x):
+    """AFromPqF1."""
+    p = torch.pow(torch.clamp_min(x, 0.0), 0.0126833)
+    return torch.pow(torch.clamp(p - 0.835938, 0.0, 1.0)
+                     / (18.8516 - 18.6875 * p), 6.27739)
+
+
+def a_to_srgb(c):
+    """AToSrgbF1."""
+    c = torch.clamp_min(c, 0.0)
+    return torch.maximum(torch.clamp_max(c * 12.92, 0.0031308),
+                         1.055 * torch.pow(c, 0.41666) - 0.055)
+
+
+def a_from_srgb(c):
+    """AFromSrgbF1."""
+    c = torch.clamp_min(c, 0.0)
+    return torch.maximum(torch.clamp_max(divide(c, 12.92), 0.04045),
+                         torch.pow(divide(c + 0.055, 1.055), 2.4))
+
+
+def a_to_two(c):
+    """AToTwoF1."""
+    return sqrt(torch.clamp_min(c, 0.0))
+
+
+def a_from_two(c):
+    """AFromTwoF1."""
+    return c * c
+
+
+def lpm_setup_hdr10(params: LpmParams = LpmParams(),
+                    display_max_nits: float = 1000.0):
+    """Control block for the HDR10RAW_709 output path: 709 working gamut,
+    2020 container scaled by LpmHdr10RawScalar. Returns (ctl, derived) as
+    lpm_setup does; ``engine/convert.lpm_tensors`` carries ``derived``."""
+    return lpm_setup(params, config=LPM_CONFIG_HDR10RAW_709,
+                     colors=LPM_COLORS_HDR10RAW_709,
+                     scale_c=lpm_hdr10_raw_scalar(display_max_nits))
+
+
+def tonemap_frame_hdr10(color, ao, derived_hdr10: dict):
+    """The HDR10 composite: color *= AO/255, LpmFilter with HDR10RAW_709
+    (con2 + clip into scaled Rec.2020), then the PQ transfer. Returns
+    PQ-coded [0, 1] rgb for a 10-bit HDR10 surface."""
+    color = color * divide(ao.to(torch.float32), 255.0)[..., None]
+    color = lpm_filter(color, derived_hdr10, config=LPM_CONFIG_HDR10RAW_709)
+    return a_to_pq(color)
