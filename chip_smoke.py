@@ -96,6 +96,29 @@ once, at 64x64):
            frame's checksum after the variants equal to phase 2's;
            gtao_debug_image in its three modes; tonemap_frame_hdr10 on the
            frame against the same on the host (<= 1e-4).
+  phase 11 the texture path, after phase 10 at 800x800 only: the mip
+           tables (the per-layer atlas, quad, pair, block4) of a
+           material_field(6, 6)'s images and 13x7, 5x5 and 1x1 ones,
+           sampled on 2^20 seeded lanes trilinear and anisotropic with 1,
+           4 and 16 taps, bit-equal across the four tiers on the card and
+           each to the same function on the host; the bench frame with the
+           streaming texture arena (the default) bit-equal to the slab
+           frame (texture_arena=False) and to phase 2's checksum; a
+           streaming sequence on the bench scene (the cubes leave, return,
+           the box field leaves): each step's uploaded rows equal to its
+           joining images' rows, its freed images to the leaving ones, its
+           frame bit-equal to a fresh renderer's; 64x64 textured frames
+           (the textures workload cut to a 3x3 field) on the card against
+           the host, quad, pair and block4 (forced by the budgets) with
+           aniso_taps 1 and 4, at phase 3's bars, each launching K1 1, K2
+           1 per shadow light, K3h/K3/K4 1; the textures workload at
+           800x800 (tpurt's tools/textures_bench.py: 292,034 tris, 144
+           materials of 256x256 texels, mipmaps on): setup seconds, tier,
+           texture bytes on the card, ms/frame by host wall and card-only
+           timer with aniso_taps 1 and 16, Mrays/s, profile_frame's passes
+           and the card's name and power limit; last, after phase 8's
+           device profile, its device launches and device ms per frame
+           under torch.profiler and the device-busy share.
   phase 8  the diagnostics path. The steps probe
            (tpurt_torch/tools/steps_probe.py) on the frame's rays with the
            counts at 0: K7a closest 1 and K7a any 3 (one per light), over
@@ -1033,7 +1056,346 @@ def phase10(r, label, default_frame, exact_kernels):
                 hdr10=dict(max_abs_err=hdr_err, ms=hdr_ms))
 
 
-def images_agree(a, b, what):
+# phase 11: the mip tiers on 2^20 seeded lanes (material_field(6, 6)'s
+# textures, 16-128 texels, and these odd extents), anisotropic taps, the
+# textured frames' size and count, the textures workload's frames per
+# aniso_taps
+TEX_LANES = 1 << 20
+TEX_ODD_EXTENTS = ((13, 7), (5, 5), (1, 1))
+TEX_TAPS = (1, 4, 16)
+TEX_TIERS = ("atlas", "quad", "pair", "block4")
+TEX_SMALL = 64
+TEX_SMALL_FIELD = dict(nx=3, nz=3, subdiv=2, spacing=1.0,
+                       extents=(16, 32, 64))
+TEX_FRAMES = 5
+# the budgets (quad, pair) that make flatten_scene pick each tier
+TEX_BUDGETS = dict(quad=(1 << 40, 1 << 40), pair=(0, 1 << 40),
+                   block4=(0, 0))
+
+
+def tier_tables():
+    """The per-layer atlas and the quad, pair and block4 tables (host
+    numpy) of a material_field(6, 6)'s images and TEX_ODD_EXTENTS's,
+    each image its own."""
+    import numpy as np
+
+    from tpurt_torch.scene import scene
+    from tpurt_torch.scene.procedural import material_field
+
+    model = material_field(nx=6, nz=6)
+    model.update_model_status(np.zeros(3))
+    flat = scene.flatten_scene([model])
+    stack, sizes = flat.tex_stack, flat.tex_size
+    rng = np.random.default_rng(13)
+    extra = np.zeros((3 * len(TEX_ODD_EXTENTS),) + stack.shape[1:],
+                     np.uint8)
+    for i, (h, w) in enumerate(TEX_ODD_EXTENTS):
+        extra[3 * i:3 * i + 3, :h, :w] = rng.integers(0, 256, (3, h, w, 4),
+                                                      dtype=np.uint8)
+    stack = np.concatenate([stack, extra])
+    sizes = np.concatenate([sizes, np.asarray(TEX_ODD_EXTENTS, np.int32)])
+    dedup = (np.arange(sizes.shape[0], dtype=np.int32),
+             list(range(sizes.shape[0])))
+    tables = {"atlas": scene.build_mip_atlas(stack, sizes, *dedup)}
+    for tier in TEX_TIERS[1:]:
+        tables[tier] = getattr(scene, f"build_mip_{tier}_atlas")(
+            stack, sizes, *dedup)
+    return tables
+
+
+def tier_lanes(n_prims, levels):
+    """TEX_LANES seeded (prim, uv, lod, duv) lanes: uv in [-1.5, 2.5) with
+    16 lanes at +-1e4, LODs in [-2, levels + 1) (below 0 and above the
+    last level), major axes up to 0.3 in uv."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    uv = rng.uniform(-1.5, 2.5, (TEX_LANES, 2)).astype(np.float32)
+    uv[:16] = rng.choice([-1e4, 1e4], (16, 2))
+    return dict(prim=rng.integers(0, n_prims, TEX_LANES).astype(np.int32),
+                uv=uv,
+                lod=rng.uniform(-2.0, levels + 1.0,
+                                TEX_LANES).astype(np.float32),
+                duv=rng.uniform(-0.3, 0.3, (TEX_LANES, 2)).astype(
+                    np.float32))
+
+
+def sample_tier(tables, tier, lanes, taps):
+    """All three layers (N, 12) of `lanes` through one tier: trilinear
+    when taps is 0, else anisotropic with `taps` taps."""
+    import torch
+
+    from tpurt_torch.passes import shade
+
+    p, uv, lod, duv = (lanes[k] for k in ("prim", "uv", "lod", "duv"))
+    t = tables[tier]
+    if tier == "atlas":
+        if taps:
+            return torch.cat([shade.sample_anisotropic(
+                *t, p, layer, uv, lod, duv, taps) for layer in range(3)], 1)
+        return torch.cat([shade.sample_trilinear(*t, p, layer, uv, lod)
+                          for layer in range(3)], 1)
+    if taps:
+        return getattr(shade, f"sample_anisotropic_{tier}")(
+            *t, p, uv, lod, duv, taps)
+    return getattr(shade, f"sample_trilinear_{tier}")(*t, p, uv, lod)
+
+
+def phase11_tiers():
+    """The four tiers bit-equal to each other on the card, trilinear and
+    anisotropic with 1, 4 and 16 taps, and each equal to the same function
+    on the host."""
+    import torch
+
+    host = tier_tables()
+    levels = host["quad"][2].shape[1]
+    lanes = tier_lanes(host["quad"][2].shape[0], levels)
+    on = {dev: ({k: tuple(torch.from_numpy(a).to(dev) for a in v)
+                 for k, v in host.items()},
+                {k: torch.from_numpy(v).to(dev) for k, v in lanes.items()})
+          for dev in ("cuda", "cpu")}
+    out = {}
+    for taps in (0,) + TEX_TAPS:
+        what = f"aniso {taps}" if taps else "trilinear"
+        ref = None
+        for tier in TEX_TIERS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = sample_tier(on["cuda"][0], tier, on["cuda"][1], taps)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1000.0
+            plain = sample_tier(on["cpu"][0], tier, on["cpu"][1], taps)
+            require(bits_equal(card, plain), f"[textures] {tier} {what}: "
+                    f"card differs from the host")
+            if ref is None:
+                ref = card
+            require(bits_equal(card, ref), f"[textures] {tier} {what} "
+                    f"differs from the per-layer atlas on the card")
+            out[f"{tier} {what}"] = ms
+    log(f"[textures] {TEX_LANES} lanes, {levels} levels: the per-layer "
+        f"atlas, quad, pair and block4 bit-equal on the card, trilinear "
+        f"and aniso {list(TEX_TAPS)}, each equal to the host; wall ms on "
+        f"the card (one call each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def phase11_arena(r, default_frame):
+    """The bench frame with the arena against the slab and phase 2's
+    checksum; a streaming sequence: toggles of the models' residency, the
+    rows uploaded, each frame against a fresh renderer's."""
+    import hashlib
+
+    import torch
+
+    from tpurt_torch.engine import Renderer, RendererConfig
+    from tpurt_torch.app.bench_scene import build_bench_scene
+
+    c = r.config
+    noise = default_frame["noise_index"]
+    require(c.texture_arena and "tex_quad_base" in r.scene_device,
+            "the default renderer does not use the arena")
+    image = r.render_passes(noise)["image"]
+    slab = build_bench_scene(Renderer(RendererConfig(
+        width=c.width, height=c.height, texture_arena=False)))
+    require("tex_quad_shape" in slab.scene_device, "slab renderer")
+    require(torch.equal(image, slab.render_passes(noise)["image"]),
+            "[textures] the arena frame differs from the slab frame")
+    checksum = int(image.to(torch.int64).sum())
+    require(checksum == default_frame["checksum"], f"[textures] arena "
+            f"frame checksum {checksum} != phase 2's "
+            f"{default_frame['checksum']}")
+    arena_bytes = r._tex_arena.atlas.numel()
+    slab_bytes = slab.scene_device["tex_quad"].numel()
+    del slab
+
+    def image_rows(scene):
+        """{content key: rows} of each unique image's quad rows at its
+        own extent."""
+        out = {}
+        for ui in range(scene.tex_quad48.shape[0]):
+            rep = int((scene.tex_img_of_prim == ui).argmax())
+            h, w = (int(x) for x in scene.tex_size[rep])
+            rows = scene.tex_quad48[ui, :h, :w].reshape(h * w, -1)
+            out[hashlib.sha1(rows.tobytes()).hexdigest()] = h * w
+        return out
+
+    s = build_bench_scene(Renderer(RendererConfig(width=c.width,
+                                                  height=c.height)))
+    cubes = range(2, len(s.models))
+    steps = [("the 8 cubes leave", [(i, False) for i in cubes]),
+             ("the 8 cubes return", [(i, True) for i in cubes]),
+             ("the box field leaves", [(0, False)])]
+    seq = []
+    for what, flips in steps:
+        before = image_rows(s.scene)
+        for i, vis in flips:
+            s.models[i].set_visible(vis)
+        got = s.render_passes(noise)["image"]
+        rows = image_rows(s.scene)
+        joined = sum(n for k, n in rows.items() if k not in before)
+        left = len(set(before) - set(rows))
+        arena = s._tex_arena
+        fresh = build_bench_scene(Renderer(RendererConfig(
+            width=c.width, height=c.height)))
+        for i, m in enumerate(s.models):
+            fresh.models[i].set_visible(m.visible)
+        want = fresh.render_passes(noise)["image"]
+        log(f"[textures] streaming: {what}: {arena.last_uploaded_rows} rows "
+            f"uploaded (joining images' rows {joined}), {arena.last_freed} "
+            f"images freed ({left} left), arena {arena.capacity} rows")
+        require(arena.last_uploaded_rows == joined and arena.last_freed ==
+                left, f"[textures] streaming step {what!r}: uploaded "
+                f"{arena.last_uploaded_rows} rows, freed {arena.last_freed}")
+        require(torch.equal(got, want), f"[textures] streaming step "
+                f"{what!r}: frame differs from a fresh renderer's")
+        seq.append(dict(step=what, uploaded_rows=arena.last_uploaded_rows,
+                        joining_rows=joined, freed=arena.last_freed))
+        del fresh
+    log(f"[textures] the bench frame with the arena equals the slab frame "
+        f"and phase 2's checksum {checksum}; texel rows {arena_bytes} bytes"
+        f" in the arena, {slab_bytes} in the slab")
+    return dict(checksum=checksum, arena_bytes=arena_bytes,
+                slab_bytes=slab_bytes, streaming=seq)
+
+
+def textured_renderer(width, height, device, tier, taps, field=None):
+    """The textures workload (app/textures_scene.py), its mip tier forced
+    by the budgets (both large: quad)."""
+    from tpurt_torch.app.textures_scene import build_textures_scene
+    from tpurt_torch.engine import Renderer, RendererConfig
+    from tpurt_torch.scene import scene
+
+    saved = scene.MIP_QUAD_BUDGET_BYTES, scene.MIP_PAIR_BUDGET_BYTES
+    try:
+        if tier is not None:
+            scene.MIP_QUAD_BUDGET_BYTES, scene.MIP_PAIR_BUDGET_BYTES = \
+                TEX_BUDGETS[tier]
+        return build_textures_scene(Renderer(RendererConfig(
+            width=width, height=height, mipmaps=True, aniso_taps=taps,
+            device=device)), field=field)
+    finally:
+        scene.MIP_QUAD_BUDGET_BYTES, scene.MIP_PAIR_BUDGET_BYTES = saved
+
+
+def textured_launches(r, what):
+    """One textured frame's launches: K1 once, K2 once per shadow light,
+    K3h, K3 and K4 once each."""
+    shadow = r.stats()["shadow_casting_lights"]
+    counted_once(lambda: r.render_passes(r.noise_index), dict(
+        bvh8_closest=1, bvh8_any=shadow, gtao_noise=1, gtao_main=1,
+        gtao_denoise=1), f"[textures] {what}")
+
+
+def phase11_small():
+    """64x64 textured frames on the card against the host, quad, pair and
+    block4 with aniso_taps 1 and 4, at phase 3's bars."""
+    out = {}
+    for tier in TEX_TIERS[1:]:
+        for taps in (1, 4):
+            rs = [textured_renderer(TEX_SMALL, TEX_SMALL, dev, tier, taps,
+                                    TEX_SMALL_FIELD) for dev in ("cuda",
+                                                                 "cpu")]
+            require(f"tex_mip_{tier}" in rs[0].scene_device,
+                    f"[textures] 64x64 {tier}: tier not shipped")
+            textured_launches(rs[0], f"64x64 {tier} aniso {taps}")
+            out[f"{tier} aniso {taps}"] = images_agree(
+                *(r.render()["image"] for r in rs),
+                f"64x64 {tier} aniso_taps={taps}", tag="textures")
+    return out
+
+
+def phase11_workload():
+    """The textures workload at 800x800 (tpurt's tools/textures_bench.py):
+    flatten and upload, tier, texture bytes, ms/frame (host wall and
+    card-only) with aniso_taps 1 and 16, Mrays/s, profile_frame's
+    passes. Returns the renderer for phase11_profile."""
+    import torch
+
+    from tpurt_torch.engine import profiler
+
+    w, h = SHAPES[0]
+    t0 = time.perf_counter()
+    r = textured_renderer(w, h, "cuda", None, 1)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tier = next(t for t in TEX_TIERS[1:] if f"tex_mip_{t}" in r.scene_device)
+    texel_bytes = sum(t.numel() * t.element_size()
+                      for k, t in r.scene_device.items()
+                      if k.startswith("tex") and isinstance(t, torch.Tensor))
+    table = getattr(r.scene, f"tex_mip_{tier}")
+    source = r.scene.tex_stack.nbytes
+    stats = r.stats()
+    rays = stats["rays_per_frame"]
+    out = dict(tier=tier, tris=stats["tris"], bvh8_depth=stats["bvh8_depth"],
+               setup_s=setup_s, texel_device_bytes=texel_bytes,
+               tier_table_bytes=table.nbytes, source_bytes=source,
+               rays_per_frame=rays, frames={})
+    log(f"[textures] workload {w}x{h}: {stats['tris']} tris, BVH8 depth "
+        f"{stats['bvh8_depth']}, {stats['primitives']} primitives; models, "
+        f"flatten and upload {setup_s:.1f} s; tier {tier}; source texels "
+        f"{source} bytes (padded stack), the {tier} table {table.nbytes} "
+        f"bytes, texture tensors on the card {texel_bytes} bytes")
+    for taps in (1, 16):
+        r.config.aniso_taps = taps
+        textured_launches(r, f"workload aniso {taps}")
+        t = wall_and_device_ms(lambda: r.render(block=False), TEX_FRAMES)
+        frame = r.render()
+        lit = float((frame["image"].amax(dim=-1) > 0).float().mean())
+        require(lit > 0.2 and bool(torch.isfinite(frame["color"]).all()),
+                f"[textures] workload aniso {taps}: bad frame")
+        pf = profiler.profile_frame(r, 3)
+        out["frames"][str(taps)] = dict(
+            wall_ms=t["wall_ms"], ms=t["ms"],
+            mrays_per_s=rays / t["wall_ms"] / 1e3, lit_share=lit,
+            profile_frame=pf.ms_per_pass)
+        log(f"[textures] workload aniso_taps={taps}: {t['wall_ms']:.3f} "
+            f"ms/frame host wall, {t['ms']:.3f} card-only, "
+            f"{rays / t['wall_ms'] / 1e3:.2f} Mrays/s, lit share {lit:.4f};"
+            f" profile_frame {pf.pretty()}")
+    log(f"[textures] {card_line()}")
+    r.config.aniso_taps = 1
+    return r, out
+
+
+def phase11_profile(r, out):
+    """Under torch.profiler, after every other phase: the workload frame's
+    CUDA kernel launches and device milliseconds per frame, and the
+    device-busy share against its unprofiled host wall time
+    (phase11_workload's)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for taps in (1, 16):
+        r.config.aniso_taps = taps
+        r.render()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                r.render(block=False)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000.0 / 2
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        require(kernels, "[textures] torch.profiler saw no device work")
+        dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 2e3
+        entry = out["frames"][str(taps)]
+        busy = dev_ms / entry["wall_ms"]
+        entry.update(launches_per_frame=len(kernels) / 2,
+                     device_ms=dev_ms, busy_share=busy,
+                     profiled_wall_ms=wall)
+        log(f"[textures] workload aniso_taps={taps} under torch.profiler: "
+            f"{len(kernels) / 2:.0f} device launches per frame, "
+            f"{dev_ms:.3f} device ms per frame, device-busy share {busy:.4f}"
+            f" of the {entry['wall_ms']:.3f} ms frame ({wall:.3f} ms/frame "
+            f"under the profiler)")
+    r.config.aniso_taps = 1
+
+
+def images_agree(a, b, what, tag="ground truth"):
     """Phase 3's bars on two (H, W, 3) u8 images, card's and host's."""
     import torch
 
@@ -1043,7 +1405,7 @@ def images_agree(a, b, what):
     eq = float((d == 0).float().mean())
     far = float((d > 2).float().mean())
     lit = float((a.amax(-1) > 0).float().mean())
-    log(f"[ground truth] {what}, card vs host plain: equal pixels "
+    log(f"[{tag}] {what}, card vs host plain: equal pixels "
         f"{eq:.4f}, off by > 2 {far:.4f}, max diff {int(d.max())}, lit "
         f"share {lit:.4f}")
     require(eq >= 0.999 and far <= 1e-3 and lit > 0.2,
@@ -1996,6 +2358,10 @@ def main():
             gt = phase9(r, label)
             gv = phase10(r, label, f, k)
             k.update(gv["kernels"])
+            if (w, h) == SHAPES[0]:
+                tex = dict(tiers=phase11_tiers(), arena=phase11_arena(r, f),
+                           small=phase11_small())
+                tex_r, tex["workload"] = phase11_workload()
             prof = phase8_profile(r, label)
             results[label] = dict(kernels=k, frame=f, dynamic=dyn,
                                   variants=var, profile=prof,
@@ -2007,6 +2373,7 @@ def main():
         # torch.profiler last: launches after it run slower (PERF.md)
         for label, r in renderers.items():
             phase8_device(r, label, results[label]["profile"])
+        phase11_profile(tex_r, tex["workload"])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2087,7 +2454,8 @@ def main():
                             for k, v in results.items()},
                         k3_with_noise_table={
                             k: v["kernels"]["gtao_main"]["with_noise_table"]
-                            for k, v in results.items()})))
+                            for k, v in results.items()},
+                        textures=tex)))
     log(card_line())
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps(dict(ok=True, device=dict(

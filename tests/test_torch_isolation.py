@@ -1,7 +1,9 @@
 """The port stands alone: with ``import tpurt`` and ``import jax`` made to
 fail by a meta-path hook, every module of tpurt_torch and chip_smoke.py
 import, and 32x32 CPU frames render through Renderer.render() and
-Renderer.render_dynamic() (refit and rebuild), as do a fused-shadow frame
+Renderer.render_dynamic() (refit and rebuild), a mip-mapped anisotropic
+frame (its shadow rays equal to the steps probe's) and a streaming step of
+its texture arena, as do a fused-shadow frame
 with two pops and a uv-payload frame, and the diagnostics (the profiler,
 render_stream, FrameTimer, the steps and transcendental probes, a counted
 trace) and the ground-truth path (an spp frame, a resize, accumulation
@@ -61,6 +63,41 @@ CHECKS = {
         for out in (a, b):
             assert out["image"].shape == (32, 32, 3)
             assert int(out["image"].max()) > 0
+        # mip-mapped anisotropic frame through the arena, then one
+        # streaming step: the textured cube leaves; its slots free and
+        # only the rows of images new to the arena upload
+        m = build_bench_scene(Renderer(RendererConfig(
+            width=32, height=32, device="cpu", mipmaps=True,
+            aniso_taps=4)), field=dict(nx=2, nz=2, subdiv=1), cubes=2)
+        assert "tex_mip_quad" in m.scene_device
+        # the steps probe's shadow rays are the ones the frame traces
+        import torch
+        from tpurt_torch.passes import shade as shade_pass
+        from tpurt_torch.tools import steps_probe
+        traced, trace_any = [], shade_pass.trace_any_bvh8
+        def recording(scene, o, d, t_min, t_max, **kw):
+            traced.append((o, d, t_min, t_max))
+            return trace_any(scene, o, d, t_min, t_max, **kw)
+        shade_pass.trace_any_bvh8 = recording
+        try:
+            assert int(m.render()["image"].max()) > 0
+        finally:
+            shade_pass.trace_any_bvh8 = trace_any
+        _, shadow = steps_probe.frame_rays(m)
+        assert len(shadow) == len(traced) > 0
+        for got, want in zip(shadow, traced):
+            assert all(torch.equal(torch.as_tensor(g), torch.as_tensor(w))
+                       for g, w in zip(got, want))
+        assert steps_probe.run(m)["push_orders"]["none"]["primary"][
+            "warp_steps_sum"] > 0
+        arena = m._tex_arena
+        before = dict(arena._live)
+        m.models[-1].set_visible(False)
+        assert m.render()["image"].shape == (32, 32, 3)
+        after = arena._live
+        assert arena.last_freed == len(set(before) - set(after)) > 0
+        assert arena.last_uploaded_rows == sum(
+            n for k, (_, n) in after.items() if k not in before)
     """,
     "variants": """
         import torch

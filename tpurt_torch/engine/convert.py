@@ -14,9 +14,12 @@ and ``compact_bvh2`` builds K6's compact child-pair table from its rows.
   gtao_tensors    gtao_constants(...)              (f32 and fp16 vectors)
   lpm_tensors     lpm_setup(...)[1]
 
-The tests use these to feed identical inputs to both packages. Texel rows
-upload as one flat (rows, 64) u8 table without tpurt's streaming arena
-(which tpurt documents as giving bit-identical values).
+The tests use these to feed identical inputs to both packages. The texel
+table that ships (``FlatScene.as_pytree``) uploads as it is: the quad slab
+as one flat (rows, 64) u8 table with its shape, or a mip tier with its
+offsets and ``tex_mip_sizes``. The renderer's streaming arena
+(``engine/texture_arena.py``) takes the table out of the dict first and
+supplies its own (the same values).
 """
 from __future__ import annotations
 
@@ -162,14 +165,33 @@ def _check_bvh8(nodes8: np.ndarray) -> int:
     return depth8
 
 
-def _quad_tensors(quad48, device) -> dict:
-    quad = np.asarray(quad48, np.uint8)
-    return dict(tex_quad=_t(quad.reshape(-1, quad.shape[-1]), device),
-                tex_quad_shape=tuple(int(s) for s in quad.shape))
+# the mip texel tables a scene may ship (``FlatScene._texel_tables``)
+MIP_TABLES = ("tex_mip_sizes", "tex_mip_quad", "tex_mip_quad_offsets",
+              "tex_mip_pair", "tex_mip_pair_offsets", "tex_mip_block4",
+              "tex_mip_block4_offsets")
+
+
+def texel_tensors(pt: dict, device) -> dict:
+    """The shipped texel table on `device`: ``tex_quad48`` as the flat
+    ``tex_quad`` (rows, 64) u8 with ``tex_quad_shape`` (U, H, W, 64), and
+    the mip tables under their own names (u8 rows, int32 offsets and
+    sizes). Tables absent from `pt` are skipped."""
+    out = {}
+    if pt.get("tex_quad48") is not None:
+        quad = np.asarray(pt["tex_quad48"], np.uint8)
+        out.update(tex_quad=_t(quad.reshape(-1, quad.shape[-1]), device),
+                   tex_quad_shape=tuple(int(s) for s in quad.shape))
+    for k in MIP_TABLES:
+        if pt.get(k) is not None:
+            a = np.asarray(pt[k])
+            out[k] = _t(a, device, torch.uint8 if a.dtype == np.uint8
+                        else torch.int32)
+    return out
 
 
 def scene_tensors(pt: dict, device) -> dict:
-    """Static scene tables on `device`. Raises when the BVH8 could overflow
+    """Static scene tables on `device` (the texel table as
+    ``texel_tensors`` uploads it). Raises when the BVH8 could overflow
     the one-pop traversal stack or a leaf is wider than the kernels' leaf
     loop (the two-pop kernels check their own bound when called). Beside
     the (M, 128) rows ``nodes8`` it carries their compact table ``nodes8c``
@@ -187,7 +209,7 @@ def scene_tensors(pt: dict, device) -> dict:
         num_tris=int(pt["geom"]["v0"].shape[0]),
         depth8=depth8,
         tri_attr=_t(np.asarray(pt["tri_attr"], np.float32), device),
-        **_quad_tensors(pt["tex_quad48"], device),
+        **texel_tensors(pt, device),
     )
     if "uvp" in pt["geom"]:
         out["uvp"] = _t(np.asarray(pt["geom"]["uvp"], np.float32), device)
@@ -197,14 +219,15 @@ def scene_tensors(pt: dict, device) -> dict:
 def object_tensors(pt: dict, device) -> dict:
     """The dynamic scene's object-space tables on `device`, uploaded once:
     index tables as int64 (gather indices), the rest as f32 (``tex_size``
-    is read only as the f32 extent columns of ``tri_attr``)."""
+    is read only as the f32 extent columns of ``tri_attr``), with the texel
+    table as ``texel_tensors`` uploads it."""
     out = {k: _t(np.asarray(pt[k], np.int64), device)
            for k in ("tri_vertex", "tri_prim", "vtx_instance",
                      "tex_img_of_prim")}
     out.update({k: _t(np.asarray(pt[k], np.float32), device)
                 for k in ("obj_vtx_pos", "obj_vtx_normal", "obj_vtx_tangent",
                           "vtx_uv", "tex_size")})
-    out.update(_quad_tensors(pt["tex_quad48"], device))
+    out.update(texel_tensors(pt, device))
     return out
 
 

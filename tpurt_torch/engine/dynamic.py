@@ -28,7 +28,7 @@ from ..passes.encodings import divide, sqrt
 from ..passes.gtao import GtaoSettings
 from ..passes.rays import T_MAX, T_MIN, camera_rays
 from ..passes.shade import shade
-from .convert import compact_bvh2, pack_bvh2, pack_tris_device
+from .convert import MIP_TABLES, compact_bvh2, pack_bvh2, pack_tris_device
 from .frame import finish_frame
 
 REBUILD_SAH_RATIO = 2.0   # refit decay threshold that flips to rebuild
@@ -88,6 +88,16 @@ def _tri_attr(obj, vtx_pos, vtx_normal, vtx_tangent):
         dim=1).contiguous()
 
 
+# the texel tables do not depend on the transforms: the frames read the
+# uploaded object tables' as they are (tpurt's _forward_mip_tables,
+# dynamic.py:59-69, and its tex_quad48)
+_TEXEL_KEYS = ("tex_quad", "tex_quad_shape") + MIP_TABLES
+
+
+def _texel_tables(obj: dict) -> dict:
+    return {k: obj[k] for k in _TEXEL_KEYS if k in obj}
+
+
 def _transforms(transforms, device):
     t = torch.as_tensor(transforms, dtype=torch.float32, device=device)
     if t.ndim != 3 or t.shape[1:] != (3, 4):
@@ -118,8 +128,7 @@ def build_world_tables(obj: dict, transforms) -> dict:
                 depth2=depth_bound(tv.shape[0]),
                 num_tris=int(tv.shape[0]),
                 tri_attr=_tri_attr(obj, vtx_pos, vtx_normal, vtx_tangent),
-                tex_quad=obj["tex_quad"],
-                tex_quad_shape=obj["tex_quad_shape"])
+                **_texel_tables(obj))
 
 
 def render_frame_dynamic(obj: dict, transforms, camera: dict, lights: dict,
@@ -127,7 +136,8 @@ def render_frame_dynamic(obj: dict, transforms, camera: dict, lights: dict,
                          width: int, height: int,
                          gtao_settings: GtaoSettings = GtaoSettings(),
                          enable_gtao: bool = True,
-                         enable_tonemap: bool = True) -> dict:
+                         enable_tonemap: bool = True,
+                         aniso_taps: int = 1) -> dict:
     """One frame with a per-frame LBVH rebuild: primary rays through K6
     closest hit and every light's shadow rays through K6 any hit (leaves
     of one triangle), then the static frame's pass tail."""
@@ -136,7 +146,8 @@ def render_frame_dynamic(obj: dict, transforms, camera: dict, lights: dict,
     hits = trace_closest_bvh2(scene, origin, direction, T_MIN, T_MAX,
                               max_leaf=1, height=height, width=width)
     g = shade(scene, camera, lights, hits, tables="bvh2", max_leaf=1,
-              height=height, width=width)
+              height=height, width=width, direction=direction,
+              aniso_taps=aniso_taps)
     return finish_frame(g, gtao, lpm, noise_index, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,
@@ -167,7 +178,8 @@ def render_frame_dynamic_refit(obj: dict, refit: dict, transforms,
                                height: int,
                                gtao_settings: GtaoSettings = GtaoSettings(),
                                enable_gtao: bool = True,
-                               enable_tonemap: bool = True) -> dict:
+                               enable_tonemap: bool = True,
+                               aniso_taps: int = 1) -> dict:
     """One frame with the rest-pose BVH8 refit to the moved triangles, then
     the static frame's path (K1, K2 over the compact table rebuilt from the
     refit rows, pass tail). `refit` is
@@ -190,13 +202,12 @@ def render_frame_dynamic_refit(obj: dict, refit: dict, transforms,
                  tris=pack_tris_device(geom),
                  depth8=refit["depth8"],
                  tri_attr=_tri_attr(obj, vtx_pos, vtx_normal, vtx_tangent),
-                 tex_quad=obj["tex_quad"],
-                 tex_quad_shape=obj["tex_quad_shape"])
+                 **_texel_tables(obj))
     origin, direction = camera_rays(camera, width, height)
     hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX,
                               height=height, width=width)
     g = shade(scene, camera, lights, hits, tables="bvh8", height=height,
-              width=width)
+              width=width, direction=direction, aniso_taps=aniso_taps)
     out = finish_frame(g, gtao, lpm, noise_index, width=width,
                        height=height, gtao_settings=gtao_settings,
                        enable_gtao=enable_gtao,

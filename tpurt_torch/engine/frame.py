@@ -121,7 +121,7 @@ SPP_UNROLL = 4
 
 def _gbuffer(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
              *, width: int, height: int, row_start: int = 0, num_rows=None,
-             spp: int = 1, step=no_step) -> dict:
+             spp: int = 1, aniso_taps: int = 1, step=no_step) -> dict:
     """render_gbuffer, with the frame's shadow fusion and step wrapper: the
     spp samples' rays run in the "rays" step, their traces in "trace" and
     their shading and color sum in "shade"."""
@@ -135,28 +135,32 @@ def _gbuffer(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
         hits = [trace_closest_bvh8(scene, o, d, T_MIN, T_MAX, height=band,
                                    width=width) for o, d in rays]
     with step("shade"):
-        kw = dict(fuse_shadows=fuse_shadows, height=band, width=width)
-        g = shade(scene, camera, lights, hits[0], **kw)
+        # the ray cone's spread reads the full image's height
+        kw = dict(fuse_shadows=fuse_shadows, height=band, width=width,
+                  aniso_taps=aniso_taps, image_rows=height)
+        g = shade(scene, camera, lights, hits[0], direction=rays[0][1], **kw)
         if spp > 1:
             acc = g["color"]
-            for h in hits[1:]:
-                acc = acc + shade(scene, camera, lights, h, **kw)["color"]
+            for (_, d), h in zip(rays[1:], hits[1:]):
+                acc = acc + shade(scene, camera, lights, h, direction=d,
+                                  **kw)["color"]
             g = dict(g, color=divide(acc, spp))
     return g
 
 
 def render_gbuffer(scene: dict, camera: dict, lights: dict, *, width: int,
                    height: int, row_start: int = 0, num_rows=None,
-                   spp: int = 1) -> dict:
+                   spp: int = 1, aniso_taps: int = 1) -> dict:
     """Trace and shade the pixel grid, or the band of `num_rows` rows from
     `row_start`: the unquantized G-buffer dict(color (R*W, 3), depth
     (R*W,), normal_enc (R*W, 3)). With spp > 1 the color is the mean of
     the R2-jittered samples, summed in tpurt's order (the center sample,
     then samples 1..spp-1, then / spp); depth and normals come from the
-    center sample."""
+    center sample. aniso_taps as in ``shade``; a band's ray cone spreads
+    over the whole image's `height`."""
     return _gbuffer(False, scene, camera, lights, width=width,
                     height=height, row_start=row_start, num_rows=num_rows,
-                    spp=spp)
+                    spp=spp, aniso_taps=aniso_taps)
 
 
 def render_sample_hdr(scene: dict, camera: dict, lights: dict, jitter, *,
@@ -164,11 +168,12 @@ def render_sample_hdr(scene: dict, camera: dict, lights: dict, jitter, *,
     """One progressive-accumulation sample: the linear HDR radiance (H, W,
     3) f32 with the sub-pixel camera jitter `jitter` (jx, jy) in [-0.5,
     0.5] pixels (``camera_rays``'s forms). ``engine/accumulate.py`` sums
-    these."""
+    these. A mip scene samples isotropically, as tpurt's sample does."""
     origin, direction = camera_rays(camera, width, height, jitter=jitter)
     hits = trace_closest_bvh8(scene, origin, direction, T_MIN, T_MAX,
                               height=height, width=width)
-    g = shade(scene, camera, lights, hits, height=height, width=width)
+    g = shade(scene, camera, lights, hits, height=height, width=width,
+              direction=direction)
     return g["color"].reshape(height, width, 3)
 
 
@@ -176,9 +181,9 @@ def _frame(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
            gtao: dict, lpm: dict, noise_index: int, *, width: int,
            height: int, gtao_settings: GtaoSettings = GtaoSettings(),
            enable_gtao: bool = True, enable_tonemap: bool = True,
-           spp: int = 1, step=no_step) -> dict:
+           spp: int = 1, aniso_taps: int = 1, step=no_step) -> dict:
     g = _gbuffer(fuse_shadows, scene, camera, lights, width=width,
-                 height=height, spp=spp, step=step)
+                 height=height, spp=spp, aniso_taps=aniso_taps, step=step)
     return finish_frame(g, gtao, lpm, noise_index, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,
@@ -187,10 +192,11 @@ def _frame(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
 
 def render_frame(*args, **kwargs) -> dict:
     """Render one frame: (scene, camera, lights, gtao, lpm, noise_index, *,
-    width, height, gtao_settings, enable_gtao, enable_tonemap, spp, step)
-    -> the outputs of ``finish_frame``. spp > 1 averages R2-jittered HDR
-    samples (``render_gbuffer``); GTAO reads the center sample's depth and
-    normals."""
+    width, height, gtao_settings, enable_gtao, enable_tonemap, spp,
+    aniso_taps, step) -> the outputs of ``finish_frame``. spp > 1 averages
+    R2-jittered HDR samples (``render_gbuffer``); GTAO reads the center
+    sample's depth and normals. aniso_taps > 1 filters a mip scene's
+    textures anisotropically."""
     return _frame(False, *args, **kwargs)
 
 

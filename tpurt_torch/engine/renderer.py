@@ -5,8 +5,10 @@ and the dynamic-scene frame (``render_dynamic``) on one device.
 State kept between frames: the model residency (tpurt's ``Model`` state
 machine), the flattened scene uploaded once per resident-set change (with
 the dynamic scene's object tables and refit metadata, uploaded at its first
-dynamic frame), the camera / light / GTAO-constant tensors, re-uploaded
-only when their host values change, and the refit -> rebuild trigger.
+dynamic frame), the streaming-texture arena that holds the static scene's
+texel rows across those changes, the camera / light / GTAO-constant
+tensors, re-uploaded only when their host values change, and the refit ->
+rebuild trigger.
 
 Every static scene traces through the BVH8 kernels (K1, K2): tpurt's
 "auto" tier would pick its binary packet kernel for scenes under ~5k
@@ -17,6 +19,7 @@ kernel serves every size.
 """
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -33,6 +36,7 @@ from . import convert
 from .dynamic import (REBUILD_SAH_RATIO, make_refit_data,
                       render_frame_dynamic, render_frame_dynamic_refit)
 from .frame import no_step, render_frame
+from .texture_arena import TextureRowArena
 
 
 @dataclass
@@ -46,6 +50,16 @@ class RendererConfig:
     enable_tonemap: bool = True
     # anti-aliasing samples per pixel (R2-jittered; 1 = the reference)
     spp: int = 1
+    # trilinear mip sampling at the ray-cone LOD (the reference's sampler
+    # is trilinear, but its textures have one level: off = the reference)
+    mipmaps: bool = False
+    # anisotropic taps along the footprint's major axis (with mipmaps;
+    # 1 = trilinear): the reference sampler's max_anisotropy=16
+    aniso_taps: int = 1
+    # the static scene's texel rows in one persistent buddy-managed tensor
+    # (engine/texture_arena.py): a residency change uploads only the
+    # joining images' rows
+    texture_arena: bool = True
     device: str = "cuda"
 
 
@@ -77,6 +91,7 @@ class Renderer:
         self._refit_device = None    # BVH8 refit metadata
         self._rebuild_until = -1     # rebuild frames until this index
         self.last_refit_sah_ratio = 1.0
+        self._tex_arena: Optional[TextureRowArena] = None
 
     # -- scene management ---------------------------------------------------
 
@@ -110,10 +125,82 @@ class Renderer:
             m.dirty = False
         if (changed or self._scene is None) and any(
                 m.is_device_resident() for m in self.models):
-            self._scene = flatten_scene(self.models)
-            self._scene_device = convert.scene_tensors(
-                self._scene.as_pytree(), self.device)
+            self._scene = flatten_scene(self.models,
+                                        mipmaps=self.config.mipmaps)
+            pt = self._scene.as_pytree()
+            patch = (self._arena_texture_tables(pt)
+                     if self.config.texture_arena else {})
+            self._scene_device = dict(convert.scene_tensors(pt, self.device),
+                                      **patch)
             self._obj_device = self._refit_device = None
+
+    def _arena(self) -> TextureRowArena:
+        if self._tex_arena is None:
+            self._tex_arena = TextureRowArena(device=self.device)
+        return self._tex_arena
+
+    def _arena_texture_tables(self, pt: dict) -> dict:
+        """Route the shipped texel table through the streaming arena
+        (tpurt ``renderer.py:140-202``): each unique image's rows become a
+        content-keyed slot of the arena's one tensor. Removes the table
+        from `pt` (so scene_tensors skips it) and returns the device
+        tensors that take its place: for a mip tier the arena and the
+        offsets moved to the images' slots, without mips
+        ``_arena_quad48``'s."""
+        key = next((k for k in ("tex_mip_quad", "tex_mip_pair",
+                                "tex_mip_block4") if k in pt), None)
+        if key is None:
+            return self._arena_quad48(pt) if "tex_quad48" in pt else {}
+        off_key = key + "_offsets"
+        atlas, off = pt.pop(key), np.asarray(pt.pop(off_key))  # (P, L)
+        sizes = np.asarray(pt["tex_mip_sizes"])                # (P, L, 2)
+        img = np.asarray(self._scene.tex_img_of_prim)          # (P,)
+        h = sizes[..., 0].astype(np.int64)
+        w = sizes[..., 1].astype(np.int64)
+        rows = dict(tex_mip_quad=h * w,
+                    tex_mip_pair=h * ((w + 1) // 2),
+                    tex_mip_block4=((h + 1) // 2) * ((w + 1) // 2))[key]
+        chunks, key_of_slot = {}, []
+        base_of_slot = np.zeros(int(img.max()) + 1, np.int64)
+        for ui in range(base_of_slot.shape[0]):
+            rep = int(np.argmax(img == ui))
+            base = int(off[rep, 0])
+            chunk = atlas[base:base + int(rows[rep].sum())]
+            k = hashlib.sha1(chunk.tobytes()).hexdigest()
+            chunks[k] = chunk
+            key_of_slot.append(k)
+            base_of_slot[ui] = base
+        arena = self._arena()
+        arena_base = arena.ensure(chunks)
+        slot_base = np.asarray([arena_base[k] for k in key_of_slot],
+                               np.int64)
+        new_off = (off.astype(np.int64) - base_of_slot[img][:, None]
+                   + slot_base[img][:, None]).astype(np.int32)
+        return {key: arena.atlas,
+                off_key: torch.from_numpy(new_off).to(self.device)}
+
+    def _arena_quad48(self, pt: dict) -> dict:
+        """The quad rows without mips through the arena (tpurt
+        ``renderer.py:204-243``): each unique image's rows at its own (h,
+        w) extent, no Hmax x Wmax padding, addressed by a per-image base
+        row (``passes/shade.sample_bilinear_quad(base=)``; the same
+        values)."""
+        quad = pt.pop("tex_quad48")                   # (U, Hmax, Wmax, 64)
+        tex_size = np.asarray(self._scene.tex_size)   # (P, 2)
+        img = np.asarray(self._scene.tex_img_of_prim)
+        chunks, key_of_slot = {}, []
+        for ui in range(quad.shape[0]):
+            rep = int(np.argmax(img == ui))
+            h, w = int(tex_size[rep, 0]), int(tex_size[rep, 1])
+            rows = np.ascontiguousarray(quad[ui, :h, :w].reshape(h * w, -1))
+            k = hashlib.sha1(rows.tobytes()).hexdigest()
+            chunks[k] = rows
+            key_of_slot.append(k)
+        arena = self._arena()
+        arena_base = arena.ensure(chunks)
+        base = np.asarray([arena_base[k] for k in key_of_slot], np.int32)
+        return dict(tex_quad=arena.atlas,
+                    tex_quad_base=torch.from_numpy(base).to(self.device))
 
     def _cached(self, key: str, host: dict, to_device):
         """Reuse uploaded tensors while the host values are unchanged."""
@@ -168,7 +255,7 @@ class Renderer:
                             noise_index, width=c.width, height=c.height,
                             gtao_settings=c.gtao, enable_gtao=c.enable_gtao,
                             enable_tonemap=c.enable_tonemap, spp=c.spp,
-                            step=step)
+                            aniso_taps=c.aniso_taps, step=step)
 
     def render(self, block: bool = True) -> dict:
         """Render one frame; returns the output dict of device tensors."""
@@ -208,7 +295,8 @@ class Renderer:
         if refit and auto_rebuild and self._frame_idx < self._rebuild_until:
             refit = False  # decayed tree: rebuild for this window
         kw = dict(width=c.width, height=c.height, gtao_settings=c.gtao,
-                  enable_gtao=c.enable_gtao, enable_tonemap=c.enable_tonemap)
+                  enable_gtao=c.enable_gtao, enable_tonemap=c.enable_tonemap,
+                  aniso_taps=c.aniso_taps)
         if refit:
             out = render_frame_dynamic_refit(
                 self._obj_device, self._refit_device, transforms, cam,

@@ -1,14 +1,32 @@
 """Primary-hit shading — port of ``tpurt/passes/shade.py:shade`` on its
-``tri_attr`` + ``tex_quad48`` tables, with its per-light and fused shadows.
+``tri_attr`` tables and texel tiers, with its per-light and fused shadows.
 
 Per hit: one ``tri_attr`` row gives the three corners' position, uv,
-normal and tangent; barycentric interpolation; Gram-Schmidt TBN; one quad
-row gives the whole 2x2 bilinear footprint of albedo, ORM and normal map.
-When the closest-hit trace emitted the uv payload (hit keys ``texu``,
-``texv``, ``img``, ``texh``, ``texw``: ``trace_closest_bvh8(uv_payload=
-True)``), the quad index reads them instead of the ``tri_attr`` row
-(tpurt ``shade.py:703-708``); the values are bit-equal. Outputs the
-unquantized G-buffer: color, view depth, encoded view normal.
+normal and tangent; barycentric interpolation; Gram-Schmidt TBN; then the
+albedo, ORM and normal-map texels, all three layers at once:
+
+* without mips, one quad row gives the whole 2x2 bilinear footprint
+  (``sample_bilinear_quad``), from the (U, H, W, 64) slab or from the
+  streaming arena's per-image rows (``tex_quad_base``). When the
+  closest-hit trace emitted the uv payload (hit keys ``texu``, ``texv``,
+  ``img``, ``texh``, ``texw``: ``trace_closest_bvh8(uv_payload=True)``),
+  the quad index reads them instead of the ``tri_attr`` row (tpurt
+  ``shade.py:703-708``); the values are bit-equal;
+* a mip scene (``tex_mip_sizes``) samples its tier (block4, pair or quad,
+  the one ``flatten_scene`` ships) trilinearly at the ray-cone LOD of the
+  primary ray (``ray_cone_lod``), or with ``aniso_taps > 1`` taps along
+  the cone's elliptical footprint (``ray_cone_aniso``), tpurt
+  ``shade.py:616-694``. It reads no uv payload, as tpurt takes this
+  branch first. The per-layer atlas's samplers (``sample_trilinear``,
+  ``sample_anisotropic``) and ``sample_bilinear`` over the padded stack
+  are the plain definitions the tiers and the quad rows are held to; no
+  frame reads them.
+
+Every gather index is in range by construction, as tpurt's arithmetic
+makes it: texel coordinates wrap by ``torch.remainder`` with the level's
+extent, LODs clamp to [0, L-1] (a NaN LOD, only from non-finite inputs,
+takes level 0 as XLA's conversion does), miss lanes read triangle 0.
+Outputs the unquantized G-buffer: color, view depth, encoded view normal.
 
 The light schedule (tpurt ``shade.py:747-804``): a pre-pass builds every
 light's L vector and shadow ray (lanes that need no ray get ``t_max = 0``);
@@ -25,8 +43,8 @@ loop's bits, are not ported.
 ``max_leaf`` do (``tpurt/passes/shade.py:526-528, 867-872``): "bvh8" for
 the BVH8 rows (K2: static and refit frames), "bvh2" for a binary BVH (K6
 any-hit, leaves of up to ``max_leaf`` triangles: the rebuild frames, which
-never fuse). tpurt's sharded-geometry hook ``shadow_trace_multi_fn`` is not
-ported yet.
+never fuse). tpurt's sharded-geometry hooks (``shadow_trace_multi_fn``,
+the samplers' ``gather=`` and ``shape=``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -35,7 +53,7 @@ import torch
 from ..kernels.traverse_bvh2 import trace_any_bvh2
 from ..kernels.traverse_bvh8 import trace_any_bvh8, trace_any_bvh8_multi
 from . import brdf
-from .encodings import divide, sqrt
+from .encodings import divide, rdivide, sqrt
 from .light import get_light_radiance, get_unnormalized_L_vec
 
 LOCAL_SSS_RATIO = 0.4
@@ -59,33 +77,377 @@ def _normalize(v, eps=1e-20):
     return v / torch.clamp_min(_norm(v), eps)
 
 
-def sample_bilinear_quad(quad, quad_shape, hw, img, uv):
-    """Bilinear REPEAT fetch from quad rows: each (rows, 64) u8 row carries
-    its texel's 2x2 footprint across the 3 packed layers (bytes 0..47).
-    hw: (N, 2) f32 (h, w) extents; img: (N,) unique-image slot."""
-    _, H, W, _ = quad_shape
+def _texel_coords(hw, uv):
+    """The bilinear footprint of `uv` in images of extents hw (N, 2) int32
+    (h, w): the REPEAT-wrapped top-left texel (x0i, y0i) int32 and the lerp
+    weights fx, fy (N, 1) f32 (tpurt's order of operations)."""
     h = hw[:, 0]
     w = hw[:, 1]
-    px = uv[:, 0] * w - 0.5
-    py = uv[:, 1] * h - 0.5
+    px = uv[:, 0] * w.to(torch.float32) - 0.5
+    py = uv[:, 1] * h.to(torch.float32) - 0.5
     x0 = torch.floor(px)
     y0 = torch.floor(py)
     fx = (px - x0)[:, None]
     fy = (py - y0)[:, None]
-    x0i = torch.remainder(x0.to(torch.int32), w.to(torch.int32))
-    y0i = torch.remainder(y0.to(torch.int32), h.to(torch.int32))
-    flat = (img.long() * H + y0i) * W + x0i
-    row = quad[flat].to(torch.float32)
-    t00, t10, t01, t11 = (row[:, 0:12], row[:, 12:24], row[:, 24:36],
-                          row[:, 36:48])
+    x0i = torch.remainder(x0.to(torch.int32), w)
+    y0i = torch.remainder(y0.to(torch.int32), h)
+    return h, w, x0i, y0i, fx, fy
+
+
+def _bilerp(t00, t10, t01, t11, fx, fy):
     out = ((t00 * (1 - fx) + t10 * fx) * (1 - fy)
            + (t01 * (1 - fx) + t11 * fx) * fy)
     return divide(out, 255.0)
 
 
-def surface(scene: dict, camera: dict, hits: dict) -> dict:
+def sample_bilinear(tex_stack, tex_size, prim, layer: int, uv,
+                    images_per_prim: int = 3):
+    """Bilinear REPEAT fetch from the padded per-primitive stack:
+    tex_stack (P*images_per_prim, H, W, C) u8, tex_size (P, 2) int32, prim
+    (N,), uv (N, 2). Returns (N, C) f32 in [0, 1]; images_per_prim=1
+    addresses the packed 12-channel stack."""
+    hw = tex_size[prim.long()]
+    _, _, x0i, y0i, fx, fy = _texel_coords(hw, uv)
+    x1i = torch.remainder(x0i + 1, hw[:, 1])
+    y1i = torch.remainder(y0i + 1, hw[:, 0])
+    img = (prim.long() * images_per_prim + layer)
+
+    def tap(yi, xi):
+        return tex_stack[img, yi.long(), xi.long()].to(torch.float32)
+
+    return _bilerp(tap(y0i, x0i), tap(y0i, x1i), tap(y1i, x0i),
+                   tap(y1i, x1i), fx, fy)
+
+
+def _quad_lerp(row, fx, fy):
+    row = row.to(torch.float32)
+    return _bilerp(row[:, 0:12], row[:, 12:24], row[:, 24:36],
+                   row[:, 36:48], fx, fy)
+
+
+def sample_bilinear_quad(quad, quad_shape, hw, img, uv, *, base=None):
+    """Bilinear REPEAT fetch from quad rows: each 64-byte u8 row carries
+    its texel's 2x2 footprint across the 3 packed layers (bytes 0..47).
+    hw: (N, 2) f32 (h, w) extents; img: (N,) unique-image slot. `quad` is
+    the (U*H*W, 64) slab of shape quad_shape (U, H, W, 64), or, with
+    `base` (U,) int32 (the streaming arena, ``engine/texture_arena.py``),
+    rows laid out at each image's own extent from base[img]: flat =
+    base[img] + y*w + x, the same values."""
+    h, w, x0i, y0i, fx, fy = _texel_coords(hw.to(torch.int32), uv)
+    if base is not None:
+        flat = base[img.long()] + y0i * w + x0i
+    else:
+        _, H, W, _ = quad_shape
+        flat = (img.long() * H + y0i) * W + x0i
+    return _quad_lerp(quad[flat.long()], fx, fy)
+
+
+def _lod_levels(lod, levels: int):
+    """Clamp a LOD to [0, levels-1]: (l0 int32, l1 int32, frac (N, 1)).
+    A NaN LOD (only from non-finite inputs) takes level 0, as XLA's
+    float-to-int conversion gives it; every other lane is unchanged."""
+    lod = torch.clamp(lod, 0.0, float(levels - 1))
+    l0 = torch.floor(lod)
+    frac = (lod - l0)[:, None]
+    l0i = torch.nan_to_num(l0).to(torch.int32)
+    l1i = torch.clamp_max(l0i + 1, levels - 1)
+    return l0i, l1i, frac
+
+
+def _trilerp(s0, s1, frac):
+    return s0 * (1 - frac) + s1 * frac
+
+
+def _sample_mip_bilinear(atlas, offsets, sizes, prim, layer: int, uv,
+                         level):
+    """Bilinear REPEAT fetch of one layer at an integer mip `level` (per
+    lane) from the per-layer atlas: atlas (N, 4) u8, offsets (P*3, L)
+    int32, sizes (P, L, 2) int32."""
+    prim = prim.long()
+    level = level.long()
+    h, w, x0i, y0i, fx, fy = _texel_coords(sizes[prim, level], uv)
+    x1i = torch.remainder(x0i + 1, w)
+    y1i = torch.remainder(y0i + 1, h)
+    base = offsets[prim * 3 + layer, level]
+
+    def tap(yi, xi):
+        return atlas[(base + yi * w + xi).long()].to(torch.float32)
+
+    return _bilerp(tap(y0i, x0i), tap(y0i, x1i), tap(y1i, x0i),
+                   tap(y1i, x1i), fx, fy)
+
+
+def sample_trilinear(atlas, offsets, sizes, prim, layer: int, uv, lod):
+    """Trilinear fetch of one layer: bilinear at the two mip levels around
+    the clamped `lod`, lerped by its fraction (the reference's LINEAR /
+    LINEAR / LINEAR sampler)."""
+    l0i, l1i, frac = _lod_levels(lod, sizes.shape[1])
+    return _trilerp(
+        _sample_mip_bilinear(atlas, offsets, sizes, prim, layer, uv, l0i),
+        _sample_mip_bilinear(atlas, offsets, sizes, prim, layer, uv, l1i),
+        frac)
+
+
+def _mip_quad_flat_index(qoffsets, sizes, prim, uv, level):
+    """The quad tier's row index and lerp weights at integer `level`."""
+    prim = prim.long()
+    level = level.long()
+    _, w, x0i, y0i, fx, fy = _texel_coords(sizes[prim, level], uv)
+    return qoffsets[prim, level] + y0i * w + x0i, fx, fy
+
+
+def _sample_mip_bilinear_quad(qatlas, qoffsets, sizes, prim, uv, level):
+    """Bilinear fetch of all three layers at integer `level` in one row
+    gather from the quad tier; (N, 12) [albedo4 | orm4 | normal4]."""
+    flat, fx, fy = _mip_quad_flat_index(qoffsets, sizes, prim, uv, level)
+    return _quad_lerp(qatlas[flat.long()], fx, fy)
+
+
+def sample_trilinear_quad(qatlas, qoffsets, sizes, prim, uv, lod):
+    """Trilinear fetch of all three layers through the quad tier: two row
+    gathers, bit-equal to sample_trilinear per layer."""
+    l0i, l1i, frac = _lod_levels(lod, sizes.shape[1])
+    return _trilerp(
+        _sample_mip_bilinear_quad(qatlas, qoffsets, sizes, prim, uv, l0i),
+        _sample_mip_bilinear_quad(qatlas, qoffsets, sizes, prim, uv, l1i),
+        frac)
+
+
+def _pair_corners(poffsets, sizes, prim, uv, level):
+    """The pair tier's two row indices (columns x0 and (x0+1)%w, the same
+    row when x0 is even), their x parities and the lerp weights:
+    (flat0, flat1, x0par, x1par, fx, fy)."""
+    prim = prim.long()
+    level = level.long()
+    _, w, x0i, y0i, fx, fy = _texel_coords(sizes[prim, level], uv)
+    x1i = torch.remainder(x0i + 1, w)
+    bw = (w + 1) // 2
+    base = poffsets[prim, level] + y0i * bw
+    return (base + x0i // 2, base + x1i // 2, x0i & 1, x1i & 1, fx, fy)
+
+
+def _pair_lerp(row0, row1, x0par, x1par, fx, fy):
+    """Each column's top and bottom texels by parity from its pair row,
+    then the quad tier's bilinear expression."""
+    r0 = row0.to(torch.float32)
+    r1 = row1.to(torch.float32)
+
+    def col(r, par, half):
+        return torch.where((par == 1)[:, None], r[:, half + 12:half + 24],
+                           r[:, half:half + 12])
+
+    return _bilerp(col(r0, x0par, 0), col(r1, x1par, 0), col(r0, x0par, 24),
+                   col(r1, x1par, 24), fx, fy)
+
+
+def sample_trilinear_pair(pr, poffsets, sizes, prim, uv, lod):
+    """Trilinear fetch through the pair tier: four row gathers (two
+    columns at two levels), bit-equal to the quad tier."""
+    l0i, l1i, frac = _lod_levels(lod, sizes.shape[1])
+    s = []
+    for level in (l0i, l1i):
+        f0, f1, p0, p1, fx, fy = _pair_corners(poffsets, sizes, prim, uv,
+                                               level)
+        s.append(_pair_lerp(pr[f0.long()], pr[f1.long()], p0, p1, fx, fy))
+    return _trilerp(s[0], s[1], frac)
+
+
+def _block4_corners(boffsets, sizes, prim, uv, level):
+    """The block4 tier's row index and slot of each bilinear corner, in
+    quad-row order [t00, t10, t01, t11]: (flats, slots, fx, fy)."""
+    prim = prim.long()
+    level = level.long()
+    h, w, x0i, y0i, fx, fy = _texel_coords(sizes[prim, level], uv)
+    x1i = torch.remainder(x0i + 1, w)
+    y1i = torch.remainder(y0i + 1, h)
+    bw = (w + 1) // 2
+    base = boffsets[prim, level]
+    corners = [(y0i, x0i), (y0i, x1i), (y1i, x0i), (y1i, x1i)]
+    flats = [base + (yi // 2) * bw + (xi // 2) for yi, xi in corners]
+    slots = [(yi & 1) * 2 + (xi & 1) for yi, xi in corners]
+    return flats, slots, fx, fy
+
+
+def _block4_lerp(rows, slots, fx, fy):
+    """Each corner's 12 texel bytes by slot from its block row, then the
+    quad tier's bilinear expression."""
+    taps = []
+    for row, slot in zip(rows, slots):
+        rb = row.to(torch.float32)
+        v = rb[:, 0:12]
+        for k in range(1, 4):
+            v = torch.where((slot == k)[:, None], rb[:, 12 * k:12 * (k + 1)],
+                            v)
+        taps.append(v)
+    return _bilerp(*taps, fx, fy)
+
+
+def sample_trilinear_block4(b4, boffsets, sizes, prim, uv, lod):
+    """Trilinear fetch through the block4 tier: eight row gathers (four
+    corners at two levels), bit-equal to the quad tier."""
+    l0i, l1i, frac = _lod_levels(lod, sizes.shape[1])
+    s = []
+    for level in (l0i, l1i):
+        flats, slots, fx, fy = _block4_corners(boffsets, sizes, prim, uv,
+                                               level)
+        s.append(_block4_lerp([b4[f.long()] for f in flats], slots, fx,
+                              fy))
+    return _trilerp(s[0], s[1], frac)
+
+
+def _anisotropic(trilinear, uv, duv_major, taps: int):
+    """`taps` trilinear fetches trilinear(uv') spread along the footprint's
+    major axis (uv' = uv + duv_major * f, f in (-1/2, 1/2)), averaged."""
+    acc = None
+    for i in range(taps):
+        f = (i + 0.5) / taps - 0.5
+        s = trilinear(uv + duv_major * f)
+        acc = s if acc is None else acc + s
+    return divide(acc, taps)
+
+
+def sample_anisotropic(atlas, offsets, sizes, prim, layer: int, uv,
+                       lod_minor, duv_major, taps: int):
+    """Anisotropic filtering of one layer through the per-layer atlas:
+    `taps` trilinear taps at the minor-axis LOD, averaged."""
+    return _anisotropic(lambda q: sample_trilinear(
+        atlas, offsets, sizes, prim, layer, q, lod_minor), uv, duv_major,
+        taps)
+
+
+def sample_anisotropic_quad(qatlas, qoffsets, sizes, prim, uv, lod_minor,
+                            duv_major, taps: int):
+    """Anisotropic filtering through the quad tier."""
+    return _anisotropic(lambda q: sample_trilinear_quad(
+        qatlas, qoffsets, sizes, prim, q, lod_minor), uv, duv_major, taps)
+
+
+def sample_anisotropic_pair(pr, poffsets, sizes, prim, uv, lod_minor,
+                            duv_major, taps: int):
+    """Anisotropic filtering through the pair tier."""
+    return _anisotropic(lambda q: sample_trilinear_pair(
+        pr, poffsets, sizes, prim, q, lod_minor), uv, duv_major, taps)
+
+
+def sample_anisotropic_block4(b4, boffsets, sizes, prim, uv, lod_minor,
+                              duv_major, taps: int):
+    """Anisotropic filtering through the block4 tier."""
+    return _anisotropic(lambda q: sample_trilinear_block4(
+        b4, boffsets, sizes, prim, q, lod_minor), uv, duv_major, taps)
+
+
+def _texel_density(p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h):
+    """Texels per world unit of a triangle's texture mapping, and its
+    edges e1, e2 and uv edges duv1, duv2."""
+    e1 = p1 - p0
+    e2 = p2 - p0
+    world_area = 0.5 * _norm(torch.linalg.cross(e1, e2))[:, 0]
+    duv1 = uv1 - uv0
+    duv2 = uv2 - uv0
+    uv_area = 0.5 * torch.abs(duv1[:, 0] * duv2[:, 1]
+                              - duv1[:, 1] * duv2[:, 0])
+    tpw = sqrt(uv_area * tex_w * tex_h / torch.clamp_min(world_area, 1e-12))
+    return tpw, e1, e2, duv1, duv2
+
+
+def ray_cone_lod(t, direction, N, p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h,
+                 spread):
+    """Texture LOD from the ray-cone footprint (Akenine-Moeller et al.,
+    "Texture Level of Detail Strategies for Real-Time Ray Tracing"): the
+    cone's diameter at the hit over the surface's obliquity (bounded at
+    4x), in texels of the triangle's mapping, as log2."""
+    cone_diam = t * spread
+    cos_in = torch.abs(_dot(N, direction))
+    footprint = cone_diam / torch.clamp_min(cos_in, 0.25)
+    tpw = _texel_density(p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h)[0]
+    return torch.log2(torch.clamp_min(footprint * tpw, 1e-6))
+
+
+def ray_cone_aniso(t, direction, N, p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h,
+                   spread, max_aniso: int = 16):
+    """The elliptical ray-cone footprint for anisotropic filtering (the
+    reference sampler's max_anisotropy=16): the minor axis is the cone's
+    diameter, the major one that over |N.D| (at most max_aniso times it)
+    along D projected into the surface. Returns (lod_minor, duv_major):
+    the minor axis's mip level and the major axis's whole extent in uv
+    space; a degenerate triangle (det/(g11*g22) <= 1e-8) gets duv 0."""
+    cone_diam = t * spread
+    d_dot_n = _dot(N, direction)
+    cos_in = torch.abs(d_dot_n)
+    tpw, e1, e2, duv1, duv2 = _texel_density(p0, p1, p2, uv0, uv1, uv2,
+                                             tex_w, tex_h)
+    lod_minor = torch.log2(torch.clamp_min(cone_diam * tpw, 1e-6))
+
+    proj = direction - d_dot_n[:, None] * N
+    pdir = proj / torch.clamp_min(_norm(proj), 1e-20)
+    aniso = torch.clamp(rdivide(1.0, torch.clamp_min(cos_in, 1e-4)), 1.0,
+                        float(max_aniso))
+    major_len = cone_diam * aniso
+
+    # pdir = a*e1 + b*e2 in the triangle's plane (a 2x2 Gram system), then
+    # duv = a*duv1 + b*duv2
+    g11 = _dot(e1, e1)
+    g12 = _dot(e1, e2)
+    g22 = _dot(e2, e2)
+    r1 = _dot(pdir, e1)
+    r2 = _dot(pdir, e2)
+    det = g11 * g22 - g12 * g12
+    ok = (det > 1e-8 * g11 * g22)[:, None]
+    inv_det = rdivide(1.0, torch.clamp_min(det, 1e-30))
+    a = (r1 * g22 - r2 * g12) * inv_det
+    b = (g11 * r2 - g12 * r1) * inv_det
+    duv_per_world = a[:, None] * duv1 + b[:, None] * duv2
+    duv_major = torch.where(ok, duv_per_world * major_len[:, None],
+                            torch.zeros_like(duv_per_world))
+    return lod_minor, duv_major
+
+
+# the mip tiers a scene may ship, in tpurt's order of precedence, with
+# their trilinear and anisotropic samplers (all three layers at once)
+_MIP_TIERS = (
+    ("tex_mip_block4", sample_trilinear_block4, sample_anisotropic_block4),
+    ("tex_mip_pair", sample_trilinear_pair, sample_anisotropic_pair),
+    ("tex_mip_quad", sample_trilinear_quad, sample_anisotropic_quad),
+)
+
+
+def _mip_texels(scene, hits, direction, prim, corners, uvs, world_normal,
+                tex_coord, spread, aniso_taps: int):
+    """The three layers (N, 12) through the scene's mip tier at the
+    ray-cone LOD (tpurt ``shade.py:616-694``): anisotropic with
+    aniso_taps > 1, else trilinear. Extents come from level 0 of the hit
+    primitive's chain."""
+    sizes = scene["tex_mip_sizes"]
+    tex_hw = sizes[prim.long(), 0].to(torch.float32)
+    cone = (hits["t"], direction, world_normal, *corners, *uvs,
+            tex_hw[:, 1], tex_hw[:, 0], spread)
+    if aniso_taps > 1:
+        lod, duv = ray_cone_aniso(*cone, max_aniso=16)
+    else:
+        lod, duv = ray_cone_lod(*cone), None
+    key, trilinear, anisotropic = next(t for t in _MIP_TIERS
+                                       if t[0] in scene)
+    table, offsets = scene[key], scene[key + "_offsets"]
+    if duv is None:
+        return trilinear(table, offsets, sizes, prim, tex_coord, lod)
+    return anisotropic(table, offsets, sizes, prim, tex_coord, lod, duv,
+                       aniso_taps)
+
+
+def cone_spread(camera: dict, rows: int):
+    """The pixel cone's spread angle, 2 / (proj[1][1] * rows), from the
+    full image height `rows` (proj[1][1] = 1 / tan(fovy / 2))."""
+    return rdivide(2.0, camera["proj"][1, 1] * rows)
+
+
+def surface(scene: dict, camera: dict, hits: dict, direction=None, *,
+            aniso_taps: int = 1, rows: int = 0) -> dict:
     """Reconstruct the shading point of each hit: position, shading normal
-    N, view vector V and the material terms."""
+    N, view vector V and the material terms. A mip scene (its
+    ``tex_mip_sizes``) samples its tier at the ray-cone LOD of the primary
+    rays' `direction`, over an image of `rows` rows, and reads no uv
+    payload (tpurt takes that branch first); otherwise one quad row, from
+    the payload when the trace emitted it."""
     tri = hits["tri"]
     valid = tri >= 0
     tidx = torch.clamp_min(tri, 0).long()
@@ -99,14 +461,6 @@ def surface(scene: dict, camera: dict, hits: dict) -> dict:
     uv0, uv1, uv2 = attr[:, 3:5], attr[:, 15:17], attr[:, 27:29]
     n0, n1, n2 = attr[:, 5:8], attr[:, 17:20], attr[:, 29:32]
     t0, t1, t2 = attr[:, 8:12], attr[:, 20:24], attr[:, 32:36]
-    if "texu" in hits:
-        # the closest-hit trace's uv payload: the quad gather no longer
-        # waits on the tri_attr row
-        tex_hw = torch.stack([hits["texh"], hits["texw"]], dim=-1)
-        img = hits["img"].to(torch.int32)
-    else:
-        tex_hw = attr[:, 37:39]
-        img = attr[:, 39].to(torch.int32)
 
     world_pos = p0 * w + p1 * u + p2 * v
     tex_coord = uv0 * w + uv1 * u + uv2 * v
@@ -118,10 +472,28 @@ def surface(scene: dict, camera: dict, hits: dict) -> dict:
     world_binormal = torch.linalg.cross(world_normal, world_tangent) \
         * t0[:, 3:4]
 
-    quad_uv = torch.stack([hits["texu"], hits["texv"]], dim=-1) \
-        if "texu" in hits else tex_coord
-    packed = sample_bilinear_quad(scene["tex_quad"], scene["tex_quad_shape"],
-                                  tex_hw, img, quad_uv)
+    if "tex_mip_sizes" in scene:
+        if direction is None or rows <= 0:
+            raise ValueError("a mip scene needs the primary rays' "
+                             "direction and the image's rows")
+        packed = _mip_texels(
+            scene, hits, direction, attr[:, 36].to(torch.int32),
+            (p0, p1, p2), (uv0, uv1, uv2), world_normal, tex_coord,
+            cone_spread(camera, rows), aniso_taps)
+    elif "texu" in hits:
+        # the closest-hit trace's uv payload: the quad gather no longer
+        # waits on the tri_attr row
+        packed = sample_bilinear_quad(
+            scene["tex_quad"], scene.get("tex_quad_shape"),
+            torch.stack([hits["texh"], hits["texw"]], dim=-1),
+            hits["img"].to(torch.int32),
+            torch.stack([hits["texu"], hits["texv"]], dim=-1),
+            base=scene.get("tex_quad_base"))
+    else:
+        packed = sample_bilinear_quad(
+            scene["tex_quad"], scene.get("tex_quad_shape"), attr[:, 37:39],
+            attr[:, 39].to(torch.int32), tex_coord,
+            base=scene.get("tex_quad_base"))
 
     def fetch(layer):
         return packed[:, layer * 4:layer * 4 + 4]
@@ -154,10 +526,21 @@ def light_ray(surf: dict, light: dict) -> dict:
                 wants_shadow=wants_shadow, t_max=t_max)
 
 
-def shadow_rays(scene: dict, camera: dict, lights: dict, hits: dict):
+def _rows(hits: dict, height: int, image_rows: int) -> int:
+    """The image's full height for the ray cone (tpurt
+    ``shade.py:619-620``): image_rows, else height, else the side of a
+    square image of the hits."""
+    return image_rows or height or int(round(float(
+        hits["t"].shape[0]) ** 0.5))
+
+
+def shadow_rays(scene: dict, camera: dict, lights: dict, hits: dict,
+                direction=None, *, aniso_taps: int = 1, height: int = 0,
+                image_rows: int = 0):
     """(origin, direction, t_max) of every light's shadow rays, exactly as
-    shade() traces them."""
-    surf = surface(scene, camera, hits)
+    shade() traces them (with shade()'s texture arguments)."""
+    surf = surface(scene, camera, hits, direction, aniso_taps=aniso_taps,
+                   rows=_rows(hits, height, image_rows))
     rays = []
     for i in range(lights["pos"].shape[0]):
         lr = light_ray(surf, {k: arr[i] for k, arr in lights.items()})
@@ -182,14 +565,20 @@ def _light(lights: dict, i: int) -> dict:
 
 def shade(scene: dict, camera: dict, lights: dict, hits: dict,
           tables: str = "bvh8", max_leaf: int = 1,
-          fuse_shadows: bool = False, height: int = 0, width: int = 0):
+          fuse_shadows: bool = False, height: int = 0, width: int = 0, *,
+          direction=None, aniso_taps: int = 1, image_rows: int = 0):
     """Shade one batch of primary hits; returns dict(color (N, 3),
     depth (N,), normal_enc (N, 3)). fuse_shadows as in the module
     docstring (tpurt's parameter and default); height and width, tpurt's
     too, the frame's shape when the hits are its pixels in row order (0
-    otherwise), go to the shadow traces (per light or fused)."""
+    otherwise), go to the shadow traces (per light or fused). A mip scene
+    needs the primary rays' `direction`; aniso_taps > 1 filters
+    anisotropically, and image_rows, the full image's height where
+    `height` is a band of it, sets the ray cone's spread (tpurt's
+    parameters)."""
     trace_any = shadow_tracer(tables, max_leaf)
-    surf = surface(scene, camera, hits)
+    surf = surface(scene, camera, hits, direction, aniso_taps=aniso_taps,
+                   rows=_rows(hits, height, image_rows))
     N, V, albedo = surf["N"], surf["V"], surf["albedo"]
     world_pos = surf["world_pos"]
     metallic = surf["metallic"]

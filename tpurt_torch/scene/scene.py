@@ -1,18 +1,27 @@
-"""Scene flattening without mips — the numpy path of
-``tpurt/scene/scene.py:flatten_scene`` (``mipmaps=False``).
+"""Scene flattening — the numpy path of ``tpurt/scene/scene.py``.
 
 Models become global tables in world space: the traversal triangles
 (``geom``), the binary SAH BVH with its BVH8 collapse (``bvh['nodes8']``),
-one ``tri_attr`` row per triangle for the shade pass, and one 2x2-footprint
-quad row per texel of every unique image (``tex_quad48``). The object-space
-tables and the instance transforms are kept for the dynamic scene
-(``as_object_pytree``). Every array equals the reference's bit for bit;
-``engine/convert.py`` uploads them.
+one ``tri_attr`` row per triangle for the shade pass and the texel tables.
+Without mips that is one 2x2-footprint quad row per texel of every unique
+image (``tex_quad48``). With ``mipmaps=True`` every unique image gets a box
+-filtered mip chain, and exactly one texel table ships, by tpurt's budget
+cutover: the quad tier (one 64-byte row per texel and level, the whole
+2x2 footprint; one gather per bilinear fetch), the pair tier (one row per
+x-aligned texel pair and its y+1 row; two gathers) or the block4 tier (one
+row per aligned 2x2 block; four gathers). The padded per-primitive
+stacks (``tex_stack``, ``tex_stack12``) stay on the host. tpurt also keeps
+a per-layer atlas (``tex_atlas``) on the host, which no frame of the port
+reads: ``build_mip_atlas`` builds it on demand, as the plain definition
+the tiers are held to. The object-space tables and the instance
+transforms are kept for the dynamic scene (``as_object_pytree``). Every
+array equals the reference's bit for bit; ``engine/convert.py`` uploads
+them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -38,7 +47,6 @@ class FlatScene:
     geom: dict        # BVH-leaf-order triangles: v0, e1, e2, tri_id, uvp
     tri_attr: np.ndarray    # (T, 40) f32 3x[pos, uv, normal, tangent]
     #                         + [prim, tex_h, tex_w, unique-image id]
-    tex_quad48: np.ndarray  # (U, Hmax, Wmax, 64) u8 2x2-footprint rows
     tex_size: np.ndarray    # (P, 2) i32 (h, w) per primitive
     num_prims: int
     builder: str            # the host SAH builder that ran: c++ or numpy
@@ -52,24 +60,70 @@ class FlatScene:
     obj_vtx_tangent: np.ndarray  # (V, 4) f32 xyz + handedness w
     tex_img_of_prim: np.ndarray  # (P,) i32 prim -> unique-image slot
     transforms: np.ndarray      # (I, 3, 4) f32 instance transforms
+    # world-space vertex tables and the padded per-primitive texel stacks:
+    # host only (as_full_pytree)
+    vtx_pos: np.ndarray         # (V, 3) f32
+    vtx_normal: np.ndarray      # (V, 3) f32, normalized
+    vtx_tangent: np.ndarray     # (V, 4) f32 xyz + handedness w
+    tex_stack: np.ndarray       # (P*3, Hmax, Wmax, 4) u8 albedo/orm/normal
+    tex_stack12: np.ndarray     # (P, Hmax, Wmax, 12) u8 packed layers
+    # without mips: (U, Hmax, Wmax, 64) u8 2x2-footprint rows per unique
+    # image (48 data + 16 pad)
+    tex_quad48: Optional[np.ndarray] = None
+    # with mips: one of three tiers
+    tex_mip_sizes: Optional[np.ndarray] = None    # (P, L, 2) i32 (h, w)
+    tex_mip_quad: Optional[np.ndarray] = None     # (N, 64) u8
+    tex_mip_quad_offsets: Optional[np.ndarray] = None   # (P, L) i32 rows
+    tex_mip_pair: Optional[np.ndarray] = None     # (N2, 64) u8
+    tex_mip_pair_offsets: Optional[np.ndarray] = None   # (P, L) i32 rows
+    tex_mip_block4: Optional[np.ndarray] = None   # (N4, 64) u8
+    tex_mip_block4_offsets: Optional[np.ndarray] = None  # (P, L) i32 rows
+
+    def _texel_tables(self) -> dict:
+        """The one texel table that ships, tpurt's rule
+        (scene.py:107-128): a mip scene's tier (block4, pair or quad:
+        ``flatten_scene`` builds one) with ``tex_mip_sizes``, or else
+        ``tex_quad48``."""
+        if self.tex_mip_sizes is None:
+            return dict(tex_quad48=self.tex_quad48)
+        out = dict(tex_mip_sizes=self.tex_mip_sizes)
+        for tier in ("block4", "pair", "quad"):
+            table = getattr(self, f"tex_mip_{tier}")
+            if table is not None:
+                out[f"tex_mip_{tier}"] = table
+                out[f"tex_mip_{tier}_offsets"] = getattr(
+                    self, f"tex_mip_{tier}_offsets")
+                return out
+        raise ValueError("a mip scene without a texel tier")
 
     def as_pytree(self) -> dict:
-        """The tables the frame reads — the same keys tpurt's
-        ``FlatScene.as_pytree()`` ships on its non-mip fast path."""
+        """The tables the frame reads — the keys tpurt's
+        ``FlatScene.as_pytree()`` ships when ``tri_attr`` and a texel tier
+        exist, as ``flatten_scene`` always builds them."""
         return dict(bvh=self.bvh, geom=self.geom, tex_size=self.tex_size,
-                    tri_attr=self.tri_attr, tex_quad48=self.tex_quad48)
+                    tri_attr=self.tri_attr, **self._texel_tables())
+
+    def as_full_pytree(self) -> dict:
+        """``as_pytree()`` and the host-only tables (the world vertex
+        tables and the padded per-primitive stack), as tpurt's
+        ``as_full_pytree``; never uploaded."""
+        return dict(self.as_pytree(), tri_vertex=self.tri_vertex,
+                    tri_prim=self.tri_prim, vtx_pos=self.vtx_pos,
+                    vtx_uv=self.vtx_uv, vtx_normal=self.vtx_normal,
+                    vtx_tangent=self.vtx_tangent, tex_stack=self.tex_stack)
 
     def as_object_pytree(self) -> dict:
         """The dynamic scene's inputs — the keys tpurt's
-        ``FlatScene.as_object_pytree()`` ships on its non-mip
-        ``tri_attr`` + ``tex_quad48`` path (transforms come per frame)."""
+        ``FlatScene.as_object_pytree()`` ships on its ``tri_attr`` path
+        (transforms come per frame), with the same texel table as
+        ``as_pytree``."""
         return dict(
             tri_vertex=self.tri_vertex, tri_prim=self.tri_prim,
             vtx_instance=self.vtx_instance, obj_vtx_pos=self.obj_vtx_pos,
             obj_vtx_normal=self.obj_vtx_normal,
             obj_vtx_tangent=self.obj_vtx_tangent, vtx_uv=self.vtx_uv,
             tex_size=self.tex_size, tex_img_of_prim=self.tex_img_of_prim,
-            tex_quad48=self.tex_quad48)
+            **self._texel_tables())
 
 
 def _transform_points(m3x4, pts):
@@ -89,6 +143,217 @@ def _transform_directions(m3x4, dirs):
     return (out / np.maximum(norm, 1e-20)).astype(np.float32)
 
 
+def _box_mip(arr: np.ndarray) -> np.ndarray:
+    """2x2 box-filter downsample of a (H, W, C) u8 image, rounded to
+    nearest; an odd trailing row or column is duplicated, as GPU mip
+    generation clamps it."""
+    h, w = arr.shape[:2]
+    h2, w2 = max(h // 2, 1), max(w // 2, 1)
+    if h % 2 and h > 1:
+        arr = np.concatenate([arr, arr[-1:]], axis=0)
+    if w % 2 and w > 1:
+        arr = np.concatenate([arr, arr[:, -1:]], axis=1)
+    if h == 1 and w == 1:
+        return arr
+    a = arr[:h2 * 2, :w2 * 2].astype(np.uint16)
+    q = a.reshape(h2, 2 if h > 1 else 1, w2, 2 if w > 1 else 1, 4)
+    s = q.sum(axis=(1, 3))
+    n = q.shape[1] * q.shape[3]
+    return ((s + n // 2) // n).astype(np.uint8)
+
+
+def _mip_levels(tex_size: np.ndarray) -> int:
+    """The global chain length: levels down to 1x1 of the largest
+    extent."""
+    hmax = int(tex_size[:, 0].max(initial=1))
+    wmax = int(tex_size[:, 1].max(initial=1))
+    return max(int(np.ceil(np.log2(max(hmax, wmax, 1)))) + 1, 1)
+
+
+def _packed_mips(tex_stack, tex_size, prim, levels):
+    """Yield each level of one primitive's chain as (h, w, 12) u8, the
+    three layers packed; the 1x1 level repeats up to `levels`."""
+    h, w = int(tex_size[prim, 0]), int(tex_size[prim, 1])
+    mips = [tex_stack[prim * 3 + layer, :h, :w].copy() for layer in range(3)]
+    for _ in range(levels):
+        yield np.concatenate(mips, axis=2)
+        if mips[0].shape[0] > 1 or mips[0].shape[1] > 1:
+            mips = [_box_mip(m) for m in mips]
+
+
+def _default_dedup(tex_size, img_of_prim, uniq_prims):
+    if img_of_prim is None:
+        n = tex_size.shape[0]
+        return np.arange(n, dtype=np.int32), list(range(n))
+    return img_of_prim, uniq_prims
+
+
+def build_mip_atlas(tex_stack: np.ndarray, tex_size: np.ndarray,
+                    img_of_prim: Optional[np.ndarray] = None,
+                    uniq_prims=None):
+    """Full mip chains of every image, each layer apart, in one flat texel
+    atlas stored once per unique image (``dedup_images``); duplicates'
+    offsets alias the shared texels. Returns (atlas (N, 4) u8, offsets
+    (P*3, L) i32 texel offsets, sizes (P, L, 2) i32)."""
+    levels = _mip_levels(tex_size)
+    img_of_prim, uniq_prims = _default_dedup(tex_size, img_of_prim,
+                                             uniq_prims)
+    chunks = []
+    offsets_u = np.zeros((len(uniq_prims) * 3, levels), np.int64)
+    sizes_u = np.zeros((len(uniq_prims), levels, 2), np.int32)
+    cursor = 0
+    for ui, uprim in enumerate(uniq_prims):
+        for layer in range(3):
+            h, w = int(tex_size[uprim, 0]), int(tex_size[uprim, 1])
+            cur = tex_stack[uprim * 3 + layer, :h, :w].copy()
+            for lv in range(levels):
+                offsets_u[ui * 3 + layer, lv] = cursor
+                sizes_u[ui, lv] = cur.shape[:2]
+                chunks.append(cur.reshape(-1, 4))
+                cursor += cur.shape[0] * cur.shape[1]
+                if cur.shape[0] > 1 or cur.shape[1] > 1:
+                    cur = _box_mip(cur)
+    atlas = np.concatenate(chunks, axis=0)
+    layer_rows = (img_of_prim.astype(np.int64)[:, None] * 3
+                  + np.arange(3)).reshape(-1)
+    return (atlas, offsets_u[layer_rows].astype(np.int32),
+            sizes_u[img_of_prim])
+
+
+def _tier_atlas(tex_stack, tex_size, img_of_prim, uniq_prims, rows_of):
+    """One row table of every unique image's chain: rows_of(level (h, w,
+    12)) -> (n, 64) u8 rows. Returns (atlas, offsets (P, L) i32 row
+    offsets, sizes (P, L, 2) i32)."""
+    levels = _mip_levels(tex_size)
+    img_of_prim, uniq_prims = _default_dedup(tex_size, img_of_prim,
+                                             uniq_prims)
+    chunks = []
+    offsets_u = np.zeros((len(uniq_prims), levels), np.int64)
+    sizes_u = np.zeros((len(uniq_prims), levels, 2), np.int32)
+    cursor = 0
+    for ui, prim in enumerate(uniq_prims):
+        for lv, arr12 in enumerate(_packed_mips(tex_stack, tex_size, prim,
+                                                levels)):
+            rows = rows_of(arr12)
+            offsets_u[ui, lv] = cursor
+            sizes_u[ui, lv] = arr12.shape[:2]
+            chunks.append(rows)
+            cursor += rows.shape[0]
+    atlas = np.concatenate(chunks, axis=0)
+    return (atlas, offsets_u[img_of_prim].astype(np.int32),
+            sizes_u[img_of_prim])
+
+
+def _quad_rows(arr12):
+    """One 64-byte row per texel: its 2x2 footprint (REPEAT wrap) across
+    the three layers, 48 bytes + 16 pad."""
+    quad = np.zeros(arr12.shape[:2] + (64,), np.uint8)
+    quad[..., :48] = np.concatenate(
+        [arr12,
+         np.roll(arr12, -1, axis=1),
+         np.roll(arr12, -1, axis=0),
+         np.roll(np.roll(arr12, -1, 0), -1, 1)], axis=2)
+    return quad.reshape(-1, 64)
+
+
+def _pair_rows(arr12):
+    """One 64-byte row per (y, x-pair): [t(y, 2xp) | t(y, 2xp+1) |
+    t((y+1)%h, 2xp) | t((y+1)%h, 2xp+1)] x 12 bytes + 16 pad; an odd
+    width's last slot 1 stays zero (never selected)."""
+    hh, ww = arr12.shape[:2]
+    bw = (ww + 1) // 2
+    wrap = np.roll(arr12, -1, axis=0)
+    both = np.concatenate([arr12, wrap], axis=2)
+    pad = np.zeros((hh, bw * 2, 24), np.uint8)
+    pad[:, :ww] = both
+    blk = pad.reshape(hh, bw, 2, 24)
+    rows = np.zeros((hh * bw, 64), np.uint8)
+    rows[:, 0:12] = blk[:, :, 0, 0:12].reshape(-1, 12)
+    rows[:, 12:24] = blk[:, :, 1, 0:12].reshape(-1, 12)
+    rows[:, 24:36] = blk[:, :, 0, 12:24].reshape(-1, 12)
+    rows[:, 36:48] = blk[:, :, 1, 12:24].reshape(-1, 12)
+    return rows
+
+
+def _block4_rows(arr12):
+    """One 64-byte row per aligned 2x2 block: [t(2y, 2x) | t(2y, 2x+1) |
+    t(2y+1, 2x) | t(2y+1, 2x+1)] x 12 bytes + 16 pad; odd extents pad with
+    zero texels (never selected)."""
+    hh, ww = arr12.shape[:2]
+    bh, bw = (hh + 1) // 2, (ww + 1) // 2
+    pad = np.zeros((bh * 2, bw * 2, 12), np.uint8)
+    pad[:hh, :ww] = arr12
+    blk = pad.reshape(bh, 2, bw, 2, 12).transpose(0, 2, 1, 3, 4)
+    rows = np.zeros((bh * bw, 64), np.uint8)
+    rows[:, :48] = blk.reshape(bh * bw, 48)
+    return rows
+
+
+def build_mip_quad_atlas(tex_stack: np.ndarray, tex_size: np.ndarray,
+                         img_of_prim: Optional[np.ndarray] = None,
+                         uniq_prims=None):
+    """The quad tier: one 64-byte row per (image, level, y, x) texel with
+    its whole 2x2 footprint in the three packed layers, so a bilinear fetch
+    of all three is one row gather. Returns (atlas (N, 64) u8, offsets
+    (P, L) i32 row offsets, sizes (P, L, 2) i32)."""
+    return _tier_atlas(tex_stack, tex_size, img_of_prim, uniq_prims,
+                       _quad_rows)
+
+
+def build_mip_pair_atlas(tex_stack: np.ndarray, tex_size: np.ndarray,
+                         img_of_prim: np.ndarray, uniq_prims):
+    """The pair tier (2.67x the source bytes): one 64-byte row per (image,
+    level, y, x-pair), the pair and its (y+1)%h row; a bilinear fetch reads
+    the rows of columns x0 and (x0+1)%w. Returns (atlas (N2, 64) u8,
+    offsets (P, L) i32 row offsets, sizes (P, L, 2) i32)."""
+    return _tier_atlas(tex_stack, tex_size, img_of_prim, uniq_prims,
+                       _pair_rows)
+
+
+def build_mip_block4_atlas(tex_stack: np.ndarray, tex_size: np.ndarray,
+                           img_of_prim: np.ndarray, uniq_prims):
+    """The block4 tier (1.33x the source bytes): one 64-byte row per
+    aligned 2x2 block and level; texel (y, x) sits in block (y//2, x//2),
+    slot (y&1)*2 + (x&1), so a bilinear fetch reads four rows. Returns
+    (atlas (N4, 64) u8, offsets (P, L) i32 row offsets, sizes (P, L, 2)
+    i32)."""
+    return _tier_atlas(tex_stack, tex_size, img_of_prim, uniq_prims,
+                       _block4_rows)
+
+
+# tpurt's tier cutover (scene.py:348-362): quad below the first budget,
+# pair below the second, block4 above both
+MIP_QUAD_BUDGET_BYTES = 256 * 1024 * 1024
+MIP_PAIR_BUDGET_BYTES = 1024 * 1024 * 1024
+
+
+def mip_quad_bytes(tex_size: np.ndarray, uniq_prims) -> int:
+    """The quad tier's bytes for the cutover, as tpurt counts them: 64
+    bytes per texel of each image's own chain down to 1x1 (the builder
+    also repeats the 1x1 level up to the global chain length)."""
+    total = 0
+    for prim in uniq_prims:
+        h, w = int(tex_size[prim, 0]), int(tex_size[prim, 1])
+        levels = max(int(np.ceil(np.log2(max(h, w, 1)))) + 1, 1)
+        for _ in range(levels):
+            total += h * w * 64
+            h, w = max(h // 2, 1), max(w // 2, 1)
+    return total
+
+
+def mip_pair_bytes(tex_size: np.ndarray, uniq_prims) -> int:
+    """The pair tier's bytes, exactly as ``build_mip_pair_atlas`` builds
+    it (the global chain length for every image)."""
+    levels = _mip_levels(tex_size[list(uniq_prims)])
+    total = 0
+    for prim in uniq_prims:
+        h, w = int(tex_size[prim, 0]), int(tex_size[prim, 1])
+        for _ in range(levels):
+            total += h * ((w + 1) // 2) * 64
+            h, w = max(h // 2, 1), max(w // 2, 1)
+    return total
+
+
 def dedup_images(tex_stack12: np.ndarray, tex_size: np.ndarray):
     """Map each primitive to a unique-image slot by content."""
     seen = {}
@@ -104,8 +369,10 @@ def dedup_images(tex_stack12: np.ndarray, tex_size: np.ndarray):
     return img_of_prim, uniq
 
 
-def flatten_scene(models: List) -> FlatScene:
-    """Flatten all device-resident models and build the world BVH + BVH8."""
+def flatten_scene(models: List, mipmaps: bool = False) -> FlatScene:
+    """Flatten all device-resident models and build the world BVH + BVH8.
+    mipmaps=True builds the mip chains and one texel tier for trilinear
+    sampling in place of ``tex_quad48``."""
     pos_l, uv_l, nrm_l, tan_l, inst_l = [], [], [], [], []
     tri_v_l, tri_p_l = [], []
     tex_entries = []
@@ -224,22 +491,38 @@ def flatten_scene(models: List) -> FlatScene:
                    img_of_prim[tri_prim][:, None].astype(np.float32)],
         axis=1).astype(np.float32)
 
-    tex_quad48 = np.zeros((len(uniq_prims), hmax, wmax, 64), np.uint8)
-    for ui, p in enumerate(uniq_prims):
-        h, w = int(tex_size[p, 0]), int(tex_size[p, 1])
-        reg = tex_stack12[p, :h, :w]
-        tex_quad48[ui, :h, :w, :48] = np.concatenate(
-            [reg,
-             np.roll(reg, -1, axis=1),            # (y,   x+1 mod w)
-             np.roll(reg, -1, axis=0),            # (y+1 mod h, x)
-             np.roll(np.roll(reg, -1, 0), -1, 1)  # (y+1, x+1)
-             ], axis=2)
+    tiers = {}
+    if mipmaps:
+        # exactly one row tier ships, by tpurt's cutover
+        # (scene.py:618-638)
+        if mip_quad_bytes(tex_size, uniq_prims) <= MIP_QUAD_BUDGET_BYTES:
+            tier, build = "quad", build_mip_quad_atlas
+        elif mip_pair_bytes(tex_size, uniq_prims) <= MIP_PAIR_BUDGET_BYTES:
+            tier, build = "pair", build_mip_pair_atlas
+        else:
+            tier, build = "block4", build_mip_block4_atlas
+        table, offsets, sizes = build(tex_stack, tex_size, img_of_prim,
+                                      uniq_prims)
+        tiers[f"tex_mip_{tier}"] = table
+        tiers[f"tex_mip_{tier}_offsets"] = offsets
+        tiers["tex_mip_sizes"] = sizes
+    else:
+        # the mip tiers supersede these rows: built only without mips
+        tex_quad48 = np.zeros((len(uniq_prims), hmax, wmax, 64), np.uint8)
+        for ui, p in enumerate(uniq_prims):
+            h, w = int(tex_size[p, 0]), int(tex_size[p, 1])
+            tex_quad48[ui, :h, :w] = _quad_rows(
+                tex_stack12[p, :h, :w]).reshape(h, w, 64)
+        tiers["tex_quad48"] = tex_quad48
 
     return FlatScene(bvh=bvh_pt, geom=geom, tri_attr=tri_attr,
-                     tex_quad48=tex_quad48, tex_size=tex_size,
-                     num_prims=prim_idx, builder=sah.builder,
-                     tri_vertex=tri_vertex, tri_prim=tri_prim, vtx_uv=vtx_uv,
+                     tex_size=tex_size, num_prims=prim_idx,
+                     builder=sah.builder, tri_vertex=tri_vertex,
+                     tri_prim=tri_prim, vtx_uv=vtx_uv,
                      vtx_instance=vtx_instance, obj_vtx_pos=obj_vtx_pos,
                      obj_vtx_normal=obj_vtx_normal,
                      obj_vtx_tangent=obj_vtx_tangent,
-                     tex_img_of_prim=img_of_prim, transforms=transforms)
+                     tex_img_of_prim=img_of_prim, transforms=transforms,
+                     vtx_pos=vtx_pos, vtx_normal=vtx_normal,
+                     vtx_tangent=vtx_tangent, tex_stack=tex_stack,
+                     tex_stack12=tex_stack12, **tiers)

@@ -47,6 +47,10 @@ checkout's tpurt_torch, builds its kernels and times on the card alone
   planes, once per checkout, beside the card-only timer's floor (an empty
   kernel, torch.cuda._sleep(0), timed the same way); its outputs at 9x3
   and at 1x2, 2x2 and 3x3 hashed;
+* the default frame: Renderer.render() on the bench scene, by the host
+  wall clock (10 frames ending in one synchronize, after one warm-up) and
+  by the card-only timer (on this host-bound frame it waits for the host
+  too);
 
 and reports the ptxas registers, stack frame and spills of each kernel it
 built (those of csrc/bvh8_multi.cu also on stderr, one line per
@@ -220,6 +224,12 @@ def child(repo: str) -> dict:
         r._frame_idx = 0
         image = r.render()["image"]
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            r.render(block=False)
+        torch.cuda.synchronize()
+        res.update(frame_wall_ms=(time.perf_counter() - t0) * 100.0,
+                   frame_ms=device_ms(lambda: r.render(block=False)))
         res.update(hit_digest=_digest(*(hits[k] for k in ("t", "tri", "u",
                                                           "v"))),
                    denoise_digest=_digest(final_ao),

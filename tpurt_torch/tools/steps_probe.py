@@ -47,13 +47,16 @@ WARP = 32
 def frame_rays(r):
     """The frame's primary rays and each light's shadow rays (origin,
     direction, t_min, t_max), the shadow rays from K1's hits as
-    Renderer.render() traces them."""
+    Renderer.render() traces them (a mip scene's texels sampled as the
+    frame samples them)."""
     c = r.config
     cam, lights, _ = r._frame_inputs()
     o, d = camera_rays(cam, c.width, c.height)
     hits = trace_closest_bvh8(r.scene_device, o, d, T_MIN, T_MAX)
     shadow = [(so, sd, SHADOW_T_MIN, st)
-              for so, sd, st in shadow_rays(r.scene_device, cam, lights, hits)]
+              for so, sd, st in shadow_rays(r.scene_device, cam, lights, hits,
+                                            d, aniso_taps=c.aniso_taps,
+                                            height=c.height)]
     return (o, d, T_MIN, T_MAX), shadow
 
 

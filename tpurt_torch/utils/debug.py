@@ -67,6 +67,40 @@ def _finite(t) -> bool:
     return bool(torch.isfinite(t).all())
 
 
+# the scene's texel row tables (u8) and its texel index tables (int32)
+_U8_TABLES = ("tex_quad", "tex_mip_quad", "tex_mip_pair", "tex_mip_block4")
+_I32_TABLES = ("tex_quad_base", "tex_mip_sizes", "tex_mip_quad_offsets",
+               "tex_mip_pair_offsets", "tex_mip_block4_offsets")
+
+
+def _texel_rows(scene: dict, attr):
+    """The texel tables' shapes, and the rows' image indices in range."""
+    if "tex_mip_sizes" in scene:
+        sizes = scene["tex_mip_sizes"]
+        _require(sizes.ndim == 3 and sizes.shape[2] == 2,
+                 "scene.tex_mip_sizes must be (P, L, 2)")
+        _require(bool((sizes >= 1).all()), "mip extents must be >= 1")
+        _require(bool((attr[:, 36] < sizes.shape[0]).all()),
+                 "tri_attr primitive index out of range")
+        return
+    rows = scene["tex_quad"]
+    _require(rows.ndim == 2, "texture rows shape")
+    if "tex_quad_base" in scene:      # the streaming arena's layout
+        base = scene["tex_quad_base"]
+        images = base.shape[0]
+        _require(bool(((base >= 0) & (base < rows.shape[0])).all()),
+                 "texture row base out of range")
+    else:
+        shape = scene["tex_quad_shape"]
+        images = shape[0]
+        _require(tuple(rows.shape) == (shape[0] * shape[1] * shape[2],
+                                       shape[3]), "texture rows shape")
+    if attr.shape[1] == 40:
+        img = attr[:, 39]
+        _require(bool(((img >= 0) & (img < images)).all()),
+                 "tri_attr image index out of range")
+
+
 def validate_scene(scene: dict):
     """Invariant checks of the port's static scene tensors (raises
     ValidationError)."""
@@ -76,7 +110,8 @@ def validate_scene(scene: dict):
         if isinstance(t, torch.Tensor):
             _require(t.device == device, f"scene.{key} is on {t.device}, "
                      f"the scene on {device}")
-            want = torch.uint8 if key == "tex_quad" else torch.float32
+            want = (torch.uint8 if key in _U8_TABLES else torch.int32
+                    if key in _I32_TABLES else torch.float32)
             _require(t.dtype == want, f"scene.{key} is {t.dtype}, not "
                      f"{want}")
     m, t = nodes8.shape[0], int(scene["num_tris"])
@@ -102,13 +137,7 @@ def validate_scene(scene: dict):
     _require(_finite(attr), "tri_attr non-finite")
     _require(bool((attr[:, 36] >= 0).all()),
              "tri_attr primitive index out of range")
-    shape = scene["tex_quad_shape"]
-    _require(tuple(scene["tex_quad"].shape) == (
-        shape[0] * shape[1] * shape[2], shape[3]), "texture rows shape")
-    if attr.shape[1] == 40:
-        img = attr[:, 39]
-        _require(bool(((img >= 0) & (img < shape[0])).all()),
-                 "tri_attr image index out of range")
+    _texel_rows(scene, attr)
     if "uvp" in scene:
         _require(tuple(scene["uvp"].shape) == (t, 9), "uvp row shape")
 
