@@ -119,6 +119,42 @@ once, at 64x64):
            and the card's name and power limit; last, after phase 8's
            device profile, its device launches and device ms per frame
            under torch.profiler and the device-busy share.
+  phase 12 the app, after phase 11 (once, at 800x800): the bench scene's
+           geometry (43,298 tris: box field, ground, 8 textured cubes)
+           written as a .gltf with data-URI buffers and PNG textures
+           (tests/torch_gltf_writer.py) into a temporary directory and
+           loaded by the app's default_scene (the reference's spot and area
+           lights, both casting shadows); offline.main renders 10 frames
+           (launches K1 10, K2 20, K3h/K3/K4 10; ms/frame from its own
+           frame loop) and writes a PNG equal to Renderer.render_image() of
+           the same scene bit for bit; one app frame launches K1 1, K2 2,
+           K3h/K3/K4 1; --spp 8 --checkpoint-every 4 stopped after 4
+           samples and resumed from the file equals one uninterrupted run
+           (K1 8, K2 16); interactive.run_replay over record_orbit(30)
+           moves the camera and its last frame is not black; the live
+           server on 127.0.0.1 (an ephemeral port) serves a JPEG at
+           /frame.jpg and a POST /event with key w moves the camera; the
+           live loop with frames in flight (depth 2, render(block=False))
+           publishes the blocking loop's frames bit for bit, compared
+           before JPEG encoding, with its launches per frame; frames/s at
+           depth 1 and 2.
+  phase 13 the band-sharded frame (dist/sharding.py). At each size, K3
+           over the three bands compute_ao_band launches for a 4-way split
+           of the frame's G-buffer (H/4 rows and a halo of 2 on each side
+           inside the image: the top band from row 0, an interior one, the
+           bottom one to the last row) in its five instantiations: bit for
+           bit the full-frame K3's rows, and the top and bottom bands
+           against the plain version at K3's bar; the interior band's
+           card-only ms beside the full frame's K3, with its bound (K3's
+           operations scaled by the rows). Then one NCCL rank in this
+           process (its band is the whole image: K3's whole-frame launch)
+           and 2 and 4 gloo ranks spawned on cuda:0 (NCCL refuses two
+           ranks on one GPU), each rank at both sizes: every output
+           all-gathered through RendererConfig.mesh equal to the
+           single-device frame bit for bit, with bent normals too; each
+           rank launches K1 1, K2 3, K3h 1, K3 (band) 1, K4 1 per frame;
+           ms/frame per rank count, the transport that ran, labelled as
+           ranks sharing one H100 (no multi-GPU number).
   phase 8  the diagnostics path. The steps probe
            (tpurt_torch/tools/steps_probe.py) on the frame's rays with the
            counts at 0: K7a closest 1 and K7a any 3 (one per light), over
@@ -143,6 +179,9 @@ once, at 64x64):
            device_profile(r), kernel time per pass, the device-busy share
            (sum of device_profile / sum of profile_frame) and render()
            ms/frame right after it.
+
+Phases 12 and 13 run after both sizes' phases 1-11 and before phase 8's
+device profile (torch.profiler).
 
 Every kernel is timed twice: on the card alone (`ms`,
 tpurt_torch/kernels/build.device_ms: the least of 3 runs, each queued
@@ -232,6 +271,10 @@ KERNELS = (
      "tpurt/kernels/gtao_pallas.py:131"),
     ("gtao_denoise_bent_fp16", "tpurt_torch/csrc/gtao_denoise.cu",
      "tpurt/kernels/gtao_pallas.py:131"),
+    # K3 over a band of rows, the band-sharded frame's GTAO (tpurt's
+    # compute_ao_band runs main_pass_pallas with row_start / num_rows)
+    ("gtao_main_band", "tpurt_torch/csrc/gtao_main.cu",
+     "tpurt/kernels/gtao_main_pallas.py:317"),
 )
 # the frames whose launches each new kernel's summary entry reports
 VARIANT_OF = {"bvh8_any_multi": "fused", "bvh8_any_multi_pop2": "fused_pop2",
@@ -2289,6 +2332,500 @@ def phase8_device(r, label, prof):
                 render_ms_after_profiler=after_ms)
 
 
+APP_SIZE = 800
+APP_FRAMES = 10
+APP_SPP = 8
+APP_REPLAY_FRAMES = 30
+LIVE_FRAMES = 12
+# K3h, K3 and K4 per app frame (K1 1, K2 one per shadow-casting light)
+APP_LAUNCHES = dict(gtao_noise=1, gtao_main=1, gtao_denoise=1)
+
+
+def app_scene_file(tmp):
+    """The bench scene's geometry written as a textured .gltf in `tmp`
+    (tests/torch_gltf_writer.py: data-URI buffers, PNG textures)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_gltf_writer import CAM_DIR, CAM_POS, write_bench_gltf
+
+    path = os.path.join(tmp, "bench.gltf")
+    tris = write_bench_gltf(path)
+    return path, tris, CAM_POS, CAM_DIR
+
+
+def app_renderer(model, cam_pos, cam_dir):
+    """The CLI's renderer (offline.main's config and default_scene)."""
+    from tpurt_torch.app.offline import default_scene
+    from tpurt_torch.engine import Renderer, RendererConfig
+
+    r = Renderer(RendererConfig(width=APP_SIZE, height=APP_SIZE))
+    default_scene(r, model)
+    r.camera_mut().set_pos(cam_pos)
+    r.camera_mut().set_dir(cam_dir)
+    r.camera_mut().set_aspect(1.0)
+    r.prepare_first_frame()
+    return r
+
+
+def nonzero(counts):
+    """The launch counts that are not 0."""
+    return {k: v for k, v in counts.items() if v}
+
+
+class _StampTimer:
+    """offline.main's FrameTimer, recording each frame's end."""
+
+    stamps = []
+
+    def __init__(self, print_fn=print):
+        pass
+
+    def frame_end(self):
+        _StampTimer.stamps.append(time.perf_counter())
+
+
+def phase12():
+    """The app on the card at 800x800 (module docstring)."""
+    import json as json_
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tpurt_torch.app import interactive, live, offline
+    from tpurt_torch.kernels import build
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model, tris, cam_pos, cam_dir = app_scene_file(tmp)
+        cam = ["--cam-pos", *map(str, cam_pos), "--cam-dir",
+               *map(str, cam_dir)]
+        size = ["--width", str(APP_SIZE), "--height", str(APP_SIZE)]
+        png = os.path.join(tmp, "frame.png")
+        shadow = 2    # default_scene's spot and area lights
+
+        # the CLI's frames, its launches and ms/frame (its own frame loop)
+        timer = offline.FrameTimer
+        offline.FrameTimer = _StampTimer
+        _StampTimer.stamps = []
+        try:
+            torch.cuda.synchronize()
+            build.reset_counts()
+            offline.main(["--model", model, *size, *cam, "--frames",
+                          str(APP_FRAMES), "--out", png])
+            counts = dict(build.launch_counts)
+        finally:
+            offline.FrameTimer = timer
+        st = _StampTimer.stamps
+        cli_ms = (st[-1] - st[0]) * 1000.0 / (len(st) - 1)
+        want = {k: APP_FRAMES * v for k, v in APP_LAUNCHES.items()}
+        want.update(bvh8_closest=APP_FRAMES, bvh8_any=shadow * APP_FRAMES)
+        require(counts == dict(ALL_ZERO, **want),
+                f"[app] offline.main launched {counts}, want {want}")
+        got = np.asarray(Image.open(png))
+        r = app_renderer(model, cam_pos, cam_dir)
+        for _ in range(APP_FRAMES):
+            ref = r.render_image()
+        lit = float((got.max(-1) > 0).mean())
+        require(got.shape == (APP_SIZE, APP_SIZE, 3)
+                and np.array_equal(got, ref),
+                "[app] the CLI's PNG differs from Renderer.render_image()")
+        require(lit > 0.05, f"[app] the CLI's frame is black ({lit})")
+        counted_once(lambda: r.render(), dict(APP_LAUNCHES, bvh8_closest=1,
+                                              bvh8_any=shadow),
+                     "[app] one app frame")
+        log(f"[app] bench glTF {tris} tris; offline.main {APP_FRAMES} "
+            f"frames at {APP_SIZE}x{APP_SIZE}: {cli_ms:.3f} ms/frame (its "
+            f"frame loop, read-back included), launches {nonzero(counts)}, "
+            f"PNG equal to render_image(), lit share {lit:.4f}")
+        res.update(tris=tris, cli_ms_per_frame=cli_ms, cli_launches=counts,
+                   lit_share=lit)
+
+        # accumulation: stopped at 4 samples and resumed == one run
+        ckpt, whole = os.path.join(tmp, "a.npz"), os.path.join(tmp, "w.png")
+        acc = ["--model", model, *size, *cam, "--checkpoint-every", "4"]
+        offline.main(acc + ["--spp", "4", "--checkpoint", ckpt, "--out",
+                            png])
+        offline.main(acc + ["--spp", str(APP_SPP), "--checkpoint", ckpt,
+                            "--out", png])
+        build.reset_counts()
+        offline.main(acc + ["--spp", str(APP_SPP), "--out", whole])
+        counts = dict(build.launch_counts)
+        resumed, once = (np.asarray(Image.open(p)) for p in (png, whole))
+        require(int(np.load(ckpt)["num_samples"]) == APP_SPP
+                and np.array_equal(resumed, once),
+                "[app] resumed accumulation differs from one run")
+        require(counts == dict(ALL_ZERO, bvh8_closest=APP_SPP,
+                               bvh8_any=shadow * APP_SPP),
+                f"[app] accumulation launched {counts}")
+        log(f"[app] --spp {APP_SPP} --checkpoint-every 4: resumed after 4 "
+            f"equals one run; launches {nonzero(counts)}")
+
+        # the replay loop
+        events = os.path.join(tmp, "orbit.jsonl")
+        interactive.record_orbit(events, APP_REPLAY_FRAMES)
+        r = app_renderer(model, cam_pos, cam_dir)
+        pos0, dir0 = r.camera.pos.copy(), r.camera.dir.copy()
+        build.reset_counts()
+        t0 = time.perf_counter()
+        img = interactive.run_replay(r, interactive.load_replay(events),
+                                     APP_REPLAY_FRAMES)
+        replay_ms = (time.perf_counter() - t0) * 1000.0 / APP_REPLAY_FRAMES
+        counts = dict(build.launch_counts)
+        lit = float((img.max(-1) > 0).mean())
+        require(not np.array_equal(r.camera.pos, pos0)
+                and not np.array_equal(r.camera.dir, dir0),
+                "[app] the replay did not move the camera")
+        require(lit > 0.05, f"[app] the replay's last frame is black ({lit})")
+        require(counts["bvh8_closest"] == APP_REPLAY_FRAMES,
+                f"[app] replay launched {counts}")
+        log(f"[app] run_replay over record_orbit({APP_REPLAY_FRAMES}): "
+            f"{replay_ms:.3f} ms/frame (blocking), camera moved, last frame "
+            f"lit share {lit:.4f}, launches {nonzero(counts)}")
+        res.update(replay_ms_per_frame=replay_ms)
+
+        # the live server
+        r = app_renderer(model, cam_pos, cam_dir)
+        app = live.LiveApp(r, pipeline_depth=1)
+        server = live.serve(app, APP_SIZE, APP_SIZE, port=0,
+                            host="127.0.0.1")
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            app.render_once()
+            jpg = urllib.request.urlopen(base + "/frame.jpg",
+                                         timeout=30).read()
+            require(jpg[:2] == b"\xff\xd8", "[app] /frame.jpg is no JPEG")
+            pos0 = r.camera.pos.copy()
+            req = urllib.request.Request(
+                base + "/event", method="POST",
+                data=json_.dumps(dict(type="key", name="w",
+                                      ms=100.0)).encode())
+            require(urllib.request.urlopen(req, timeout=30).status == 200,
+                    "[app] POST /event refused")
+            app.render_once()
+            require(not np.array_equal(r.camera.pos, pos0),
+                    "[app] the w event did not move the camera")
+        finally:
+            app.stop()
+            server.shutdown()
+            server.server_close()
+
+        # frames in flight: depth 2 (render(block=False)) against the
+        # blocking loop, frame for frame before JPEG encoding; frames/s
+        loops = {}
+        for depth in (1, 2):
+            app = live.LiveApp(app_renderer(model, cam_pos, cam_dir),
+                               pipeline_depth=depth)
+            frames, stamps = [], []
+            publish = app.publish
+
+            def record(image, frames=frames, stamps=stamps, publish=publish):
+                frames.append(image.copy())
+                stamps.append(time.perf_counter())
+                publish(image)
+
+            app.publish = record
+            torch.cuda.synchronize()
+            build.reset_counts()
+            t = threading.Thread(target=app.run, daemon=True)
+            t.start()
+            deadline = time.monotonic() + 120.0
+            while len(stamps) < LIVE_FRAMES and time.monotonic() < deadline:
+                time.sleep(0.01)
+            app.stop()
+            t.join(timeout=120.0)
+            require(not t.is_alive() and len(frames) >= LIVE_FRAMES,
+                    f"[app] live loop at depth {depth} did not finish")
+            counts = dict(build.launch_counts)
+            n = app.frames_rendered
+            require(counts == dict(ALL_ZERO, bvh8_closest=n,
+                                   bvh8_any=shadow * n,
+                                   **{k: n * v for k, v in
+                                      APP_LAUNCHES.items()}),
+                    f"[app] live loop launched {counts} for {n} frames")
+            # the first two frames warm up
+            fps = (LIVE_FRAMES - 3) / (stamps[LIVE_FRAMES - 1] - stamps[2])
+            loops[depth] = dict(frames=frames[:LIVE_FRAMES], fps=fps)
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(loops[1]["frames"], loops[2]["frames"]))
+        require(same, "[app] frames in flight differ from blocking frames")
+        log(f"[app] live: /frame.jpg JPEG, POST /event w moved the camera; "
+            f"{LIVE_FRAMES} frames at depth 2 bit-equal to depth 1; frames/s "
+            f"(JPEG encoding included) depth 1 {loops[1]['fps']:.2f}, depth "
+            f"2 {loops[2]['fps']:.2f}")
+        res.update(live_fps={str(d): v["fps"] for d, v in loops.items()})
+    return res
+
+
+BAND_VARIANTS = ((False, "exact"), (True, "exact"), (False, "half"),
+                 (False, "fp16"), (True, "fp16"))
+RANK_COUNTS = (2, 4)
+SHARDED_FRAMES = 5
+
+
+def phase13_band(r, label):
+    """K3 over the bands of a 4-way split with their halo, as
+    compute_ao_band launches them, in every instantiation: against its
+    plain version (K3's bar) and bit for bit against the same rows of the
+    full-frame K3 (the top band from row 0, the bottom one to the last
+    row); the interior band's card-only ms beside the full frame's, with
+    its bound (K3's operations scaled by its rows)."""
+    import torch
+
+    from tpurt_torch.kernels.gtao_main import (gtao_main, gtao_noise_table,
+                                               main_kernel, main_pass_plain)
+    from tpurt_torch.passes.gtao import noise_maps_64, prefilter_depths
+
+    c = r.config
+    w, h = c.width, c.height
+    out = r.render()
+    _, _, gtao = r._frame_inputs()
+    halo = c.gtao.num_denoise_passes + 1
+    quarter = h // 4
+    rows = quarter + 2 * halo
+    bands = ((0, quarter + halo), (quarter - halo, rows),
+             (h - quarter - halo, quarter + halo))
+    noise = noise_maps_64(3, r.device)
+    worst = dict(step=0, share=0.0)
+    for bent, prec in BAND_VARIANTS:
+        fp16 = prec == "fp16"
+        mips = prefilter_depths(out["depth"], gtao["host"], fp16=fp16)
+        args = (mips, out["normal"], gtao["vec16" if fp16 else "vec"], noise)
+        kw = dict(slice_count=c.gtao.slice_count,
+                  steps_per_slice=c.gtao.steps_per_slice, bent=bent,
+                  precision=prec)
+        ao, edges = gtao_main(*args, **kw)
+        for i, (row_start, n) in enumerate(bands):
+            band = dict(row_start=row_start, num_rows=n)
+            b_ao, b_ed = gtao_main(*args, **band, **kw)
+            idx = slice(row_start, row_start + n)
+            require(torch.equal(b_ao, ao[idx]) and torch.equal(b_ed,
+                                                               edges[idx]),
+                    f"[{label}] K3 band {band} ({bent}, {prec}) differs from "
+                    f"the full frame's rows")
+            if i == 1:
+                continue   # the plain version on the edge bands only
+            p_ao, p_ed = main_pass_plain(*args, **band, **kw)
+            d = _ao_diff(b_ao, p_ao, bent)
+            step, share = int(d.max()), float((d > 0).float().mean())
+            require(torch.equal(b_ed, p_ed) and step <= AO_MAX_STEP
+                    and share <= AO_MAX_FRACTION,
+                    f"[{label}] K3 band {band} ({bent}, {prec}) vs plain: "
+                    f"step {step}, share {share}")
+            worst = dict(step=max(worst["step"], step),
+                         share=max(worst["share"], share))
+    mips = prefilter_depths(out["depth"], gtao["host"])
+    gvec = gtao["vec"]
+    kw = dict(slice_count=c.gtao.slice_count,
+              steps_per_slice=c.gtao.steps_per_slice)
+    table = gtao_noise_table(noise, gvec, **kw)
+    band = dict(row_start=quarter - halo, num_rows=rows)
+    t_band = kernel_ms(lambda: main_kernel(mips, out["normal"], gvec, table,
+                                           **band, **kw))
+    t_full = kernel_ms(lambda: main_kernel(mips, out["normal"], gvec, table,
+                                           **kw))
+    plain_ms = cuda_ms(lambda: main_pass_plain(mips, out["normal"], gvec,
+                                               noise, **band, **kw), 2)
+    px_ops = gtao_main_work(kw["slice_count"], kw["steps_per_slice"], False,
+                            "exact")[0]
+    # the band's share of the pyramid and normals, the table once, the
+    # band's AO and edges
+    share = rows / h
+    b_ms, b_by = bound(share * nbytes(*mips, out["normal"])
+                       + nbytes(gvec, table) + 2 * w * rows,
+                       px_ops * w * rows)
+    log(f"[{label}] K3 band: {len(BAND_VARIANTS)} instantiations x 3 bands "
+        f"of up to {rows} rows (halo {halo}) equal the full frame's rows; vs"
+        f" plain max step {worst['step']}, share {worst['share']:.6f}; one "
+        f"band {fmt_ms(t_band)} beside the full frame's K3 {fmt_ms(t_full)} "
+        f"({rows}/{h} of its rows), bound {b_ms:.4f} ms ({b_by}), plain "
+        f"{plain_ms:.2f} ms")
+    return dict(max_abs_err=float(worst["step"]), plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, rows=rows,
+                full_frame_ms=t_full["ms"], **t_band)
+
+
+def _bent(settings):
+    import dataclasses
+
+    return dataclasses.replace(settings, bent_normals=True)
+
+
+def sharded_checks(r, mesh, label):
+    """Every output of the mesh's frame against the single-device frame at
+    the same noise index, default and with bent normals; one sharded
+    frame's launches; ms/frame over SHARDED_FRAMES. Returns the mismatched
+    outputs, the launches and the ms."""
+    import torch
+
+    from tpurt_torch.kernels import build
+
+    c = r.config
+    default = c.gtao
+    bad = []
+    launches = None
+    try:
+        for settings in (default, _bent(default)):
+            c.gtao = settings
+            idx = r._frame_idx
+            c.mesh = None
+            want = r.render()
+            r._frame_idx = idx
+            c.mesh = mesh
+            torch.cuda.synchronize()
+            build.reset_counts()
+            got = r.render()
+            if launches is None:
+                launches = dict(build.launch_counts)
+            if sorted(got) != sorted(want):
+                bad.append(f"keys {sorted(got)}")
+            bad += [f"{label} {k}{' bent' if settings.bent_normals else ''}"
+                    for k in want if k in got
+                    and not (got[k].shape == want[k].shape
+                             and torch.equal(got[k], want[k]))]
+        c.gtao = default
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHARDED_FRAMES):
+            r.render(block=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1000.0 / SHARDED_FRAMES
+    finally:
+        c.gtao, c.mesh = default, None
+    return bad, launches, ms
+
+
+def rank_worker(rank, world, port, results):
+    """One gloo rank on cuda:0 (spawned): the sharded frame at each size
+    against the single-device frame; reports to `results`."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        from tpurt_torch.dist import make_mesh
+        from tpurt_torch.dist.sharding import transport
+
+        mesh = make_mesh()
+        for w, h in SHAPES:
+            r = build_renderer(w, h, "cuda")
+            dist.barrier()
+            bad, launches, ms = sharded_checks(r, mesh, f"{w}x{h}")
+            results.put(dict(rank=rank, world=world, label=f"{w}x{h}",
+                             bad=bad, launches=launches, ms=ms,
+                             transport=transport(mesh, r.device)))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase13_ranks(renderers):
+    """The band-sharded frame: one NCCL rank in this process, then 2 and 4
+    gloo ranks spawned on cuda:0 (NCCL refuses two ranks on one GPU), each
+    at both sizes; every output against the single-device frame bit for
+    bit, bent normals too; each rank's launches per frame. Returns per
+    label and rank count the launches, ms/frame and transport."""
+    import queue
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from tpurt_torch.dist import make_mesh
+    from tpurt_torch.dist.sharding import transport
+
+    want_base = dict(ALL_ZERO, bvh8_closest=1, gtao_noise=1, gtao_denoise=1)
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        for label, r in renderers.items():
+            bad, launches, ms = sharded_checks(r, mesh, label)
+            shadow = r.stats()["shadow_casting_lights"]
+            # one rank: its band is the whole image, K3's whole-frame launch
+            want = dict(want_base, bvh8_any=shadow, gtao_main=1)
+            require(not bad, f"[{label}] 1 NCCL rank differs: {bad}")
+            require(launches == want, f"[{label}] 1 NCCL rank launched "
+                    f"{launches}, want {want}")
+            route = transport(mesh, r.device)
+            log(f"[{label}] sharded frame, 1 rank, {route}: {ms:.3f} "
+                f"ms/frame, outputs bit-equal to the single-device frame "
+                f"(bent normals too), launches {nonzero(launches)}")
+            out.setdefault(label, {})["1"] = dict(ms=ms, launches=launches,
+                                                  transport=route)
+    finally:
+        dist.destroy_process_group()
+
+    ctx = mp.get_context("spawn")
+    for world in RANK_COUNTS:
+        results = ctx.Queue()
+        port = free_port()
+        procs = [ctx.Process(target=rank_worker,
+                             args=(rank, world, port, results))
+                 for rank in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        got = []
+        try:
+            while len(got) < world * len(SHAPES):
+                try:
+                    got.append(results.get(timeout=5.0))
+                except queue.Empty:
+                    require(all(p.is_alive() or p.exitcode == 0
+                                for p in procs),
+                            f"a rank of {world} failed: exit codes "
+                            f"{[p.exitcode for p in procs]}")
+                    require(time.perf_counter() - t0 < 300,
+                            f"{world} ranks timed out")
+            for p in procs:
+                p.join(timeout=60)
+            require(all(p.exitcode == 0 for p in procs),
+                    f"ranks of {world} exited {[p.exitcode for p in procs]}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+        for label, r in renderers.items():
+            mine = sorted((g for g in got if g["label"] == label),
+                          key=lambda g: g["rank"])
+            shadow = r.stats()["shadow_casting_lights"]
+            want = dict(want_base, bvh8_any=shadow, gtao_main_band=1)
+            for g in mine:
+                require(not g["bad"], f"[{label}] rank {g['rank']} of "
+                        f"{world} differs: {g['bad']}")
+                require(g["launches"] == want,
+                        f"[{label}] rank {g['rank']} of {world} launched "
+                        f"{g['launches']}, want {want}")
+                require(g["transport"] == "gloo", f"transport {g}")
+            ms = max(g["ms"] for g in mine)
+            log(f"[{label}] sharded frame, {world} ranks sharing one H100, "
+                f"gloo: {ms:.3f} ms/frame (slowest rank), every rank's "
+                f"outputs bit-equal to the single-device frame (bent "
+                f"normals too), launches per rank "
+                f"{nonzero(mine[0]['launches'])}")
+            out[label][str(world)] = dict(ms=ms, launches=mine[0]["launches"],
+                                          transport="gloo")
+        log(f"{world} gloo ranks: {time.perf_counter() - t0:.1f} s with "
+            f"spawning")
+    return out
+
+
 def card_line():
     """The card's `name, power.limit` as nvidia-smi prints them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2358,6 +2895,7 @@ def main():
             gt = phase9(r, label)
             gv = phase10(r, label, f, k)
             k.update(gv["kernels"])
+            k["gtao_main_band"] = phase13_band(r, label)
             if (w, h) == SHAPES[0]:
                 tex = dict(tiers=phase11_tiers(), arena=phase11_arena(r, f),
                            small=phase11_small())
@@ -2367,6 +2905,12 @@ def main():
                                   variants=var, profile=prof,
                                   ground_truth=gt, gtao_variants=gv)
             renderers[label] = r
+        app = phase12()
+        sharded = phase13_ranks(renderers)
+        for label in renderers:
+            # the 2-rank sharded frame's band launches, per rank and frame
+            results[label]["kernels"]["gtao_main_band"]["launches"] = \
+                sharded[label]["2"]["launches"]["gtao_main_band"]
         phase3()
         phase6()
         gt_small = phase9_small()
@@ -2455,7 +2999,11 @@ def main():
                         k3_with_noise_table={
                             k: v["kernels"]["gtao_main"]["with_noise_table"]
                             for k, v in results.items()},
-                        textures=tex)))
+                        textures=tex, app=app, sharded=sharded,
+                        k3_band={k: {key: v["kernels"]["gtao_main_band"][key]
+                                     for key in ("rows", "ms",
+                                                 "full_frame_ms")}
+                                 for k, v in results.items()})))
     log(card_line())
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps(dict(ok=True, device=dict(

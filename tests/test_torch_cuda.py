@@ -979,3 +979,62 @@ def test_sqrt_on_card_is_ieee(cuda_frame):
     got = sqrt(torch.from_numpy(x).cuda()).cpu().numpy()
     np.testing.assert_array_equal(got.view(np.int32),
                                   np.sqrt(x).view(np.int32))
+
+
+@pytest.mark.parametrize("bent,precision",
+                         [(False, "exact")] + GTAO_VARIANTS,
+                         ids=["exact", "bent", "half", "fp16", "bent_fp16"])
+def test_gtao_main_band(cuda_frame, bent, precision):
+    """K3 over a band of rows (the band-sharded frame's GTAO) in every
+    instantiation: bit for bit the same rows of the whole-frame K3 (bands
+    at the image's first and last rows included), against its plain
+    version at K3's budget (edges equal, 1 u8 step per byte on <= 0.1%),
+    one K3h and one K3 band launch per band, a band leaving the image
+    refused before any launch; compute_ao_band on the card equal to
+    compute_ao's rows on every band of a 4-way split."""
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.gtao_main import (count_key, gtao_main,
+                                               main_pass_plain)
+    from tpurt_torch.passes.gtao import (GtaoSettings, compute_ao,
+                                         compute_ao_band, noise_maps_64,
+                                         prefilter_depths)
+
+    r = cuda_frame
+    out = r.render()
+    _, _, gtao = _inputs(r)
+    fp16 = precision == "fp16"
+    h, w = out["depth"].shape
+    mips = prefilter_depths(out["depth"], gtao["host"], fp16=fp16)
+    args = (mips, out["normal"], gtao["vec16" if fp16 else "vec"],
+            noise_maps_64(3, r.device))
+    kw = dict(slice_count=9, steps_per_slice=3, bent=bent,
+              precision=precision)
+    ao, edges = gtao_main(*args, **kw)
+    for row_start, rows in ((0, 17), (13, 9), (h - 9, 9), (0, h), (40, 1)):
+        build.reset_counts()
+        band_ao, band_edges = gtao_main(*args, row_start=row_start,
+                                        num_rows=rows, **kw)
+        whole = (row_start, rows) == (0, h)
+        assert build.launch_counts == _counts(**{
+            "gtao_noise_fp16" if fp16 else "gtao_noise": 1,
+            count_key(bent, precision) if whole else "gtao_main_band": 1})
+        idx = slice(row_start, row_start + rows)
+        assert torch.equal(band_ao, ao[idx]) and torch.equal(band_edges,
+                                                             edges[idx])
+        ao_p, ed_p = main_pass_plain(*args, row_start=row_start,
+                                     num_rows=rows, **kw)
+        assert torch.equal(band_edges, ed_p)
+        d = _bytes_diff(band_ao, ao_p, bent)
+        assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    build.reset_counts()
+    for row_start, rows in ((-1, 9), (h - 8, 9)):
+        with pytest.raises(ValueError):
+            gtao_main(*args, row_start=row_start, num_rows=rows, **kw)
+    assert build.launch_counts == _counts()
+    s = GtaoSettings(9, 3, denoise=2, bent_normals=bent, precision=precision)
+    full = compute_ao(out["depth"], out["normal"], gtao, s, 3)
+    band = h // 4
+    for k in range(4):
+        got = compute_ao_band(out["depth"], out["normal"], gtao, s, 3,
+                              k * band, band)
+        assert torch.equal(got, full[k * band:(k + 1) * band])

@@ -9,7 +9,10 @@ render_stream, FrameTimer, the steps and transcendental probes, a counted
 trace) and the ground-truth path (an spp frame, a resize, accumulation
 with a checkpoint round trip, an RTAO frame, the image metrics), the GTAO
 variants' frames with their debug images and the output libraries (HDR10,
-color spaces, legacy tonemaps, encodings, validation). Each
+color spaces, legacy tonemaps, encodings, validation), the app (the
+offline CLI with a checkpoint, the replay loop and the live server on a
+written glTF) and the band-sharded frame (``RendererConfig.mesh`` on a
+one-rank gloo world). Each
 check runs in a fresh subprocess: the pytest process itself has
 both packages loaded.
 """
@@ -189,6 +192,75 @@ CHECKS = {
                                 width=32, height=32)
         assert vis.shape == (32, 32) and bool(valid.any())
         assert image_metrics.psnr(aa.numpy(), aa.numpy()) == float("inf")
+    """,
+    "app": """
+        import os
+        import sys
+        import tempfile
+        import urllib.request
+        import numpy as np
+        sys.path.insert(0, "tests")
+        from torch_gltf_writer import CAM_DIR, CAM_POS, write_bench_gltf
+        from tpurt_torch.app import interactive, live, offline
+        from tpurt_torch.engine import Renderer, RendererConfig
+        with tempfile.TemporaryDirectory() as d:
+            model = os.path.join(d, "m.gltf")
+            write_bench_gltf(model, field=dict(nx=2, nz=2, subdiv=1),
+                             cubes=1)
+            cam = ["--cam-pos", *map(str, CAM_POS), "--cam-dir",
+                   *map(str, CAM_DIR)]
+            png = os.path.join(d, "f.png")
+            offline.main(["--model", model, "--width", "32", "--height",
+                          "32", "--quality", "low", "--device", "cpu",
+                          "--out", png, *cam])
+            offline.main(["--model", model, "--width", "32", "--height",
+                          "32", "--spp", "2", "--checkpoint",
+                          os.path.join(d, "a"), "--device", "cpu",
+                          "--out", png, *cam])
+            r = Renderer(RendererConfig(width=32, height=32, device="cpu"))
+            offline.default_scene(r, model)
+            r.camera_mut().set_pos(CAM_POS)
+            r.prepare_first_frame()
+            events = os.path.join(d, "e.jsonl")
+            interactive.record_orbit(events, frames=3)
+            img = interactive.run_replay(r, interactive.load_replay(events),
+                                         frames=3)
+            assert img.shape == (32, 32, 3)
+            app = live.LiveApp(r)
+            server = live.serve(app, 32, 32, port=0, host="127.0.0.1")
+            try:
+                app.render_once()
+                url = f"http://127.0.0.1:{server.server_address[1]}"
+                jpg = urllib.request.urlopen(url + "/frame.jpg",
+                                             timeout=20).read()
+                assert jpg[:2] == b"\\xff\\xd8"
+            finally:
+                app.stop()
+                server.shutdown()
+                server.server_close()
+    """,
+    "dist": """
+        import socket
+        import torch
+        import torch.distributed as dist
+        from tpurt_torch.app.bench_scene import build_bench_scene
+        from tpurt_torch.dist import make_mesh
+        from tpurt_torch.engine import Renderer, RendererConfig
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("gloo", world_size=1, rank=0,
+                                init_method=f"tcp://127.0.0.1:{port}")
+        try:
+            def make(**kw):
+                return build_bench_scene(Renderer(RendererConfig(
+                    width=32, height=32, device="cpu", **kw)),
+                    field=dict(nx=2, nz=2, subdiv=1), cubes=2)
+            want = make().render()
+            got = make(mesh=make_mesh(device_type="cpu")).render()
+            assert all(torch.equal(want[k], got[k]) for k in want)
+        finally:
+            dist.destroy_process_group()
     """,
     "diagnostics": """
         import torch

@@ -20,8 +20,16 @@
 //
 // K3, gtao_main_kernel: one thread per pixel in 16x8 blocks (a warp covers
 // 16x2 pixels), so a block's samples, which cluster within 2^(m+4) texels
-// of the pixel at mip m, share L1 lines. The slice and step counts are
-// template parameters for the four presets (1,2), (2,2), (3,3), (9,3), so
+// of the pixel at mip m, share L1 lines. It computes a band of rows inside
+// the image: output row i is image row row_start + i. tpurt's Pallas route
+// computes a 32-row-aligned superset of a band and its XLA route clamps
+// halo rows past the image's edges (tpurt/passes/gtao.py:736-774); the
+// port's band + halo stops at the edges (passes/gtao.py compute_ao_band),
+// so the grid covers just the band's rows. Every pixel reads the whole
+// pyramid, normals and noise at its image position, so a band's rows carry
+// the whole frame's bits. row_start = 0 with h rows is the whole frame.
+// The slice and step counts are template parameters for the four presets
+// (1,2), (2,2), (3,3), (9,3), so
 // the step loop unrolls and the depth loads of both sides of every step of
 // a slice issue together before any is used; other counts take the generic
 // instantiation (0, 0) with runtime counts, one step at a time. The table
@@ -168,16 +176,20 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y)
 gtao_main_kernel(const Mips m, const float* __restrict__ normal_enc,
                  const float* __restrict__ cv,
                  const float* __restrict__ table, int h, int w,
-                 int slice_count_rt, int steps_rt, void* __restrict__ ao_out,
+                 int row_start, int num_rows, int slice_count_rt,
+                 int steps_rt, void* __restrict__ ao_out,
                  uint8_t* __restrict__ edges_out) {
   const int slice_count = SLICES > 0 ? SLICES : slice_count_rt;
   const int steps = STEPS > 0 ? STEPS : steps_rt;
   const int planes_per_slice = 2 + steps;
   const int x = blockIdx.x * TILE_X + threadIdx.x;
-  const int y = blockIdx.y * TILE_Y + threadIdx.y;
-  if (x >= w || y >= h) return;
+  // output row `row` of the band is image row y
+  const int row = blockIdx.y * TILE_Y + threadIdx.y;
+  if (x >= w || row >= num_rows) return;
+  const int y = row_start + row;
   const int texel = (y & 63) * 64 + (x & 63);
   const int idx = y * w + x;
+  const int out_idx = row * w + x;
   // jnp.maximum's 1e-20 guard in the lpfloat type (f16 flushes it to 0)
   const float eps = LP ? 0.0f : 1e-20f;
   // the projected normal's guard: the least f16 normal with LP
@@ -210,7 +222,7 @@ gtao_main_kernel(const Mips m, const float* __restrict__ normal_enc,
                        edge_q(e_r, lp<LP>(e_r - slope_lr)) * 16.0f +
                        edge_q(e_t, lp<LP>(e_t + slope_tb)) * 4.0f +
                        edge_q(e_b, lp<LP>(e_b - slope_tb));
-  edges_out[idx] = (uint8_t)(int)packed;
+  edges_out[out_idx] = (uint8_t)(int)packed;
 
   // decode the view normal (f32, then lpfloat)
   float nx = __ldg(normal_enc + 3 * idx) * 2.0f - 1.0f;
@@ -436,37 +448,40 @@ gtao_main_kernel(const Mips m, const float* __restrict__ normal_enc,
                             lp<LP>(bent[1] * bent[1]) +
                             lp<LP>(bent[2] * bent[2])))),
         eps);
-    static_cast<uint32_t*>(ao_out)[idx] = encode_bent<LP>(
+    static_cast<uint32_t*>(ao_out)[out_idx] = encode_bent<LP>(
         vis_packed, lp<LP>(bent[0] / blen), lp<LP>(bent[1] / blen),
         lp<LP>(bent[2] / blen));
   } else {
-    static_cast<uint8_t*>(ao_out)[idx] =
+    static_cast<uint8_t*>(ao_out)[out_idx] =
         (uint8_t)(int)(vis_packed * 255.0f + 0.5f);
   }
 }
 
 template <int SLICES, int STEPS, bool BENT, bool HALF, bool LP>
 int launch_main(const Mips& m, const float* normal_enc, const float* consts,
-                const float* table, int h, int w, int slice_count, int steps,
-                void* ao_out, uint8_t* edges_out, cudaStream_t stream) {
+                const float* table, int h, int w, int row_start,
+                int num_rows, int slice_count, int steps, void* ao_out,
+                uint8_t* edges_out, cudaStream_t stream) {
   const dim3 block(TILE_X, TILE_Y);
-  const dim3 grid((w + TILE_X - 1) / TILE_X, (h + TILE_Y - 1) / TILE_Y);
+  const dim3 grid((w + TILE_X - 1) / TILE_X,
+                  (num_rows + TILE_Y - 1) / TILE_Y);
   gtao_main_kernel<SLICES, STEPS, BENT, HALF, LP>
       <<<grid, block, 0, stream>>>(m, normal_enc, consts, table, h, w,
-                                   slice_count, steps, ao_out, edges_out);
+                                   row_start, num_rows, slice_count, steps,
+                                   ao_out, edges_out);
   return (int)cudaGetLastError();
 }
 
 template <bool BENT, bool HALF, bool LP>
 int launch_preset(const Mips& m, const float* normal_enc, const float* consts,
-                  const float* table, int h, int w, int slice_count,
-                  int steps, void* ao_out, uint8_t* edges_out,
-                  cudaStream_t stream) {
+                  const float* table, int h, int w, int row_start,
+                  int num_rows, int slice_count, int steps, void* ao_out,
+                  uint8_t* edges_out, cudaStream_t stream) {
 #define TPURT_PRESET(S, T)                                                  \
   if (slice_count == S && steps == T)                                       \
-    return launch_main<S, T, BENT, HALF, LP>(m, normal_enc, consts, table,  \
-                                             h, w, slice_count, steps,      \
-                                             ao_out, edges_out, stream);
+    return launch_main<S, T, BENT, HALF, LP>(                               \
+        m, normal_enc, consts, table, h, w, row_start, num_rows,            \
+        slice_count, steps, ao_out, edges_out, stream);
   // tpurt/passes/gtao.py:53-56: LOW, MEDIUM, HIGH, ULTRA
   TPURT_PRESET(1, 2)
   TPURT_PRESET(2, 2)
@@ -474,7 +489,8 @@ int launch_preset(const Mips& m, const float* normal_enc, const float* consts,
   TPURT_PRESET(9, 3)
 #undef TPURT_PRESET
   return launch_main<0, 0, BENT, HALF, LP>(m, normal_enc, consts, table, h,
-                                           w, slice_count, steps, ao_out,
+                                           w, row_start, num_rows,
+                                           slice_count, steps, ao_out,
                                            edges_out, stream);
 }
 
@@ -502,14 +518,18 @@ int tpurt_gtao_noise_table(const float* noise, const float* consts,
 
 // K3. mips: host array of the 5 device pointers; dims: host array of the 5
 // heights then the 5 widths; table: K3h's output for the same counts and
-// precision; mode: MODE_*; ao_out: u8, or uint32 for the bent modes.
+// precision; mode: MODE_*; ao_out and edges_out: (num_rows, w), row i the
+// image's row row_start + i, inside the image (row_start = 0, num_rows = h:
+// the whole image); ao_out is u8, or uint32 for the bent modes.
 int tpurt_gtao_main(const float* const* mips, const int* dims,
                     const float* normal_enc, const float* consts,
-                    const float* table, int h, int w, int slice_count,
-                    int steps, int mode, void* ao_out, uint8_t* edges_out,
-                    cudaStream_t stream) {
-  if (slice_count <= 0 || steps <= 0) return (int)cudaErrorInvalidValue;
-  if (h <= 0 || w <= 0) return (int)cudaGetLastError();
+                    const float* table, int h, int w, int row_start,
+                    int num_rows, int slice_count, int steps, int mode,
+                    void* ao_out, uint8_t* edges_out, cudaStream_t stream) {
+  if (slice_count <= 0 || steps <= 0 || row_start < 0 ||
+      row_start + num_rows > h)
+    return (int)cudaErrorInvalidValue;
+  if (h <= 0 || w <= 0 || num_rows <= 0) return (int)cudaGetLastError();
   Mips m;
   for (int i = 0; i < 5; ++i) {
     m.level[i] = mips[i];
@@ -518,25 +538,25 @@ int tpurt_gtao_main(const float* const* mips, const int* dims,
   }
   switch (mode) {
     case MODE_EXACT:
-      return launch_preset<false, false, false>(m, normal_enc, consts, table,
-                                                h, w, slice_count, steps,
-                                                ao_out, edges_out, stream);
+      return launch_preset<false, false, false>(
+          m, normal_enc, consts, table, h, w, row_start, num_rows,
+          slice_count, steps, ao_out, edges_out, stream);
     case MODE_BENT:
-      return launch_preset<true, false, false>(m, normal_enc, consts, table,
-                                               h, w, slice_count, steps,
-                                               ao_out, edges_out, stream);
+      return launch_preset<true, false, false>(
+          m, normal_enc, consts, table, h, w, row_start, num_rows,
+          slice_count, steps, ao_out, edges_out, stream);
     case MODE_HALF:
-      return launch_preset<false, true, false>(m, normal_enc, consts, table,
-                                               h, w, slice_count, steps,
-                                               ao_out, edges_out, stream);
+      return launch_preset<false, true, false>(
+          m, normal_enc, consts, table, h, w, row_start, num_rows,
+          slice_count, steps, ao_out, edges_out, stream);
     case MODE_LP:
-      return launch_preset<false, false, true>(m, normal_enc, consts, table,
-                                               h, w, slice_count, steps,
-                                               ao_out, edges_out, stream);
+      return launch_preset<false, false, true>(
+          m, normal_enc, consts, table, h, w, row_start, num_rows,
+          slice_count, steps, ao_out, edges_out, stream);
     case MODE_BENT_LP:
-      return launch_preset<true, false, true>(m, normal_enc, consts, table,
-                                              h, w, slice_count, steps,
-                                              ao_out, edges_out, stream);
+      return launch_preset<true, false, true>(
+          m, normal_enc, consts, table, h, w, row_start, num_rows,
+          slice_count, steps, ao_out, edges_out, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

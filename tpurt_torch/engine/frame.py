@@ -44,7 +44,7 @@ from ..kernels.traverse_bvh8 import trace_closest_bvh8
 from ..passes.encodings import (divide, pack_unorm8, quantize_r11g11b10f,
                                 quantize_r16f)
 from ..passes.gtao import (GtaoSettings, ao_bent_normals, ao_visibility_u8,
-                           compute_ao)
+                           compute_ao_band)
 from ..passes.rays import T_MAX, T_MIN, camera_rays
 from ..passes.shade import shade
 from ..passes.tonemap import tonemap_frame
@@ -61,31 +61,45 @@ def no_step(name: str):
     return contextlib.nullcontext()
 
 
+def no_gather(x):
+    """The default gather of ``finish_frame``: one device holds every
+    row."""
+    return x
+
+
 def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
                  width: int, height: int, gtao_settings: GtaoSettings,
-                 enable_gtao: bool, enable_tonemap: bool,
-                 step=no_step) -> dict:
+                 enable_gtao: bool, enable_tonemap: bool, step=no_step,
+                 row_start: int = 0, num_rows=None,
+                 gather=no_gather) -> dict:
     """Quantize the shaded G-buffer `g`, run GTAO and the tonemap. Returns
     dict: image (H, W, 3) u8 sRGB, color and normal (H, W, 3) f32, depth
     (H, W) f32, ao (H, W) int32 (0..~383; the packed term's visibility,
     0..255, with bent normals) and, when the settings ask for bent normals,
-    bent_normals (H, W, 3) f32."""
+    bent_normals (H, W, 3) f32.
+
+    `g` may hold a band of the frame: rows [row_start, row_start +
+    num_rows) of `height`, and then every output holds those rows.
+    gather(x) returns the whole frame's rows of the band's (num_rows, W,
+    ...) depth or normals, which GTAO samples around the band (the
+    band-sharded frame's all-gather, ``dist/sharding.py``)."""
+    rows = height if num_rows is None else num_rows
     with step("quantize_color"):
-        color = quantize_r11g11b10f(g["color"]).reshape(height, width, 3)
+        color = quantize_r11g11b10f(g["color"]).reshape(rows, width, 3)
     with step("quantize_depth_normal"):
-        depth = quantize_r16f(g["depth"]).reshape(height, width)
-        normal = quantize_r11g11b10f(g["normal_enc"]).reshape(height, width,
-                                                               3)
+        depth = quantize_r16f(g["depth"]).reshape(rows, width)
+        normal = quantize_r11g11b10f(g["normal_enc"]).reshape(rows, width, 3)
 
     bent = None
     with step("gtao"):
         if enable_gtao:
-            ao_term = compute_ao(depth, normal, gtao, gtao_settings,
-                                 noise_index)
+            ao_term = compute_ao_band(gather(depth), gather(normal), gtao,
+                                      gtao_settings, noise_index, row_start,
+                                      rows)
             ao = ao_visibility_u8(ao_term, gtao_settings)
             bent = ao_bent_normals(ao_term, gtao_settings)
         else:
-            ao = torch.full((height, width), 255, dtype=torch.int32,
+            ao = torch.full((rows, width), 255, dtype=torch.int32,
                             device=depth.device)
 
     with step("tonemap"):
@@ -150,17 +164,17 @@ def _gbuffer(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
 
 def render_gbuffer(scene: dict, camera: dict, lights: dict, *, width: int,
                    height: int, row_start: int = 0, num_rows=None,
-                   spp: int = 1, aniso_taps: int = 1) -> dict:
+                   spp: int = 1, aniso_taps: int = 1, step=no_step) -> dict:
     """Trace and shade the pixel grid, or the band of `num_rows` rows from
     `row_start`: the unquantized G-buffer dict(color (R*W, 3), depth
     (R*W,), normal_enc (R*W, 3)). With spp > 1 the color is the mean of
     the R2-jittered samples, summed in tpurt's order (the center sample,
     then samples 1..spp-1, then / spp); depth and normals come from the
     center sample. aniso_taps as in ``shade``; a band's ray cone spreads
-    over the whole image's `height`."""
+    over the whole image's `height`. step as in ``render_frame``."""
     return _gbuffer(False, scene, camera, lights, width=width,
                     height=height, row_start=row_start, num_rows=num_rows,
-                    spp=spp, aniso_taps=aniso_taps)
+                    spp=spp, aniso_taps=aniso_taps, step=step)
 
 
 def render_sample_hdr(scene: dict, camera: dict, lights: dict, jitter, *,

@@ -1,6 +1,8 @@
 """The public renderer API — port of ``tpurt/engine/renderer.py`` for the
 static-scene frame (``render``, ``render_stream`` with frames in flight)
-and the dynamic-scene frame (``render_dynamic``) on one device.
+and the dynamic-scene frame (``render_dynamic``) on one device, and the
+static frame band-sharded over a ``torch.distributed`` mesh
+(``RendererConfig.mesh``).
 
 State kept between frames: the model residency (tpurt's ``Model`` state
 machine), the flattened scene uploaded once per resident-set change (with
@@ -61,6 +63,9 @@ class RendererConfig:
     # joining images' rows
     texture_arena: bool = True
     device: str = "cuda"
+    # a 1-D torch.distributed DeviceMesh (dist/sharding.make_mesh) to
+    # band-decompose frames over, one process per rank; None = one device
+    mesh: Optional[object] = None
 
 
 def resolve_device(name) -> torch.device:
@@ -245,20 +250,31 @@ class Renderer:
     def render_passes(self, noise_index: int, step=no_step) -> dict:
         """render()'s frame at GTAO noise index `noise_index`, without
         counting it as rendered; step(name) wraps each pass
-        (engine/frame.py). engine/profiler.py times its frames here."""
+        (engine/frame.py). engine/profiler.py times its frames here. With
+        ``config.mesh`` every rank of the mesh calls it: each renders its
+        band (``dist/sharding.render_frame_sharded``) and the bands are
+        all-gathered, so every rank returns the whole frame."""
         c = self.config
         self._update_models()
         if self._scene is None:
             raise RuntimeError("call prepare_first_frame() first")
         cam, lights, gtao = self._frame_inputs()
-        return render_frame(self._scene_device, cam, lights, gtao, self._lpm,
-                            noise_index, width=c.width, height=c.height,
-                            gtao_settings=c.gtao, enable_gtao=c.enable_gtao,
-                            enable_tonemap=c.enable_tonemap, spp=c.spp,
-                            aniso_taps=c.aniso_taps, step=step)
+        kw = dict(width=c.width, height=c.height, gtao_settings=c.gtao,
+                  enable_gtao=c.enable_gtao, enable_tonemap=c.enable_tonemap,
+                  spp=c.spp, aniso_taps=c.aniso_taps, step=step)
+        if c.mesh is None:
+            return render_frame(self._scene_device, cam, lights, gtao,
+                                self._lpm, noise_index, **kw)
+        from ..dist.sharding import gather_frame, render_frame_sharded
+
+        band = render_frame_sharded(self._scene_device, cam, lights, gtao,
+                                    self._lpm, noise_index, mesh=c.mesh,
+                                    **kw)
+        return gather_frame(band, c.mesh)
 
     def render(self, block: bool = True) -> dict:
-        """Render one frame; returns the output dict of device tensors."""
+        """Render one frame; returns the output dict of device tensors
+        (``render_passes``)."""
         out = self.render_passes(self.noise_index)
         self._frame_idx += 1
         self.rendered_frames += 1

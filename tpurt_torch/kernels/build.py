@@ -46,6 +46,9 @@ launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_noise": 0,
                  "gtao_main_half": 0, "gtao_main_fp16": 0,
                  "gtao_main_bent_fp16": 0, "gtao_denoise_bent": 0,
                  "gtao_denoise_fp16": 0, "gtao_denoise_bent_fp16": 0,
+                 # K3 over a band of rows other than the whole image, in
+                 # any instantiation (the band-sharded frame's GTAO)
+                 "gtao_main_band": 0,
                  "bvh2_closest": 0, "bvh2_any": 0, "bvh8_any_multi": 0,
                  "bvh8_any_multi_pop2": 0,
                  "bvh8_closest_pop2": 0, "bvh8_any_pop2": 0,

@@ -78,7 +78,9 @@ def _mode(bent: bool, precision: str) -> int:
 
 
 def count_key(bent: bool, precision: str) -> str:
-    """The launch-count entry of the main kernel's instantiation."""
+    """The launch-count entry of the main kernel's instantiation over the
+    whole image; a launch over another band of rows counts under
+    "gtao_main_band" in every instantiation."""
     return ("gtao_main", "gtao_main_bent", "gtao_main_half",
             "gtao_main_fp16", "gtao_main_bent_fp16")[_mode(bent, precision)]
 
@@ -180,34 +182,55 @@ def gtao_noise_table(noise, gvec, *, slice_count: int, steps_per_slice: int,
     return table
 
 
+def band_rows(h: int, row_start: int, num_rows) -> tuple[int, int]:
+    """(row_start, num_rows) of a band of an image of `h` rows: output row
+    i is image row row_start + i, and the band lies inside the image. None
+    rows is the whole image from row_start = 0."""
+    if num_rows is None:
+        if row_start != 0:
+            raise ValueError("gtao_main: a band from row_start != 0 needs "
+                             "num_rows")
+        return 0, h
+    row_start, num_rows = int(row_start), int(num_rows)
+    if num_rows < 1 or row_start < 0 or row_start + num_rows > h:
+        raise ValueError(f"gtao_main: band of {num_rows} rows from "
+                         f"{row_start} outside an image of {h} rows")
+    return row_start, num_rows
+
+
 def gtao_main(mips, normal_enc, gvec, noise, *, slice_count: int,
               steps_per_slice: int, bent: bool = False,
-              precision: str = "exact"):
-    """Returns (ao (H, W), edges_u8 (H, W)): K3h then K3 on CUDA tensors,
-    main_pass_plain on CPU tensors. ao is u8, or with bent normals the
-    packed (visibility, bent normal) uint32 bits as int32."""
+              precision: str = "exact", row_start: int = 0, num_rows=None):
+    """Returns (ao (R, W), edges_u8 (R, W)) of the band of `num_rows` rows
+    from `row_start` (``band_rows``; the whole image by default): K3h then
+    K3 on CUDA tensors, main_pass_plain on CPU tensors. ao is u8, or with
+    bent normals the packed (visibility, bent normal) uint32 bits as
+    int32."""
     _check("gtao_main", mips, normal_enc, gvec, noise)
     _check_counts("gtao_main", slice_count, steps_per_slice)
     _mode(bent, precision)
+    row_start, num_rows = band_rows(mips[0].shape[0], row_start, num_rows)
+    band = dict(row_start=row_start, num_rows=num_rows)
     if not mips[0].is_cuda:
         return main_pass_plain(mips, normal_enc, gvec, noise,
                                slice_count=slice_count,
                                steps_per_slice=steps_per_slice, bent=bent,
-                               precision=precision)
+                               precision=precision, **band)
     table = gtao_noise_table(noise, gvec, slice_count=slice_count,
                              steps_per_slice=steps_per_slice,
                              fp16=precision == "fp16")
     return main_kernel(mips, normal_enc, gvec, table,
                        slice_count=slice_count,
                        steps_per_slice=steps_per_slice, bent=bent,
-                       precision=precision)
+                       precision=precision, **band)
 
 
 def main_kernel(mips, normal_enc, gvec, table, *, slice_count: int,
                 steps_per_slice: int, bent: bool = False,
-                precision: str = "exact"):
-    """K3 alone on CUDA tensors, reading K3h's `table` for the same
-    counts and precision."""
+                precision: str = "exact", row_start: int = 0,
+                num_rows=None):
+    """K3 alone on CUDA tensors over the band of ``gtao_main``, reading
+    K3h's `table` for the same counts and precision."""
     name = "gtao_main"
     mode = _mode(bent, precision)
     planes = table_planes(slice_count, steps_per_slice)
@@ -217,22 +240,26 @@ def main_kernel(mips, normal_enc, gvec, table, *, slice_count: int,
     dev = mips[0].device
     build.require_cuda(name, dict(table=table), dev)
     h, w = mips[0].shape
-    ao = torch.empty((h, w), dtype=torch.int32 if bent else torch.uint8,
+    row_start, rows = band_rows(h, row_start, num_rows)
+    ao = torch.empty((rows, w), dtype=torch.int32 if bent else torch.uint8,
                      device=dev)
-    edges = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    edges = torch.empty((rows, w), dtype=torch.uint8, device=dev)
     levels = (ctypes.c_void_p * XE_GTAO_DEPTH_MIP_LEVELS)(
         *(m.data_ptr() for m in mips))
     dims = (ctypes.c_int * (2 * XE_GTAO_DEPTH_MIP_LEVELS))(
         *(int(m.shape[0]) for m in mips), *(int(m.shape[1]) for m in mips))
     fn = build.function("tpurt_gtao_main", [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+        ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
     p = build.ptr
     build.check(fn(ctypes.cast(levels, ctypes.c_void_p),
                    ctypes.cast(dims, ctypes.c_void_p), p(normal_enc),
-                   p(gvec), p(table), h, w, slice_count, steps_per_slice,
-                   mode, p(ao), p(edges), build.stream_of(table)),
+                   p(gvec), p(table), h, w, row_start, rows, slice_count,
+                   steps_per_slice, mode, p(ao), p(edges),
+                   build.stream_of(table)),
                 "tpurt_gtao_main")
-    build.launch_counts[count_key(bent, precision)] += 1
+    whole = (row_start, rows) == (0, h)
+    build.launch_counts[count_key(bent, precision) if whole
+                        else "gtao_main_band"] += 1
     return ao, edges
 
 
@@ -321,24 +348,30 @@ def noise_table_plain(noise, gvec, *, slice_count: int,
 
 def main_pass_plain(mips, normal_enc, gvec, noise, *, slice_count: int,
                     steps_per_slice: int, bent: bool = False,
-                    precision: str = "exact"):
+                    precision: str = "exact", row_start: int = 0,
+                    num_rows=None):
     """PyTorch port of tpurt's ``passes/gtao.py:main_pass`` (XeGTAO
-    MainPass): noise_table_plain, then the per-pixel body reading it."""
+    MainPass): noise_table_plain, then the per-pixel body reading it, over
+    the band of ``gtao_main``."""
     table = noise_table_plain(noise, gvec, slice_count=slice_count,
                               steps_per_slice=steps_per_slice,
                               fp16=precision == "fp16")
     return main_body_plain(mips, normal_enc, gvec, table,
                            slice_count=slice_count,
                            steps_per_slice=steps_per_slice, bent=bent,
-                           precision=precision)
+                           precision=precision, row_start=row_start,
+                           num_rows=num_rows)
 
 
 def main_body_plain(mips, normal_enc, gvec, table, *, slice_count: int,
                     steps_per_slice: int, bent: bool = False,
-                    precision: str = "exact"):
+                    precision: str = "exact", row_start: int = 0,
+                    num_rows=None):
     """The per-pixel part of main_pass_plain, reading the noise table of
-    the same counts and precision. Dot products and norms sum left to
-    right; with fp16 every lpfloat value is rounded after its operation."""
+    the same counts and precision, over the band of ``gtao_main``: output
+    row i is image row row_start + i, each pixel computed as in the whole
+    image. Dot products and norms sum left to right; with
+    fp16 every lpfloat value is rounded after its operation."""
     mode = _mode(bent, precision)
     half = mode == 2
     lp = _Lp(precision == "fp16")
@@ -353,17 +386,19 @@ def main_body_plain(mips, normal_enc, gvec, table, *, slice_count: int,
     hs_t = torch.tensor(hs, dtype=torch.int32, device=dev)
     ws_t = torch.tensor(ws, dtype=torch.int32, device=dev)
 
-    xs = divide(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, w)
-    ys = divide(torch.arange(h, dtype=torch.float32, device=dev) + 0.5, h)
-    sp_y, sp_x = torch.meshgrid(ys, xs, indexing="ij")
-    yi = torch.arange(h, device=dev)
+    row_start, rows = band_rows(h, row_start, num_rows)
+    yi = torch.arange(row_start, row_start + rows, device=dev)
     xi = torch.arange(w, device=dev)
+    xs = divide(xi.to(torch.float32) + 0.5, w)
+    ys = divide(yi.to(torch.float32) + 0.5, h)
+    sp_y, sp_x = torch.meshgrid(ys, xs, indexing="ij")
 
-    vz = d0
-    pix_l = d0[:, torch.clamp(xi - 1, 0, w - 1)]
-    pix_r = d0[:, torch.clamp(xi + 1, 0, w - 1)]
+    vz = d0[yi]
+    pix_l = vz[:, torch.clamp(xi - 1, 0, w - 1)]
+    pix_r = vz[:, torch.clamp(xi + 1, 0, w - 1)]
     pix_t = d0[torch.clamp(yi - 1, 0, h - 1)]
     pix_b = d0[torch.clamp(yi + 1, 0, h - 1)]
+    normal_enc = normal_enc[yi]
 
     # XeGTAO_CalculateEdges + XeGTAO_PackEdges
     e_l, e_r = r(pix_l - vz), r(pix_r - vz)

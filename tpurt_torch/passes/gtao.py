@@ -8,6 +8,10 @@
   3. the denoise chain — kernel K4 (kernels/gtao_denoise.py), over the
      packed bent-normal term or in fp16 too.
 
+``compute_ao_band`` runs the chain over a band of the image's rows (the
+band-sharded frame, ``dist/sharding.py``), ``compute_ao`` over all of
+them.
+
 The final AO term is the reference's unclamped u16 range (0..~383), held
 in an int32 tensor; with bent normals it is the packed RGBA8 (bent normal,
 visibility) term as uint32 bits in an int32 tensor, which
@@ -30,6 +34,12 @@ from ..kernels.gtao_main import (PRECISIONS, XE_GTAO_OCCLUSION_TERM_SCALE,
 from .encodings import divide, quantize_r16f, sqrt
 
 XE_GTAO_DEPTH_MIP_LEVELS = 5
+
+# (slice_count, steps_per_slice) of XeGTAO's quality presets
+QUALITY_LOW = (1, 2)
+QUALITY_MEDIUM = (2, 2)
+QUALITY_HIGH = (3, 3)
+QUALITY_ULTRA = (9, 3)
 
 DEFAULT_CONSTANTS = dict(
     effect_radius=0.2,
@@ -202,15 +212,17 @@ def prefilter_depths(view_depth, consts: dict, fp16: bool = False):
 
 
 def _main_pass(mips, normal_enc, gtao: dict, settings: GtaoSettings,
-               noise_index: int):
-    """K3h + K3 in the settings' variant: (ao term, edges_u8)."""
+               noise_index: int, row_start: int = 0, num_rows=None):
+    """K3h + K3 in the settings' variant, over the whole image or a band of
+    rows (``kernels/gtao_main.band_rows``): (ao term, edges_u8)."""
     return gtao_main(mips, normal_enc.contiguous(),
                      gtao["vec16" if settings.fp16 else "vec"],
                      noise_maps_64(noise_index, mips[0].device),
                      slice_count=settings.slice_count,
                      steps_per_slice=settings.steps_per_slice,
                      bent=settings.bent_normals,
-                     precision=settings.precision)
+                     precision=settings.precision, row_start=row_start,
+                     num_rows=num_rows)
 
 
 def compute_ao(view_depth, normal_enc, gtao: dict, settings: GtaoSettings,
@@ -218,11 +230,41 @@ def compute_ao(view_depth, normal_enc, gtao: dict, settings: GtaoSettings,
     """Full GTAO chain: prefilter -> K3 -> K4. `gtao` is
     ``engine/convert.gtao_tensors(...)``. Returns the final AO term (H, W)
     int32: 0..~383, or the packed term with bent normals."""
+    return compute_ao_band(view_depth, normal_enc, gtao, settings,
+                           noise_index, 0, view_depth.shape[0])
+
+
+def compute_ao_band(view_depth, normal_enc, gtao: dict,
+                    settings: GtaoSettings, noise_index: int, row_start: int,
+                    band_rows: int):
+    """The final AO term of rows [row_start, row_start + band_rows) of the
+    frame whose whole (H, W) depth and normals are given (tpurt's
+    ``compute_ao_band``, the band-sharded frame's GTAO). The prefilter runs
+    over the whole image, K3 over the band and a halo of
+    num_denoise_passes + 1 rows on each side, K4 over that (up to
+    band_rows + 2 * halo, W) array, and the halo is trimmed. Returns
+    (band_rows, W) int32; ``compute_ao`` is the band of the whole image.
+
+    The halo stops at the image's edges. tpurt's band runs on there with
+    rows that repeat the edge row; each denoise pass after the first then
+    reads a repeated row that the whole frame's edge clamp does not see,
+    so with two or more passes its first and last rows differ from its
+    ``compute_ao`` (ROADMAP F22). Here the band array's edge is the
+    image's, and K4 clamps there as over the whole frame."""
+    h = view_depth.shape[0]
+    if not (band_rows >= 1 and 0 <= row_start and row_start + band_rows <= h):
+        raise ValueError(f"compute_ao_band: rows [{row_start}, "
+                         f"{row_start + band_rows}) outside an image of {h}")
+    halo = settings.num_denoise_passes + 1
+    lo = max(row_start - halo, 0)
+    hi = min(row_start + band_rows + halo, h)
     mips = prefilter_depths(view_depth, gtao["host"], fp16=settings.fp16)
-    ao, edges = _main_pass(mips, normal_enc, gtao, settings, noise_index)
-    return denoise_chain(ao, edges, n_passes=settings.num_denoise_passes,
-                         blur_beta=settings.denoise_blur_beta,
-                         bent=settings.bent_normals, fp16=settings.fp16)
+    ao, edges = _main_pass(mips, normal_enc, gtao, settings, noise_index,
+                           row_start=lo, num_rows=hi - lo)
+    ao = denoise_chain(ao, edges, n_passes=settings.num_denoise_passes,
+                       blur_beta=settings.denoise_blur_beta,
+                       bent=settings.bent_normals, fp16=settings.fp16)
+    return ao[row_start - lo:row_start - lo + band_rows]
 
 
 def encode_visibility_bent_normal(visibility, bent_normal):
