@@ -155,6 +155,35 @@ once, at 64x64):
            rank launches K1 1, K2 3, K3h 1, K3 (band) 1, K4 1 per frame;
            ms/frame per rank count, the transport that ran, labelled as
            ranks sharing one H100 (no multi-GPU number).
+  phase 14 the sharded-geometry frame (dist/geometry.py), after phase 13.
+           At each size, one stop of each ring on the card at the main
+           path's shapes (the band of rank 1 of 4 shards, its second
+           stop): K1 with the first stop's t as t_max and K5 with the
+           lanes the first stop occluded parked at t_max = 0, and the
+           "xla" tier's K6 closest and any hit (max_leaf 4, the shard's
+           binary tree) the same way, bit for bit against their plain
+           versions and timed beside their bounds, and ring_gather's stop
+           against direct indexing on the band's attribute and texel
+           rows (the chunk owning most of them). Then both tiers ("bvh8":
+           K1 and K5 per stop, the shading tables row-sharded; "xla": K6)
+           with one NCCL rank in this process and 2 and 4 gloo ranks
+           spawned on cuda:0, each rank at both sizes: the ring's t, tri
+           and occlusion against the single-device K1/K2 on the band's
+           rays, differing only on equal-t ties and on hits lost through
+           a triangle's edge (ROADMAP F26), each such ray confirmed by
+           brute force: every differing (t, tri) a real hit and every
+           nearer hit on an edge, every differing occlusion a ray that
+           hits only through edges; every output
+           gathered by gather_frame against the single-device frame
+           outside those pixels (counts printed), ring_gather against
+           direct indexing, launches per rank (K1 n, K5 n or K6 closest n
+           and any 3n; K3h 1, K3 over the band 1, K4 1; no K2), ms/frame
+           (slowest rank) and the ring_shift calls' CUDA-event ms, as
+           ranks sharing one H100 (no multi-GPU number). Last, at 800x800,
+           the textures workload's "bvh8" frame over 4 gloo ranks: each
+           rank's hbm_accounting beside its memory_allocated() after
+           setup and beside the replicated renderer's scene tensors, the
+           image at phase 3's bars against the single-device frame.
   phase 8  the diagnostics path. The steps probe
            (tpurt_torch/tools/steps_probe.py) on the frame's rays with the
            counts at 0: K7a closest 1 and K7a any 3 (one per light), over
@@ -180,8 +209,8 @@ once, at 64x64):
            (sum of device_profile / sum of profile_frame) and render()
            ms/frame right after it.
 
-Phases 12 and 13 run after both sizes' phases 1-11 and before phase 8's
-device profile (torch.profiler).
+Phases 12, 13 and 14 run after both sizes' phases 1-11 and before phase
+8's device profile (torch.profiler).
 
 Every kernel is timed twice: on the card alone (`ms`,
 tpurt_torch/kernels/build.device_ms: the least of 3 runs, each queued
@@ -2732,17 +2761,52 @@ def free_port():
         return s.getsockname()[1]
 
 
+def spawn_ranks(target, world, timeout_s):
+    """Run target(rank, world, port, queue) on `world` spawned processes;
+    returns what they put on the queue (one item each per call of
+    put), failing if a rank fails or the run outlasts timeout_s."""
+    import queue
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=target, args=(rank, world, port, results))
+             for rank in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = []
+    try:
+        while any(p.is_alive() for p in procs) or not results.empty():
+            try:
+                got.append(results.get(timeout=5.0))
+            except queue.Empty:
+                require(all(p.is_alive() or p.exitcode == 0 for p in procs),
+                        f"a rank of {world} failed: exit codes "
+                        f"{[p.exitcode for p in procs]}")
+                require(time.perf_counter() - t0 < timeout_s,
+                        f"{world} ranks timed out")
+        for p in procs:
+            p.join(timeout=60)
+        require(all(p.exitcode == 0 for p in procs),
+                f"ranks of {world} exited {[p.exitcode for p in procs]}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    return got
+
+
 def phase13_ranks(renderers):
     """The band-sharded frame: one NCCL rank in this process, then 2 and 4
     gloo ranks spawned on cuda:0 (NCCL refuses two ranks on one GPU), each
     at both sizes; every output against the single-device frame bit for
     bit, bent normals too; each rank's launches per frame. Returns per
     label and rank count the launches, ms/frame and transport."""
-    import queue
-
-    import torch
     import torch.distributed as dist
-    import torch.multiprocessing as mp
 
     from tpurt_torch.dist import make_mesh
     from tpurt_torch.dist.sharding import transport
@@ -2770,37 +2834,11 @@ def phase13_ranks(renderers):
     finally:
         dist.destroy_process_group()
 
-    ctx = mp.get_context("spawn")
     for world in RANK_COUNTS:
-        results = ctx.Queue()
-        port = free_port()
-        procs = [ctx.Process(target=rank_worker,
-                             args=(rank, world, port, results))
-                 for rank in range(world)]
         t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        got = []
-        try:
-            while len(got) < world * len(SHAPES):
-                try:
-                    got.append(results.get(timeout=5.0))
-                except queue.Empty:
-                    require(all(p.is_alive() or p.exitcode == 0
-                                for p in procs),
-                            f"a rank of {world} failed: exit codes "
-                            f"{[p.exitcode for p in procs]}")
-                    require(time.perf_counter() - t0 < 300,
-                            f"{world} ranks timed out")
-            for p in procs:
-                p.join(timeout=60)
-            require(all(p.exitcode == 0 for p in procs),
-                    f"ranks of {world} exited {[p.exitcode for p in procs]}")
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.terminate()
-                    p.join(timeout=10)
+        got = spawn_ranks(rank_worker, world, 300)
+        require(len(got) == world * len(SHAPES),
+                f"{world} ranks reported {len(got)} results")
         for label, r in renderers.items():
             mine = sorted((g for g in got if g["label"] == label),
                           key=lambda g: g["rank"])
@@ -2823,6 +2861,647 @@ def phase13_ranks(renderers):
                                           transport="gloo")
         log(f"{world} gloo ranks: {time.perf_counter() - t0:.1f} s with "
             f"spawning")
+    return out
+
+
+# phase 14: the sharded-geometry frame (dist/geometry.py)
+GEO_SHARDS = 4         # the one-stop checks: the frame's band of 4 shards
+GEO_RANK_COUNTS = (2, 4)
+GEO_TIERS = ("bvh8", "xla")
+GEO_FRAMES = 2
+# a hit within this barycentric distance of a triangle's edge is a ray
+# through the edge, which two BVHs may decide differently (ROADMAP F26)
+EDGE_EPS = 1e-5
+# the rays of a set two BVHs may decide differently, at most (each is
+# checked by brute force)
+GRAZE_MAX = 4096
+
+
+def geo_launches(tier, n, lights, whole):
+    """A ring frame's launches per rank: K1 and K5 once per stop ("bvh8"),
+    or K6 closest once and any once per light per stop ("xla"); K3h, K3
+    (over the band, or the whole frame with one rank) and K4 once."""
+    want = dict(ALL_ZERO, gtao_noise=1, gtao_denoise=1)
+    want["gtao_main" if whole else "gtao_main_band"] = 1
+    if tier == "bvh8":
+        return dict(want, bvh8_closest=n, bvh8_any_multi=n)
+    return dict(want, bvh2_closest=n, bvh2_any=lights * n)
+
+
+def through_edges(tris, o, d, t_min, t_max, found=None):
+    """Per ray, by brute force over every triangle (the plain versions'
+    Moller-Trumbore, so the same distances): whether the tracers may
+    disagree on it because box culling lost a hit through a triangle's
+    edge (ROADMAP F26), the only hit a box test can lose. With `found`, a
+    list of (t, tri) per tracer: each tracer's (t, tri) is T_MAX or a
+    brute-force hit of that triangle at that distance, and every
+    brute-force hit nearer than it lies within EDGE_EPS of its triangle's
+    edge. Without, occlusion: the ray hits something in (t_min, t_max) and
+    every such hit lies so."""
+    import torch
+
+    from tpurt_torch.kernels.traverse_bvh8 import _moller_trumbore
+    from tpurt_torch.passes.rays import T_MAX
+
+    ids = tris[:, 9].to(torch.int32)
+    out = []
+    for a in range(0, o.shape[0], 32):
+        b = min(a + 32, o.shape[0])
+        rows = tris[None].expand(b - a, -1, -1)
+        hit, t, u, v = _moller_trumbore(rows, o[a:b], d[a:b], t_min,
+                                        t_max[a:b])
+        edge = torch.minimum(torch.minimum(u, v), 1.0 - u - v) <= EDGE_EPS
+        if found is None:
+            out.append(hit.any(1) & ~(hit & ~edge).any(1))
+            continue
+        ok = torch.ones(b - a, dtype=torch.bool, device=o.device)
+        for tx, trix in found:
+            tx, trix = tx[a:b, None], trix[a:b, None]
+            real = (hit & (t == tx) & (ids[None] == trix)).any(1)
+            lost = (hit & (t < tx) & ~edge).any(1)
+            ok &= (real | (tx[:, 0] == T_MAX)) & ~lost
+        out.append(ok)
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool,
+                                                  device=o.device)
+
+
+def geo_traces(r, mesh, tier, shard, row0, band, label, problems):
+    """The ring's traces of this rank's band against the single-device K1
+    and K2 on the same rays: t and tri bit for bit, outside equal-t ties
+    and hits lost through a triangle's edge, and occlusion outside rays
+    that hit only through edges (each differing ray confirmed by brute
+    force, through_edges, at most GRAZE_MAX of a set); a failed check is
+    appended to `problems` (ranks must reach every collective). Returns
+    the band's pixel masks: ties, t off and occlusion off."""
+    import torch
+
+    from tpurt_torch.dist.geometry import ring_any, ring_closest, \
+        shard_tracers
+    from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
+                                                   trace_closest_bvh8)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
+
+    c = r.config
+    w, h = c.width, c.height
+    cam, lights, _ = r._frame_inputs()
+    o, d = camera_rays(cam, w, h, row0, band)
+    closest, any_hit = shard_tracers(shard, tier, band, w)
+    got = ring_closest(closest, o, d, mesh)
+    want = trace_closest_bvh8(r.scene_device, o, d, T_MIN, T_MAX,
+                              height=band, width=w)
+    t_off = got["t"] != want["t"]
+    ties = ~t_off & (got["tri"] != want["tri"])
+    tris = r.scene_device["tris"]
+    n = o.shape[0]
+    lanes = (t_off | ties).nonzero()[:, 0]
+    if not (lanes.numel() <= GRAZE_MAX and bool(through_edges(
+            tris, o[lanes], d[lanes], T_MIN, torch.full_like(
+                got["t"][lanes], T_MAX),
+            [(x["t"][lanes], x["tri"][lanes]) for x in (got, want)]).all())):
+        problems.append(f"[{label}] {tier}: {lanes.numel()} rays' hits "
+                        f"differ, not all an equal-t tie or a hit lost "
+                        f"through an edge")
+    rays = shadow_rays(r.scene_device, cam, lights, want, d, height=band,
+                       image_rows=h)
+    so = rays[0][0]
+    occ = ring_any(any_hit, so, torch.stack([x[1] for x in rays]),
+                   SHADOW_T_MIN, torch.stack([x[2] for x in rays]), mesh)
+    occ_off = torch.zeros(n, dtype=torch.bool, device=o.device)
+    for i, (_, sd, tm) in enumerate(rays):
+        off = occ[i] != trace_any_bvh8(r.scene_device, so, sd, SHADOW_T_MIN,
+                                       tm, height=band, width=w)
+        lanes = off.nonzero()[:, 0]
+        if not (lanes.numel() <= GRAZE_MAX and bool(through_edges(
+                tris, so[lanes], sd[lanes], SHADOW_T_MIN,
+                tm[lanes]).all())):
+            problems.append(f"[{label}] {tier}: light {i}'s occlusion "
+                            f"differs on {lanes.numel()} rays, not all "
+                            f"through an edge")
+        occ_off |= off
+    return dict(ties=ties, t_off=t_off, occ_off=occ_off)
+
+
+def frame_agrees(got, want, masks, label, problems):
+    """The ring frame against the single-device one (whole frames, masks
+    (H*W,) per pixel): depth and normals differ only where tri or t does,
+    color also where an occlusion does, AO bit-equal when no geometry
+    differs and else on at most AO_MAX_FRACTION of pixels, the image only
+    where color or AO do (a failure is appended to `problems`). Returns
+    the counts of differing pixels and rays, and AO's largest step."""
+    import torch
+
+    h, w = want["depth"].shape
+    geom = (masks["ties"] | masks["t_off"]).reshape(h, w)
+    shade = geom | masks["occ_off"].reshape(h, w)
+
+    def off(k):
+        return (got[k] != want[k]).reshape(h, w, -1).any(-1)
+
+    counts = {k: int(off(k).sum()) for k in want}
+    ao = off("ao")
+    ok = not (off("depth") & ~geom).any() and not (off("normal")
+                                                   & ~geom).any()
+    ok &= not (off("color") & ~shade).any()
+    ok &= not (off("image") & ~(shade | ao)).any()
+    step = int((got["ao"].to(torch.int32) - want["ao"].to(torch.int32))
+               .abs().max())
+    ok &= (not ao.any()) if not geom.any() else (
+        float(ao.float().mean()) <= AO_MAX_FRACTION)
+    counts.update({k: int(v.sum()) for k, v in masks.items()},
+                  ao_max_step=step)
+    if not (ok and sorted(got) == sorted(want)):
+        problems.append(f"[{label}] the ring frame differs beyond its rays "
+                        f"through an edge and its ties: {counts}")
+    return counts
+
+
+def geo_rank_frames(r, mesh, label, problems):
+    """This rank's ring frames of `r`'s scene in both tiers: traces
+    (geo_traces), one frame's launches, every output all-gathered against
+    the single-device frame (frame_agrees), ring_gather against direct
+    indexing, ms/frame over GEO_FRAMES frames after the checked one (host
+    wall, gathered outputs) and the ring_shift calls' summed CUDA-event
+    ms per frame.
+    Failed checks go to `problems`. Returns a dict per tier."""
+    import torch
+
+    from tpurt_torch.dist import (freeze_meta, gather_frame, rank_tensors,
+                                  render_frame_sharded_geometry,
+                                  shard_geometry, shard_tables)
+    from tpurt_torch.dist import geometry
+    from tpurt_torch.dist.sharding import all_gather_rows, ring_shift
+    from tpurt_torch.kernels import build
+
+    c = r.config
+    n, rank = mesh.size(), mesh.get_local_rank()
+    band = c.height // n
+    row0 = rank * band
+    want = r.render_passes(0)
+    pt = r.scene.as_pytree()
+    cam, lights, gtao = r._frame_inputs()
+    out = {}
+    for tier in GEO_TIERS:
+        t0 = time.perf_counter()
+        shards = shard_geometry(pt, n, tier)
+        tbl, meta = shard_tables(pt, n) if tier == "bvh8" else (None, None)
+        sc, shard, chunks = rank_tensors(pt, shards, tbl, rank, r.device)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        def frame():
+            return render_frame_sharded_geometry(
+                sc, shard, cam, lights, gtao, r._lpm, 0, width=c.width,
+                height=c.height, gtao_settings=c.gtao, mesh=mesh,
+                tables=tier, shade_tables=chunks,
+                meta=None if meta is None else freeze_meta(meta))
+
+        masks = geo_traces(r, mesh, tier, shard, row0, band, label,
+                           problems)
+        masks = {k: all_gather_rows(v.to(torch.uint8), mesh).bool()
+                 for k, v in masks.items()}
+        torch.cuda.synchronize()
+        build.reset_counts()
+        got = frame()
+        torch.cuda.synchronize()
+        launches = dict(build.launch_counts)
+        want_l = geo_launches(tier, n, r.stats()["lights"], n == 1)
+        who = f"{label} {tier} rank {rank} of {n}"
+        if launches != want_l:
+            problems.append(f"[{who}] launched {nonzero(launches)}, want "
+                            f"{nonzero(want_l)}")
+        counts = frame_agrees(gather_frame(got, mesh), want, masks, who,
+                              problems)
+        if tier == "bvh8":
+            # ring_gather over this mesh against direct indexing
+            full = torch.from_numpy(pt["tri_attr"]).to(r.device)
+            idx = torch.randint(0, full.shape[0], (4096,),
+                                generator=torch.Generator().manual_seed(0)
+                                ).to(r.device)
+            if not torch.equal(geometry.ring_gather(
+                    chunks["tri_attr"], meta["attr_chunk"], idx, mesh),
+                    full[idx]):
+                problems.append(f"[{who}] ring_gather differs from direct "
+                                f"indexing")
+        spans = []
+
+        def timed_shift(tree, m):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            res = ring_shift(tree, m)
+            e.record()
+            spans.append((s, e))
+            return res
+
+        torch.cuda.synchronize()
+        geometry.ring_shift = timed_shift
+        try:
+            t0 = time.perf_counter()
+            for _ in range(GEO_FRAMES):
+                gather_frame(frame(), mesh)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1000.0 / GEO_FRAMES
+        finally:
+            geometry.ring_shift = ring_shift
+        shift_ms = sum(s.elapsed_time(e) for s, e in spans) / GEO_FRAMES
+        out[tier] = dict(launches=nonzero(launches), counts=counts, ms=ms,
+                         ring_shift_ms=shift_ms, setup_s=setup_s)
+    return out
+
+
+def phase14_stops(r, label):
+    """One stop of each ring on the card, at the main path's shapes (the
+    band of rank 1 of GEO_SHARDS, its second stop, shard 1), against its
+    plain version bit for bit: K1 with the first stop's t as t_max, K5
+    with the lanes the first stop occluded parked at t_max = 0, the "xla"
+    tier's K6 closest and any hit the same way over the shard's binary
+    tree (leaves of MAX_LEAF), and ring_gather's stop (serve_rows) on the
+    band's attribute and texel row indices against direct indexing, on the
+    chunk that owns most of them. Times beside their bounds."""
+    import torch
+
+    from tpurt_torch.dist import rank_tensors, shard_geometry, shard_tables
+    from tpurt_torch.dist.geometry import MAX_LEAF, serve_rows
+    from tpurt_torch.kernels.traverse_bvh2 import (trace_any_bvh2,
+                                                   trace_closest_bvh2)
+    from tpurt_torch.kernels.traverse_bvh2 import \
+        trace_any_plain as bvh2_any_plain
+    from tpurt_torch.kernels.traverse_bvh2 import \
+        trace_closest_plain as bvh2_closest_plain
+    from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8_multi,
+                                                   trace_any_multi_plain,
+                                                   trace_closest_bvh8,
+                                                   trace_closest_plain)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays, surface
+
+    c = r.config
+    w, h = c.width, c.height
+    dev = r.device
+    band = h // GEO_SHARDS
+    pt = r.scene.as_pytree()
+    shards = shard_geometry(pt, GEO_SHARDS, "bvh8")
+    tbl, meta = shard_tables(pt, GEO_SHARDS)
+    s0 = rank_tensors(pt, shards, None, 0, dev)[1]
+    s1 = rank_tensors(pt, shards, None, 1, dev)[1]
+    cam, lights, _ = r._frame_inputs()
+    o, d = camera_rays(cam, w, h, band, band)
+    kw = dict(height=band, width=w)
+    out = {}
+
+    # K1 at the second stop: the carried t as t_max
+    carried = trace_closest_bvh8(s0, o, d, T_MIN, T_MAX, pop2=False,
+                                 uv_payload=False, **kw)["t"]
+
+    def k1():
+        return trace_closest_bvh8(s1, o, d, T_MIN, carried, pop2=False,
+                                  uv_payload=False, **kw)
+
+    work = {}
+    plain = trace_closest_plain(s1, o, d, T_MIN, carried, stats=work)
+    got = k1()
+    mism = sum(int((got[k] != plain[k]).sum()) for k in plain)
+    require(mism == 0, f"[{label}] K1 with a carried t_max vs plain: {mism}")
+    b_ms, b_by = bound(*trace_work(s1, "nodes8c", (o, d, carried), 16, work,
+                                   OPS_BVH8_NODE))
+    out["k1"] = dict(kernel_ms(k1), plain_ms=cuda_ms(
+        lambda: trace_closest_plain(s1, o, d, T_MIN, carried), 2),
+        bound_ms=b_ms, bound_by=b_by, rays=o.shape[0],
+        improved=int((got["t"] < carried).sum()))
+
+    # K5 at the second stop: the first stop's occluded lanes parked
+    hits = trace_closest_bvh8(r.scene_device, o, d, T_MIN, T_MAX, **kw)
+    rays = shadow_rays(r.scene_device, cam, lights, hits, d, height=band,
+                       image_rows=h)
+    so = rays[0][0]
+    dirs = torch.stack([x[1] for x in rays])
+    tmaxs = torch.stack([x[2] for x in rays])
+    occ0 = trace_any_bvh8_multi(s0, so, dirs, SHADOW_T_MIN, tmaxs,
+                                pop2=False, **kw)
+    live = torch.where(occ0, 0.0, tmaxs)
+
+    def k5():
+        return trace_any_bvh8_multi(s1, so, dirs, SHADOW_T_MIN, live,
+                                    pop2=False, **kw)
+
+    work = {}
+    plain = trace_any_multi_plain(s1, so, dirs, SHADOW_T_MIN, live,
+                                  stats=work)
+    got = k5()
+    mism = int((got != plain).sum())
+    require(mism == 0, f"[{label}] K5 with parked lanes vs plain: {mism}")
+    ops = plain.numel() * OPS_RAY + int(work["node_tests"]) \
+        * OPS_BVH8_NODE + int(work["tri_tests"]) * OPS_TRIANGLE
+    b_ms, b_by = bound(nbytes(s1["nodes8c"], s1["tris"], so, dirs, live)
+                       + got.numel(), ops)
+    out["k5"] = dict(kernel_ms(k5), plain_ms=cuda_ms(
+        lambda: trace_any_multi_plain(s1, so, dirs, SHADOW_T_MIN, live), 2),
+        bound_ms=b_ms, bound_by=b_by, sets=int(dirs.shape[0]),
+        parked=int(occ0.sum()))
+
+    # the "xla" tier's K6 at the second stop: the carried t as t_max, and
+    # each light's shadow rays with the first stop's occluded lanes parked
+    xla = shard_geometry(pt, GEO_SHARDS, "xla")
+    x0 = rank_tensors(pt, xla, None, 0, dev)[1]
+    x1 = rank_tensors(pt, xla, None, 1, dev)[1]
+    kw6 = dict(kw, max_leaf=MAX_LEAF)
+    carried6 = trace_closest_bvh2(x0, o, d, T_MIN, T_MAX, **kw6)["t"]
+
+    def k6():
+        return trace_closest_bvh2(x1, o, d, T_MIN, carried6, **kw6)
+
+    work = {}
+    plain = bvh2_closest_plain(x1, o, d, T_MIN, carried6,
+                               max_leaf=MAX_LEAF, stats=work)
+    got = k6()
+    mism = sum(int((got[k].view(torch.int32)
+                    != plain[k].view(torch.int32)).sum()) for k in plain)
+    require(mism == 0, f"[{label}] K6 closest (max_leaf {MAX_LEAF}) with a "
+            f"carried t_max vs plain: {mism} bits")
+    b_ms, b_by = bound(*trace_work(x1, "nodes2c", (o, d, carried6), 16,
+                                   work, OPS_BVH2_NODE))
+    out["k6_closest"] = dict(kernel_ms(k6), plain_ms=cuda_ms(
+        lambda: bvh2_closest_plain(x1, o, d, T_MIN, carried6,
+                                   max_leaf=MAX_LEAF), 2),
+        bound_ms=b_ms, bound_by=b_by, rays=o.shape[0],
+        improved=int((got["t"] < carried6).sum()))
+    any6 = dict(plain_ms=0.0, moved=0, ops=0, parked=0)
+    t6 = {}
+    for sd, tm in zip(dirs, tmaxs):
+        occ6 = trace_any_bvh2(x0, so, sd, SHADOW_T_MIN, tm, **kw6)
+        live6 = torch.where(occ6, 0.0, tm)
+
+        def k6a(sd=sd, live6=live6):
+            return trace_any_bvh2(x1, so, sd, SHADOW_T_MIN, live6, **kw6)
+
+        work = {}
+        plain = bvh2_any_plain(x1, so, sd, SHADOW_T_MIN, live6,
+                               max_leaf=MAX_LEAF, stats=work)
+        mism = int((k6a() != plain).sum())
+        require(mism == 0, f"[{label}] K6 any (max_leaf {MAX_LEAF}) with "
+                f"parked lanes vs plain: {mism}")
+        add_ms(t6, kernel_ms(k6a))
+        any6["plain_ms"] += cuda_ms(lambda: bvh2_any_plain(
+            x1, so, sd, SHADOW_T_MIN, live6, max_leaf=MAX_LEAF), 2)
+        moved, ops = trace_work(x1, "nodes2c", (so, sd, live6), 1, work,
+                                OPS_BVH2_NODE)
+        any6["moved"] += moved
+        any6["ops"] += ops
+        any6["parked"] += int(occ6.sum())
+    b_ms, b_by = bound(any6["moved"], any6["ops"])
+    out["k6_any"] = dict(t6, plain_ms=any6["plain_ms"], bound_ms=b_ms,
+                         bound_by=b_by, sets=int(dirs.shape[0]),
+                         parked=any6["parked"])
+
+    # ring_gather's stop on the chunk that owns most of the hit
+    # triangles' attribute rows, and of the texel rows their quad fetch
+    # reads
+    idx = torch.clamp_min(hits["tri"], 0)
+    slab = torch.from_numpy(pt["tex_quad48"].reshape(
+        -1, pt["tex_quad48"].shape[-1])).to(dev)
+    flats = []
+
+    def record(flat):
+        flats.append(flat)
+        return slab[flat]
+
+    full_attr = torch.from_numpy(pt["tri_attr"]).to(dev)
+    surface(dict(tri_attr=full_attr), cam, hits, d, rows=h,
+            quad_gather=record, quad_shape=meta["quad_shape"])
+    gathered = {}
+    for key, table, chunk, ix in (
+            ("tri_attr", full_attr, meta["attr_chunk"], idx),
+            ("quad_rows", slab, meta["quad_chunk"], flats[0])):
+        owner = int(torch.bincount(ix // chunk).argmax())
+        mine = torch.from_numpy(tbl[key][owner]).to(dev)
+        stop = serve_rows(mine, chunk, owner, ix,
+                          table.new_zeros((ix.shape[0],) + table.shape[1:]))
+        own = (ix >= owner * chunk) & (ix < (owner + 1) * chunk)
+        direct = torch.where(own[:, None], table[ix], torch.zeros_like(
+            table[ix]))
+        require(torch.equal(stop, direct), f"[{label}] ring_gather's stop "
+                f"on {key} differs from direct indexing")
+        gathered[key] = dict(rows=int(ix.shape[0]), chunk=owner,
+                             owned=int(own.sum()), ms=cuda_ms(
+                                 lambda: serve_rows(mine, chunk, owner, ix,
+                                                    torch.zeros_like(stop)),
+                                 10))
+    out["ring_gather_stop"] = gathered
+    log(f"[{label}] geometry stops (band {band} rows, shard 1 of "
+        f"{GEO_SHARDS}): K1 with a carried t_max bit-equal to plain, "
+        f"{out['k1']['improved']} of {o.shape[0]} rays closer, "
+        f"{fmt_ms(out['k1'])} (bound {out['k1']['bound_ms']:.4f} ms, "
+        f"{out['k1']['bound_by']}; plain {out['k1']['plain_ms']:.2f}); K5 "
+        f"{dirs.shape[0]} sets with {out['k5']['parked']} lanes parked "
+        f"bit-equal to plain, {fmt_ms(out['k5'])} (bound "
+        f"{out['k5']['bound_ms']:.4f} ms, {out['k5']['bound_by']}; plain "
+        f"{out['k5']['plain_ms']:.2f}); K6 closest (max_leaf {MAX_LEAF}) "
+        f"with a carried t_max bit-equal to plain, "
+        f"{out['k6_closest']['improved']} rays closer, "
+        f"{fmt_ms(out['k6_closest'])} (bound "
+        f"{out['k6_closest']['bound_ms']:.4f} ms, "
+        f"{out['k6_closest']['bound_by']}; plain "
+        f"{out['k6_closest']['plain_ms']:.2f}); K6 any over "
+        f"{out['k6_any']['sets']} lights with {out['k6_any']['parked']} "
+        f"lanes parked bit-equal to plain, {fmt_ms(out['k6_any'])} summed "
+        f"(bound {out['k6_any']['bound_ms']:.4f} ms, "
+        f"{out['k6_any']['bound_by']}; plain "
+        f"{out['k6_any']['plain_ms']:.2f}); ring_gather's stop equal to "
+        f"direct indexing: {gathered}")
+    return out
+
+
+def geo_rank_worker(rank, world, port, results):
+    """One gloo rank on cuda:0 (spawned): the ring frames at each size
+    (geo_rank_frames); reports to `results`."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        from tpurt_torch.dist import make_mesh
+
+        mesh = make_mesh()
+        for w, h in SHAPES:
+            r = build_renderer(w, h, "cuda")
+            dist.barrier()
+            problems = []
+            frames = geo_rank_frames(r, mesh, f"{w}x{h}", problems)
+            results.put(dict(rank=rank, world=world, label=f"{w}x{h}",
+                             frames=frames, problems=problems))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def geo_textures_worker(rank, world, port, results):
+    """One gloo rank on cuda:0 (spawned) of the textures workload's
+    "bvh8" ring frame at 800x800: its hbm_accounting beside its own
+    torch.cuda.memory_allocated() after setup; rank 0 reports the
+    gathered image."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        from tpurt_torch.dist import (freeze_meta, gather_frame,
+                                      hbm_accounting, make_mesh,
+                                      rank_tensors,
+                                      render_frame_sharded_geometry,
+                                      shard_geometry, shard_tables)
+        from tpurt_torch.engine import convert
+        from tpurt_torch.passes.gtao import gtao_constants
+
+        mesh = make_mesh()
+        w, h = SHAPES[0]
+        t0 = time.perf_counter()
+        # the host tables only: a CPU renderer flattens without the arena
+        host = textured_renderer(w, h, "cpu", None, 1)
+        pt = host.scene.as_pytree()
+        shards = shard_geometry(pt, world, "bvh8")
+        tbl, meta = shard_tables(pt, world)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        sc, shard, chunks = rank_tensors(pt, shards, tbl, rank, "cuda")
+        c = host.config
+        cam = convert.camera_tensors(host.camera.uniform(), "cuda")
+        lights = convert.light_tensors(host.lights.shader_arrays(), "cuda")
+        gtao = convert.gtao_tensors(gtao_constants(
+            w, h, host.camera.znear, host.camera.zfar, host.camera.fovy,
+            host.camera.aspect), "cuda")
+        lpm = {k: v.to("cuda") for k, v in host._lpm.items()}
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        setup_s = time.perf_counter() - t0
+        acct = hbm_accounting(pt, shards, tbl, world, rank=rank)
+        dist.barrier()
+        t0 = time.perf_counter()
+        band = render_frame_sharded_geometry(
+            sc, shard, cam, lights, gtao, lpm, 0, width=w, height=h,
+            gtao_settings=c.gtao, mesh=mesh, tables="bvh8",
+            shade_tables=chunks, meta=freeze_meta(meta))
+        full = gather_frame(band, mesh)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1000.0
+        results.put(dict(rank=rank, held=held, acct=acct, setup_s=setup_s,
+                         frame_ms=frame_ms,
+                         image=full["image"].cpu().numpy() if rank == 0
+                         else None))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase14_textures(tex_r):
+    """The textures workload's "bvh8" ring frame over 4 gloo ranks on the
+    card (geo_textures_worker): each rank's accounted bytes beside its
+    memory_allocated() after setup and beside the replicated renderer's
+    tensors; the gathered image against the single-device frame at phase
+    3's bars."""
+    import torch
+
+    world = GEO_RANK_COUNTS[-1]
+    want = tex_r.render_passes(0)["image"]
+    replicated = sum(t.numel() * t.element_size()
+                     for t in tex_r.scene_device.values()
+                     if isinstance(t, torch.Tensor))
+    got = sorted(spawn_ranks(geo_textures_worker, world, 600),
+                 key=lambda g: g["rank"])
+    require(len(got) == world, f"[textures] {len(got)} ranks reported")
+    d = (torch.from_numpy(got[0]["image"]).to(torch.int32)
+         - want.cpu().to(torch.int32)).abs().amax(dim=-1)
+    agree = dict(equal=float((d == 0).float().mean()),
+                 off_by_more_than_2=float((d > 2).float().mean()),
+                 max_diff=int(d.max()))
+    log(f"[geometry] textures ring frame ({world} ranks) against the "
+        f"single-device frame: {agree}")
+    require(agree["equal"] >= 0.999 and agree["off_by_more_than_2"] <= 1e-3,
+            "[geometry] the textures ring frame disagrees with the "
+            "single-device frame")
+    ranks = [dict(rank=g["rank"], allocated=g["held"],
+                  accounted=g["acct"]["sharded_total"],
+                  per_chip=g["acct"]["sharded_per_chip"],
+                  setup_s=g["setup_s"], frame_ms=g["frame_ms"])
+             for g in got]
+    acct = got[0]["acct"]
+    log(f"[geometry] textures workload over {world} gloo ranks on one "
+        f"H100: per rank allocated after setup "
+        f"{[x['allocated'] for x in ranks]} bytes, accounted "
+        f"{[x['accounted'] for x in ranks]}; replicated: accounted "
+        f"{acct['replicated_total']} bytes, the replicated renderer's "
+        f"scene tensors {replicated}; ceiling ratio "
+        f"{acct['ceiling_ratio']:.3f}; first frame (slowest rank) "
+        f"{max(x['frame_ms'] for x in ranks):.1f} ms")
+    return dict(ranks=ranks, replicated_accounted=acct["replicated_total"],
+                replicated_renderer_bytes=replicated,
+                replicated_bytes=acct["replicated_bytes"],
+                ceiling_ratio=acct["ceiling_ratio"], image=agree)
+
+
+def phase14(renderers, tex_r):
+    """The sharded-geometry frame: the one-stop checks at each size, one
+    NCCL rank in this process (both tiers, both sizes), 2 and 4 gloo ranks
+    spawned on cuda:0 (each rank both sizes and tiers), and the textures
+    workload over 4 ranks."""
+    import torch.distributed as dist
+
+    from tpurt_torch.dist import make_mesh
+
+    t_start = time.perf_counter()
+    out = dict(stops={}, ranks={})
+    for label, r in renderers.items():
+        out["stops"][label] = phase14_stops(r, label)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        for label, r in renderers.items():
+            problems = []
+            res = geo_rank_frames(r, mesh, label, problems)
+            require(not problems, f"1 NCCL rank: {problems}")
+            out["ranks"].setdefault(label, {})["1"] = res
+            for tier, x in res.items():
+                log(f"[{label}] ring frame {tier}, 1 NCCL rank: "
+                    f"{x['ms']:.3f} ms/frame, launches {x['launches']}, "
+                    f"differing pixels and rays {x['counts']}")
+    finally:
+        dist.destroy_process_group()
+    for world in GEO_RANK_COUNTS:
+        t0 = time.perf_counter()
+        got = spawn_ranks(geo_rank_worker, world, 400)
+        problems = [p for g in got for p in g["problems"]]
+        require(not problems and len(got) == world * len(SHAPES),
+                f"{world} gloo ranks: {problems or len(got)}")
+        for label in renderers:
+            mine = sorted((g for g in got if g["label"] == label),
+                          key=lambda g: g["rank"])
+            mine_out = out["ranks"][label][str(world)] = {}
+            for tier in GEO_TIERS:
+                per = [g["frames"][tier] for g in mine]
+                ms = max(x["ms"] for x in per)
+                shift = max(x["ring_shift_ms"] for x in per)
+                mine_out[tier] = dict(ms=ms, ring_shift_ms=shift,
+                                      launches=per[0]["launches"],
+                                      counts=per[0]["counts"])
+                log(f"[{label}] ring frame {tier}, {world} gloo ranks "
+                    f"sharing one H100 (no multi-GPU number): {ms:.3f} "
+                    f"ms/frame (slowest rank), ring_shift {shift:.3f} "
+                    f"ms/frame (CUDA events, slowest rank), launches per "
+                    f"rank {per[0]['launches']}, differing pixels and rays"
+                    f" {per[0]['counts']}")
+        log(f"{world} gloo ranks (geometry): {time.perf_counter() - t0:.1f}"
+            f" s with spawning")
+    out["textures"] = phase14_textures(tex_r)
+    seconds = time.perf_counter() - t_start
+    out["seconds"] = seconds
+    log(f"phase 14 (sharded geometry): {seconds:.1f} s")
     return out
 
 
@@ -2911,6 +3590,7 @@ def main():
             # the 2-rank sharded frame's band launches, per rank and frame
             results[label]["kernels"]["gtao_main_band"]["launches"] = \
                 sharded[label]["2"]["launches"]["gtao_main_band"]
+        geometry = phase14(renderers, tex_r)
         phase3()
         phase6()
         gt_small = phase9_small()
@@ -3000,6 +3680,7 @@ def main():
                             k: v["kernels"]["gtao_main"]["with_noise_table"]
                             for k, v in results.items()},
                         textures=tex, app=app, sharded=sharded,
+                        geometry=geometry,
                         k3_band={k: {key: v["kernels"]["gtao_main_band"][key]
                                      for key in ("rows", "ms",
                                                  "full_frame_ms")}

@@ -1038,3 +1038,18 @@ def test_gtao_main_band(cuda_frame, bent, precision):
         got = compute_ao_band(out["depth"], out["normal"], gtao, s, 3,
                               k * band, band)
         assert torch.equal(got, full[k * band:(k + 1) * band])
+
+
+def test_sharded_geometry_frame(tmp_path):
+    """The sharded-geometry frame ("bvh8": K1 and K5 on each shard, the
+    attribute and texel rows through ring_gather) with 2 gloo ranks on the
+    card, spawned (tests/torch_geometry_worker.py checks each rank's
+    launches): every output equal to render()'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_geometry_worker as worker
+
+    worker.spawn(worker.cuda_worker, 2, str(tmp_path))
+    off = np.load(tmp_path / "cuda.npz")
+    assert {k: int(off[k].sum()) for k in off.files} == {
+        k: 0 for k in off.files}

@@ -17,6 +17,9 @@ through the mesh's process group:
   the band plus a denoise halo (``passes.gtao.compute_ao_band``: K3 over
   the band's rows, K4 over that array).
 
+``ring_shift`` is the port's ``jax.lax.ppermute`` around the ring, which
+the sharded-geometry frame (``dist/geometry.py``) rides.
+
 Transport: the band tensors are gathered in one collective on the mesh's
 group, on the tensors' own device. NCCL needs one card per rank; gloo
 (which the CPU runs use, and which several ranks sharing one card need,
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.utils._pytree as pytree
 
 from ..engine.frame import finish_frame, no_step, render_gbuffer
 from ..passes.gtao import GtaoSettings
@@ -73,6 +77,31 @@ def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
         dist.all_gather_into_tensor
     gather(out, x, group=mesh.get_group())
     return out
+
+
+def ring_shift(tree, mesh):
+    """tpurt's ``jax.lax.ppermute`` over the mesh with the perm i -> i + 1:
+    `tree` (a tensor, or a list, tuple or dict of them) as rank r - 1
+    holds it, on rank r. Every tensor goes out in one all-gather of their
+    bytes (each padded to 8), and each rank keeps its predecessor's slice:
+    n times the bytes of a true ring, on the one collective that NCCL and
+    gloo take for CPU and CUDA tensors alike (``transport``). With one
+    rank it is the identity and makes no collective call."""
+    n = mesh.size()
+    if n == 1:
+        return tree
+    leaves, spec = pytree.tree_flatten(tree)
+    pieces, offsets = [], [0]
+    for x in leaves:
+        b = x.contiguous().reshape(-1).view(torch.uint8)
+        pad = -b.numel() % 8
+        pieces.append(torch.cat([b, b.new_zeros(pad)]) if pad else b)
+        offsets.append(offsets[-1] + b.numel() + pad)
+    got = all_gather_rows(torch.cat(pieces)[None], mesh)
+    row = got[(mesh.get_local_rank() - 1) % n].clone()
+    out = [row[a:a + x.numel() * x.element_size()].view(x.dtype)
+           .reshape(x.shape) for x, a in zip(leaves, offsets)]
+    return pytree.tree_unflatten(out, spec)
 
 
 def render_frame_sharded(scene: dict, camera: dict, lights: dict, gtao: dict,

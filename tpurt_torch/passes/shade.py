@@ -43,8 +43,11 @@ loop's bits, are not ported.
 ``max_leaf`` do (``tpurt/passes/shade.py:526-528, 867-872``): "bvh8" for
 the BVH8 rows (K2: static and refit frames), "bvh2" for a binary BVH (K6
 any-hit, leaves of up to ``max_leaf`` triangles: the rebuild frames, which
-never fuse). tpurt's sharded-geometry hooks (``shadow_trace_multi_fn``,
-the samplers' ``gather=`` and ``shape=``) are not ported yet.
+never fuse). tpurt's sharded-geometry hooks (``shade``'s ``attr_rows``,
+``quad_gather``, ``quad_shape``, ``shadow_trace_fn`` and
+``shadow_trace_multi_fn``, the samplers' ``gather=``) let
+``dist/geometry.py`` serve the shading tables and the shadow rays through
+its ring; with none set the frame is unchanged.
 """
 from __future__ import annotations
 
@@ -125,21 +128,33 @@ def _quad_lerp(row, fx, fy):
                    row[:, 36:48], fx, fy)
 
 
-def sample_bilinear_quad(quad, quad_shape, hw, img, uv, *, base=None):
+def _gather_rows(table, flats, gather=None):
+    """The rows of `table` at each index vector of `flats`; with `gather`
+    (rows by flat global index from a row-sharded table, tpurt's sharded
+    injection, ``dist/geometry.py``) all of them in one call, one ring
+    tour, and `table` unused."""
+    if gather is None:
+        return [table[f.long()] for f in flats]
+    return list(gather(torch.cat(flats).long()).split(flats[0].shape[0]))
+
+
+def sample_bilinear_quad(quad, quad_shape, hw, img, uv, *, base=None,
+                         gather=None):
     """Bilinear REPEAT fetch from quad rows: each 64-byte u8 row carries
     its texel's 2x2 footprint across the 3 packed layers (bytes 0..47).
     hw: (N, 2) f32 (h, w) extents; img: (N,) unique-image slot. `quad` is
-    the (U*H*W, 64) slab of shape quad_shape (U, H, W, 64), or, with
-    `base` (U,) int32 (the streaming arena, ``engine/texture_arena.py``),
-    rows laid out at each image's own extent from base[img]: flat =
-    base[img] + y*w + x, the same values."""
+    the (U*H*W, 64) slab of shape quad_shape (U, H, W, 64) (tpurt's
+    ``shape=``), or, with `base` (U,) int32 (the streaming arena,
+    ``engine/texture_arena.py``), rows laid out at each image's own extent
+    from base[img]: flat = base[img] + y*w + x, the same values. `gather`
+    as ``_gather_rows``'s, in place of `quad`."""
     h, w, x0i, y0i, fx, fy = _texel_coords(hw.to(torch.int32), uv)
     if base is not None:
         flat = base[img.long()] + y0i * w + x0i
     else:
         _, H, W, _ = quad_shape
         flat = (img.long() * H + y0i) * W + x0i
-    return _quad_lerp(quad[flat.long()], fx, fy)
+    return _quad_lerp(_gather_rows(quad, [flat], gather)[0], fx, fy)
 
 
 def _lod_levels(lod, levels: int):
@@ -196,21 +211,17 @@ def _mip_quad_flat_index(qoffsets, sizes, prim, uv, level):
     return qoffsets[prim, level] + y0i * w + x0i, fx, fy
 
 
-def _sample_mip_bilinear_quad(qatlas, qoffsets, sizes, prim, uv, level):
-    """Bilinear fetch of all three layers at integer `level` in one row
-    gather from the quad tier; (N, 12) [albedo4 | orm4 | normal4]."""
-    flat, fx, fy = _mip_quad_flat_index(qoffsets, sizes, prim, uv, level)
-    return _quad_lerp(qatlas[flat.long()], fx, fy)
-
-
-def sample_trilinear_quad(qatlas, qoffsets, sizes, prim, uv, lod):
+def sample_trilinear_quad(qatlas, qoffsets, sizes, prim, uv, lod, *,
+                          gather=None):
     """Trilinear fetch of all three layers through the quad tier: two row
-    gathers, bit-equal to sample_trilinear per layer."""
+    gathers, bit-equal to sample_trilinear per layer; (N, 12) [albedo4 |
+    orm4 | normal4]. With `gather` both levels' rows come in one call."""
     l0i, l1i, frac = _lod_levels(lod, sizes.shape[1])
-    return _trilerp(
-        _sample_mip_bilinear_quad(qatlas, qoffsets, sizes, prim, uv, l0i),
-        _sample_mip_bilinear_quad(qatlas, qoffsets, sizes, prim, uv, l1i),
-        frac)
+    f0, fx0, fy0 = _mip_quad_flat_index(qoffsets, sizes, prim, uv, l0i)
+    f1, fx1, fy1 = _mip_quad_flat_index(qoffsets, sizes, prim, uv, l1i)
+    r0, r1 = _gather_rows(qatlas, [f0, f1], gather)
+    return _trilerp(_quad_lerp(r0, fx0, fy0), _quad_lerp(r1, fx1, fy1),
+                    frac)
 
 
 def _pair_corners(poffsets, sizes, prim, uv, level):
@@ -240,16 +251,17 @@ def _pair_lerp(row0, row1, x0par, x1par, fx, fy):
                    col(r1, x1par, 24), fx, fy)
 
 
-def sample_trilinear_pair(pr, poffsets, sizes, prim, uv, lod):
+def sample_trilinear_pair(pr, poffsets, sizes, prim, uv, lod, *,
+                          gather=None):
     """Trilinear fetch through the pair tier: four row gathers (two
-    columns at two levels), bit-equal to the quad tier."""
+    columns at two levels), bit-equal to the quad tier. With `gather` the
+    four come in one call."""
     l0i, l1i, frac = _lod_levels(lod, sizes.shape[1])
-    s = []
-    for level in (l0i, l1i):
-        f0, f1, p0, p1, fx, fy = _pair_corners(poffsets, sizes, prim, uv,
-                                               level)
-        s.append(_pair_lerp(pr[f0.long()], pr[f1.long()], p0, p1, fx, fy))
-    return _trilerp(s[0], s[1], frac)
+    c0 = _pair_corners(poffsets, sizes, prim, uv, l0i)
+    c1 = _pair_corners(poffsets, sizes, prim, uv, l1i)
+    rows = _gather_rows(pr, [c0[0], c0[1], c1[0], c1[1]], gather)
+    return _trilerp(_pair_lerp(rows[0], rows[1], *c0[2:]),
+                    _pair_lerp(rows[2], rows[3], *c1[2:]), frac)
 
 
 def _block4_corners(boffsets, sizes, prim, uv, level):
@@ -282,17 +294,17 @@ def _block4_lerp(rows, slots, fx, fy):
     return _bilerp(*taps, fx, fy)
 
 
-def sample_trilinear_block4(b4, boffsets, sizes, prim, uv, lod):
+def sample_trilinear_block4(b4, boffsets, sizes, prim, uv, lod, *,
+                            gather=None):
     """Trilinear fetch through the block4 tier: eight row gathers (four
-    corners at two levels), bit-equal to the quad tier."""
+    corners at two levels), bit-equal to the quad tier. With `gather` the
+    eight come in one call."""
     l0i, l1i, frac = _lod_levels(lod, sizes.shape[1])
-    s = []
-    for level in (l0i, l1i):
-        flats, slots, fx, fy = _block4_corners(boffsets, sizes, prim, uv,
-                                               level)
-        s.append(_block4_lerp([b4[f.long()] for f in flats], slots, fx,
-                              fy))
-    return _trilerp(s[0], s[1], frac)
+    f0, s0, fx0, fy0 = _block4_corners(boffsets, sizes, prim, uv, l0i)
+    f1, s1, fx1, fy1 = _block4_corners(boffsets, sizes, prim, uv, l1i)
+    rows = _gather_rows(b4, f0 + f1, gather)
+    return _trilerp(_block4_lerp(rows[:4], s0, fx0, fy0),
+                    _block4_lerp(rows[4:], s1, fx1, fy1), frac)
 
 
 def _anisotropic(trilinear, uv, duv_major, taps: int):
@@ -316,24 +328,27 @@ def sample_anisotropic(atlas, offsets, sizes, prim, layer: int, uv,
 
 
 def sample_anisotropic_quad(qatlas, qoffsets, sizes, prim, uv, lod_minor,
-                            duv_major, taps: int):
-    """Anisotropic filtering through the quad tier."""
+                            duv_major, taps: int, *, gather=None):
+    """Anisotropic filtering through the quad tier (`gather` per tap)."""
     return _anisotropic(lambda q: sample_trilinear_quad(
-        qatlas, qoffsets, sizes, prim, q, lod_minor), uv, duv_major, taps)
+        qatlas, qoffsets, sizes, prim, q, lod_minor, gather=gather), uv,
+        duv_major, taps)
 
 
 def sample_anisotropic_pair(pr, poffsets, sizes, prim, uv, lod_minor,
-                            duv_major, taps: int):
-    """Anisotropic filtering through the pair tier."""
+                            duv_major, taps: int, *, gather=None):
+    """Anisotropic filtering through the pair tier (`gather` per tap)."""
     return _anisotropic(lambda q: sample_trilinear_pair(
-        pr, poffsets, sizes, prim, q, lod_minor), uv, duv_major, taps)
+        pr, poffsets, sizes, prim, q, lod_minor, gather=gather), uv,
+        duv_major, taps)
 
 
 def sample_anisotropic_block4(b4, boffsets, sizes, prim, uv, lod_minor,
-                              duv_major, taps: int):
-    """Anisotropic filtering through the block4 tier."""
+                              duv_major, taps: int, *, gather=None):
+    """Anisotropic filtering through the block4 tier (`gather` per tap)."""
     return _anisotropic(lambda q: sample_trilinear_block4(
-        b4, boffsets, sizes, prim, q, lod_minor), uv, duv_major, taps)
+        b4, boffsets, sizes, prim, q, lod_minor, gather=gather), uv,
+        duv_major, taps)
 
 
 def _texel_density(p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h):
@@ -412,11 +427,13 @@ _MIP_TIERS = (
 
 
 def _mip_texels(scene, hits, direction, prim, corners, uvs, world_normal,
-                tex_coord, spread, aniso_taps: int):
+                tex_coord, spread, aniso_taps: int, gather=None):
     """The three layers (N, 12) through the scene's mip tier at the
     ray-cone LOD (tpurt ``shade.py:616-694``): anisotropic with
     aniso_taps > 1, else trilinear. Extents come from level 0 of the hit
-    primitive's chain."""
+    primitive's chain. The tier is the one whose offsets the scene holds;
+    with `gather` its rows come from there and the scene need not hold
+    the table."""
     sizes = scene["tex_mip_sizes"]
     tex_hw = sizes[prim.long(), 0].to(torch.float32)
     cone = (hits["t"], direction, world_normal, *corners, *uvs,
@@ -426,12 +443,14 @@ def _mip_texels(scene, hits, direction, prim, corners, uvs, world_normal,
     else:
         lod, duv = ray_cone_lod(*cone), None
     key, trilinear, anisotropic = next(t for t in _MIP_TIERS
-                                       if t[0] in scene)
-    table, offsets = scene[key], scene[key + "_offsets"]
+                                       if t[0] + "_offsets" in scene)
+    table = scene[key] if gather is None else None
+    offsets = scene[key + "_offsets"]
     if duv is None:
-        return trilinear(table, offsets, sizes, prim, tex_coord, lod)
+        return trilinear(table, offsets, sizes, prim, tex_coord, lod,
+                         gather=gather)
     return anisotropic(table, offsets, sizes, prim, tex_coord, lod, duv,
-                       aniso_taps)
+                       aniso_taps, gather=gather)
 
 
 def cone_spread(camera: dict, rows: int):
@@ -441,13 +460,15 @@ def cone_spread(camera: dict, rows: int):
 
 
 def surface(scene: dict, camera: dict, hits: dict, direction=None, *,
-            aniso_taps: int = 1, rows: int = 0) -> dict:
+            aniso_taps: int = 1, rows: int = 0, attr_rows=None,
+            quad_gather=None, quad_shape=None) -> dict:
     """Reconstruct the shading point of each hit: position, shading normal
     N, view vector V and the material terms. A mip scene (its
     ``tex_mip_sizes``) samples its tier at the ray-cone LOD of the primary
     rays' `direction`, over an image of `rows` rows, and reads no uv
     payload (tpurt takes that branch first); otherwise one quad row, from
-    the payload when the trace emitted it."""
+    the payload when the trace emitted it. attr_rows, quad_gather and
+    quad_shape are ``shade``'s sharded-table hooks."""
     tri = hits["tri"]
     valid = tri >= 0
     tidx = torch.clamp_min(tri, 0).long()
@@ -456,7 +477,8 @@ def surface(scene: dict, camera: dict, hits: dict, direction=None, *,
     v = hits["v"][:, None]
     w = 1.0 - u - v
 
-    attr = scene["tri_attr"][tidx]                     # (N, 40)
+    attr = (scene["tri_attr"][tidx] if attr_rows is None
+            else attr_rows)                            # (N, 40)
     p0, p1, p2 = attr[:, 0:3], attr[:, 12:15], attr[:, 24:27]
     uv0, uv1, uv2 = attr[:, 3:5], attr[:, 15:17], attr[:, 27:29]
     n0, n1, n2 = attr[:, 5:8], attr[:, 17:20], attr[:, 29:32]
@@ -479,21 +501,23 @@ def surface(scene: dict, camera: dict, hits: dict, direction=None, *,
         packed = _mip_texels(
             scene, hits, direction, attr[:, 36].to(torch.int32),
             (p0, p1, p2), (uv0, uv1, uv2), world_normal, tex_coord,
-            cone_spread(camera, rows), aniso_taps)
-    elif "texu" in hits:
-        # the closest-hit trace's uv payload: the quad gather no longer
-        # waits on the tri_attr row
-        packed = sample_bilinear_quad(
-            scene["tex_quad"], scene.get("tex_quad_shape"),
-            torch.stack([hits["texh"], hits["texw"]], dim=-1),
-            hits["img"].to(torch.int32),
-            torch.stack([hits["texu"], hits["texv"]], dim=-1),
-            base=scene.get("tex_quad_base"))
+            cone_spread(camera, rows), aniso_taps, gather=quad_gather)
     else:
-        packed = sample_bilinear_quad(
-            scene["tex_quad"], scene.get("tex_quad_shape"), attr[:, 37:39],
-            attr[:, 39].to(torch.int32), tex_coord,
-            base=scene.get("tex_quad_base"))
+        quad = scene["tex_quad"] if quad_gather is None else None
+        shape = scene.get("tex_quad_shape") if quad_shape is None \
+            else quad_shape
+        if "texu" in hits:
+            # the closest-hit trace's uv payload: the quad gather no
+            # longer waits on the tri_attr row
+            hw = torch.stack([hits["texh"], hits["texw"]], dim=-1)
+            img = hits["img"].to(torch.int32)
+            uv = torch.stack([hits["texu"], hits["texv"]], dim=-1)
+        else:
+            hw, img, uv = attr[:, 37:39], attr[:, 39].to(torch.int32), \
+                tex_coord
+        packed = sample_bilinear_quad(quad, shape, hw, img, uv,
+                                      base=scene.get("tex_quad_base"),
+                                      gather=quad_gather)
 
     def fetch(layer):
         return packed[:, layer * 4:layer * 4 + 4]
@@ -566,7 +590,9 @@ def _light(lights: dict, i: int) -> dict:
 def shade(scene: dict, camera: dict, lights: dict, hits: dict,
           tables: str = "bvh8", max_leaf: int = 1,
           fuse_shadows: bool = False, height: int = 0, width: int = 0, *,
-          direction=None, aniso_taps: int = 1, image_rows: int = 0):
+          direction=None, aniso_taps: int = 1, image_rows: int = 0,
+          attr_rows=None, quad_gather=None, quad_shape=None,
+          shadow_trace_fn=None, shadow_trace_multi_fn=None):
     """Shade one batch of primary hits; returns dict(color (N, 3),
     depth (N,), normal_enc (N, 3)). fuse_shadows as in the module
     docstring (tpurt's parameter and default); height and width, tpurt's
@@ -575,10 +601,20 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     needs the primary rays' `direction`; aniso_taps > 1 filters
     anisotropically, and image_rows, the full image's height where
     `height` is a band of it, sets the ray cone's spread (tpurt's
-    parameters)."""
+    parameters).
+
+    tpurt's sharded-table hooks (``dist/geometry.py``), none set by
+    default: attr_rows (N, 40) replaces the ``tri_attr`` gather;
+    quad_gather(flat) serves texel rows by flat global index in place of
+    the scene's texel table (``tex_quad`` or the mip tier, whose offsets
+    the scene still holds), with quad_shape the slab's (U, H, W, 64);
+    shadow_trace_fn(origin, dir, t_min, t_max) -> (N,) bool replaces each
+    light's shadow trace, and shadow_trace_multi_fn(origin, dirs, t_min,
+    t_maxs) -> (S, N) bool, when set, every light's in one call."""
     trace_any = shadow_tracer(tables, max_leaf)
     surf = surface(scene, camera, hits, direction, aniso_taps=aniso_taps,
-                   rows=_rows(hits, height, image_rows))
+                   rows=_rows(hits, height, image_rows), attr_rows=attr_rows,
+                   quad_gather=quad_gather, quad_shape=quad_shape)
     N, V, albedo = surf["N"], surf["V"], surf["albedo"]
     world_pos = surf["world_pos"]
     metallic = surf["metallic"]
@@ -594,7 +630,12 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     pre = [light_ray(surf, _light(lights, i)) for i in range(num_lights)]
 
     occ_all = None
-    if fuse_shadows and tables == "bvh8" and num_lights > 1:
+    if shadow_trace_multi_fn is not None:
+        occ_all = shadow_trace_multi_fn(world_pos, [p["L"] for p in pre],
+                                        SHADOW_T_MIN,
+                                        [p["t_max"] for p in pre])
+    elif fuse_shadows and shadow_trace_fn is None and tables == "bvh8" \
+            and num_lights > 1:
         occ_all = trace_any_bvh8_multi(scene, world_pos,
                                        [p["L"] for p in pre], SHADOW_T_MIN,
                                        [p["t_max"] for p in pre],
@@ -618,9 +659,14 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
             corrected_roughness, NdotV, nc_NdotV, nc_NdotL, LdotH,
             LOCAL_SSS_RATIO)[..., None]
 
-        occluded = occ_all[i] if occ_all is not None else trace_any(
-            scene, world_pos, L, SHADOW_T_MIN, lr["t_max"], height=height,
-            width=width)
+        if occ_all is not None:
+            occluded = occ_all[i]
+        elif shadow_trace_fn is not None:
+            occluded = shadow_trace_fn(world_pos, L, SHADOW_T_MIN,
+                                       lr["t_max"])
+        else:
+            occluded = trace_any(scene, world_pos, L, SHADOW_T_MIN,
+                                 lr["t_max"], height=height, width=width)
         attenuation = torch.where(lr["wants_shadow"] & occluded,
                                   torch.full_like(NdotL, SHADOW_ATTENUATION),
                                   torch.ones_like(NdotL))
