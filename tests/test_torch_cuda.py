@@ -1053,3 +1053,62 @@ def test_sharded_geometry_frame(tmp_path):
     off = np.load(tmp_path / "cuda.npz")
     assert {k: int(off[k].sum()) for k in off.files} == {
         k: 0 for k in off.files}
+
+
+def test_sync_spans_are_the_stream_syncs(cuda_frame):
+    """Over a moved-camera frame on the card, torch's sync-debug mode warns
+    once per stream synchronisation ("called a synchronizing CUDA
+    operation"; turning the mode on warns once that it is a prototype),
+    and each warning falls inside one sync.* span of the frame's step
+    hook: as many spans as warnings, five of them the camera's uploads. A
+    still camera leaves the noise table's alone. The camera is put back
+    afterwards."""
+    import collections
+    import contextlib
+    import warnings
+
+    r = cuda_frame
+    pos = np.array(r.camera.pos)
+    r.render_passes(r.noise_index)
+    torch.cuda.synchronize()
+
+    def frame():
+        spans, open_, inside = [], [], []
+
+        @contextlib.contextmanager
+        def step(name):
+            open_.append(name)
+            try:
+                yield
+            finally:
+                open_.pop()
+            if name.startswith("sync."):
+                spans.append(name)
+
+        def show(message, category, *args, **kwargs):
+            if "called a synchronizing CUDA operation" in str(message):
+                inside.append(next((s for s in reversed(open_)
+                                    if s.startswith("sync.")), None))
+
+        old = warnings.showwarning
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                r.render_passes(r.noise_index, step)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                warnings.showwarning = old
+        torch.cuda.synchronize()
+        return collections.Counter(spans), collections.Counter(inside)
+
+    try:
+        r.camera_mut().set_pos(pos + np.float32([0.05, 0.0, 0.0]))
+        spans, inside = frame()
+        assert spans == inside and spans["sync.camera"] == 5, (spans, inside)
+        spans, inside = frame()
+        assert spans == inside and "sync.camera" not in spans, (spans,
+                                                                 inside)
+    finally:
+        r.camera_mut().set_pos(pos)

@@ -94,12 +94,13 @@ def test_frame_stats_text_equals_tpurt():
 @pytest.mark.parametrize("noise", [0, 5])
 def test_profiled_passes_give_the_rendered_image(port, noise):
     """The profilers run render()'s own frame (Renderer.render_passes) with
-    a step wrapper: its steps, in frame order, are the ones each profile
-    splits into passes, and the wrapped frame's outputs equal render()'s
-    bit for bit at the same noise index, which it leaves where it was."""
+    a step wrapper: its steps, in frame order among the frame's other spans
+    (SPANS' order of first entry), are the ones each profile splits into
+    passes, and the wrapped frame's outputs equal render()'s bit for bit
+    at the same noise index, which it leaves where it was."""
     import contextlib
 
-    from tpurt_torch.engine.frame import STEPS
+    from tpurt_torch.engine.frame import SPANS, STEPS
     from tpurt_torch.engine.profiler import DEVICE_PASSES, PROFILE_PASSES
 
     entered = []
@@ -112,7 +113,9 @@ def test_profiled_passes_give_the_rendered_image(port, noise):
     port._frame_idx = noise
     assert port.noise_index == noise
     got = port.render_passes(noise, step)
-    assert tuple(entered) == STEPS and port._frame_idx == noise
+    assert tuple(n for n in entered if n in STEPS) == STEPS
+    assert list(dict.fromkeys(entered)) == [n for n in SPANS if n in entered]
+    assert port._frame_idx == noise
     assert tuple(s for _, steps in PROFILE_PASSES for s in steps) == STEPS
     assert sorted(s for _, steps in DEVICE_PASSES for s in steps) \
         == sorted(STEPS)

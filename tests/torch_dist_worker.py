@@ -66,7 +66,7 @@ def frame_worker(rank, world, port, out_dir):
 
     from tpurt_torch.dist import make_mesh, render_frame_sharded
     from tpurt_torch.dist.sharding import transport
-    from tpurt_torch.engine.frame import STEPS
+    from tpurt_torch.engine.frame import SPANS, STEPS
     from tpurt_torch.passes.gtao import GtaoSettings
 
     _init(rank, world, port)
@@ -94,7 +94,8 @@ def frame_worker(rank, world, port, out_dir):
             _equal(r.render(), want[i], f"render() frame {i}")
         assert r.rendered_frames == 2 and r.stats() == dict(
             single.stats(), rendered_frames=2)
-        # the profilers' frame is render()'s: the sharded one, every step
+        # the profilers' frame is render()'s: the sharded one, every step,
+        # with the frame's other spans in SPANS' order
         seen = []
 
         def step(name):
@@ -102,7 +103,9 @@ def frame_worker(rank, world, port, out_dir):
             return contextlib.nullcontext()
 
         _equal(r.render_passes(0, step), want[0], "render_passes")
-        assert seen == list(STEPS) and r.rendered_frames == 2
+        assert [n for n in seen if n in STEPS] == list(STEPS)
+        assert list(dict.fromkeys(seen)) == [n for n in SPANS if n in seen]
+        assert r.rendered_frames == 2
 
         default = renderer(mesh=mesh)
         out = default.render()

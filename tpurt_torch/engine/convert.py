@@ -30,6 +30,7 @@ from ..bvh.wide import EMPTY_CODE, LEAF8_MAX, LEAF_CODE_BASE, compact_bvh8
 from ..kernels.gtao_main import GTAO_VEC
 from ..kernels.traverse_bvh2 import MAX_LEAF, kernel_stack
 from ..kernels.traverse_bvh8 import STACK_SIZE, stack_entries
+from ..utils.spans import no_step
 
 # K6 and K1/K2 carry node and triangle indices as exact f32 values
 MAX_EXACT_INDEX = 1 << 24
@@ -38,6 +39,18 @@ MAX_EXACT_INDEX = 1 << 24
 def _t(x, device, dtype=None):
     return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                            device=device)
+
+
+def _uploads(arrays: dict, device, step, span: str) -> dict:
+    """Each array of `arrays` on `device`, its copy alone inside
+    step(span): a copy from pageable host memory synchronises the
+    stream."""
+    out = {}
+    for k, v in arrays.items():
+        v = np.ascontiguousarray(v)
+        with step(span):
+            out[k] = torch.as_tensor(v, device=device)
+    return out
 
 
 def bvh8_depth(nodes8: np.ndarray) -> int:
@@ -244,22 +257,28 @@ def refit_tensors(refit: dict, device) -> dict:
         rest_quality=float(refit["rest_quality"]))
 
 
-def camera_tensors(uniform: dict, device) -> dict:
-    return {k: _t(np.asarray(v, np.float32), device)
-            for k, v in uniform.items()}
+def camera_tensors(uniform: dict, device, step=no_step) -> dict:
+    """Camera.uniform()'s arrays as f32 tensors, each copy inside
+    step("sync.camera") (``engine/frame.py``'s spans)."""
+    return _uploads({k: np.asarray(v, np.float32)
+                     for k, v in uniform.items()}, device, step,
+                    "sync.camera")
 
 
-def light_tensors(arrays: dict, device) -> dict:
-    return {k: _t(v, device) for k, v in arrays.items()}
+def light_tensors(arrays: dict, device, step=no_step) -> dict:
+    """Lights.shader_arrays() as tensors, each copy inside
+    step("sync.lights")."""
+    return _uploads(arrays, device, step, "sync.lights")
 
 
-def gtao_tensors(consts: dict, device) -> dict:
+def gtao_tensors(consts: dict, device, step=no_step) -> dict:
     """The GTAO constants as tpurt's main_pass uses them: the scalar block
     (effect radius, falloff) is derived in double precision from the Python
     floats and applied in f32, exactly as the jnp code does. Returns the
     (14,) f32 vector the main pass reads (kernel and plain version alike,
     laid out as GTAO_VEC), ``vec16``, the same for the fp16 main pass
-    (``gtao_vec16``), and the Python floats the prefilter needs."""
+    (``gtao_vec16``), and the Python floats the prefilter needs. Each
+    vector's copy runs inside step("sync.gtao")."""
     effect_radius = consts["effect_radius"] * consts["radius_multiplier"]
     falloff_range = consts["effect_falloff_range"] * effect_radius
     falloff_from = effect_radius * (1.0 - consts["effect_falloff_range"])
@@ -274,8 +293,8 @@ def gtao_tensors(consts: dict, device) -> dict:
         consts["final_value_power"], consts["depth_mip_sampling_offset"],
         consts["ndc_to_view_mul_x_pixel_size"][0]], np.float32)
     assert len(vec) == len(GTAO_VEC)
-    return dict(vec=_t(vec, device), vec16=_t(gtao_vec16(consts), device),
-                host=dict(consts))
+    return dict(_uploads(dict(vec=vec, vec16=gtao_vec16(consts)), device,
+                         step, "sync.gtao"), host=dict(consts))
 
 
 def gtao_vec16(consts: dict) -> np.ndarray:

@@ -9,8 +9,17 @@ the pass tail that the dynamic frames (``engine/dynamic.py``) share.
 
 Each pass runs inside ``step(name)``, a context manager the caller may
 pass: ``rays``, ``trace``, ``shade``, ``quantize_color``,
-``quantize_depth_normal``, ``gtao``, ``tonemap``, in that order. The
-default enters nothing; ``engine/profiler.py`` passes its timers, so the
+``quantize_depth_normal``, ``gtao``, ``tonemap``, in that order
+(``STEPS``). The same hook is the program's span API: inside the steps,
+shade enters ``shade.surface``, ``shade.lights`` and ``shade.shadow``
+(``passes/shade.py``), and every host-to-device copy on ``render()``'s
+path, which synchronises the stream, runs inside a ``sync.*`` span:
+``sync.camera``, ``sync.lights``, ``sync.gtao`` (``Renderer``'s uploads of
+changed inputs, one span per tensor, before ``rays``) and ``sync.noise``
+(GTAO's noise table, inside ``gtao``). ``SPANS`` lists every name. The
+default, ``no_step``, enters nothing while the torch profiler is off and
+a ``record_function`` range of the name while it records
+(``utils/spans.py``); ``engine/profiler.py`` passes its timers, so the
 profiled frame is the rendered one.
 
 The traversal switches are tpurt's module constants, read at call time:
@@ -35,8 +44,6 @@ for NaN and raises on one.
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -49,16 +56,19 @@ from ..passes.rays import T_MAX, T_MIN, camera_rays
 from ..passes.shade import shade
 from ..passes.tonemap import tonemap_frame
 from ..utils.debug import check_outputs
+from ..utils.spans import no_step
 
 
 # the frame's steps, in the order they run
 STEPS = ("rays", "trace", "shade", "quantize_color", "quantize_depth_normal",
          "gtao", "tonemap")
-
-
-def no_step(name: str):
-    """The default step wrapper: enters nothing."""
-    return contextlib.nullcontext()
+# every span of the static frame (``render_passes``), in the order each is
+# first entered: the sync.* uploads of the camera, light and GTAO-constant
+# tensors run only when their host values changed; shade.lights and
+# shade.shadow repeat per light (one shade.shadow for a fused trace)
+SPANS = ("sync.camera", "sync.lights", "sync.gtao", "rays", "trace", "shade",
+         "shade.surface", "shade.lights", "shade.shadow", "quantize_color",
+         "quantize_depth_normal", "gtao", "sync.noise", "tonemap")
 
 
 def no_gather(x):
@@ -95,7 +105,7 @@ def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
         if enable_gtao:
             ao_term = compute_ao_band(gather(depth), gather(normal), gtao,
                                       gtao_settings, noise_index, row_start,
-                                      rows)
+                                      rows, step=step)
             ao = ao_visibility_u8(ao_term, gtao_settings)
             bent = ao_bent_normals(ao_term, gtao_settings)
         else:
@@ -151,7 +161,7 @@ def _gbuffer(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
     with step("shade"):
         # the ray cone's spread reads the full image's height
         kw = dict(fuse_shadows=fuse_shadows, height=band, width=width,
-                  aniso_taps=aniso_taps, image_rows=height)
+                  aniso_taps=aniso_taps, image_rows=height, step=step)
         g = shade(scene, camera, lights, hits[0], direction=rays[0][1], **kw)
         if spp > 1:
             acc = g["color"]

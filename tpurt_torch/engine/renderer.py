@@ -207,15 +207,17 @@ class Renderer:
         return dict(tex_quad=arena.atlas,
                     tex_quad_base=torch.from_numpy(base).to(self.device))
 
-    def _cached(self, key: str, host: dict, to_device):
-        """Reuse uploaded tensors while the host values are unchanged."""
+    def _cached(self, key: str, host: dict, to_device, step=no_step):
+        """Reuse uploaded tensors while the host values are unchanged;
+        to_device(host, device, step) uploads them (``convert``'s
+        functions, each copy inside its ``sync.*`` span)."""
         prev = self._input_cache.get(key)
         if prev is not None:
             prev_host, prev_dev = prev
             if prev_host.keys() == host.keys() and all(
                     np.array_equal(prev_host[k], host[k]) for k in host):
                 return prev_dev
-        dev = to_device(host, self.device)
+        dev = to_device(host, self.device, step)
         self._input_cache[key] = (host, dev)
         return dev
 
@@ -230,16 +232,18 @@ class Renderer:
         self.config.height = height
         self.camera.set_aspect(width / height)
 
-    def _frame_inputs(self):
-        """The camera, light and GTAO-constant tensors of this frame."""
+    def _frame_inputs(self, step=no_step):
+        """The camera, light and GTAO-constant tensors of this frame;
+        step(name) as in ``engine/frame.py`` (the uploads' ``sync.*``
+        spans)."""
         c = self.config
         cam = self._cached("camera", self.camera.uniform(),
-                           convert.camera_tensors)
+                           convert.camera_tensors, step)
         lights = self._cached("lights", self.lights.shader_arrays(),
-                              convert.light_tensors)
+                              convert.light_tensors, step)
         gtao = self._cached("gtao", gtao_constants(
             c.width, c.height, self.camera.znear, self.camera.zfar,
-            self.camera.fovy, self.camera.aspect), convert.gtao_tensors)
+            self.camera.fovy, self.camera.aspect), convert.gtao_tensors, step)
         return cam, lights, gtao
 
     @property
@@ -249,7 +253,7 @@ class Renderer:
 
     def render_passes(self, noise_index: int, step=no_step) -> dict:
         """render()'s frame at GTAO noise index `noise_index`, without
-        counting it as rendered; step(name) wraps each pass
+        counting it as rendered; step(name) wraps each pass and span
         (engine/frame.py). engine/profiler.py times its frames here. With
         ``config.mesh`` every rank of the mesh calls it: each renders its
         band (``dist/sharding.render_frame_sharded``) and the bands are
@@ -258,7 +262,7 @@ class Renderer:
         self._update_models()
         if self._scene is None:
             raise RuntimeError("call prepare_first_frame() first")
-        cam, lights, gtao = self._frame_inputs()
+        cam, lights, gtao = self._frame_inputs(step)
         kw = dict(width=c.width, height=c.height, gtao_settings=c.gtao,
                   enable_gtao=c.enable_gtao, enable_tonemap=c.enable_tonemap,
                   spp=c.spp, aniso_taps=c.aniso_taps, step=step)

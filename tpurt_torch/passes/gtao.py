@@ -31,6 +31,7 @@ from ..kernels.gtao_denoise import (decode_bent, denoise_chain,
 from ..kernels.gtao_main import (PRECISIONS, XE_GTAO_OCCLUSION_TERM_SCALE,
                                  _Lp, encode_bent, gtao_main,
                                  main_pass_plain, rot_from_minus_z)
+from ..utils.spans import no_step
 from .encodings import divide, quantize_r16f, sqrt
 
 XE_GTAO_DEPTH_MIP_LEVELS = 5
@@ -144,11 +145,14 @@ def _hilbert_lut_64() -> np.ndarray:
 _HILBERT_LUT = _hilbert_lut_64()
 
 
-def noise_maps_64(noise_index: int, device) -> torch.Tensor:
+def noise_maps_64(noise_index: int, device, step=no_step) -> torch.Tensor:
     """The Hilbert/R2 spatio-temporal noise over its 64x64 period:
-    (2, 64, 64) f32 = (slice noise, sample noise)."""
+    (2, 64, 64) f32 = (slice noise, sample noise). The index table's copy
+    to `device` runs inside step("sync.noise")."""
     idx = _HILBERT_LUT.astype(np.int64) + 288 * (int(noise_index) % 64)
-    fidx = torch.as_tensor(idx.astype(np.float32), device=device)
+    idx = idx.astype(np.float32)
+    with step("sync.noise"):
+        fidx = torch.as_tensor(idx, device=device)
     nx = torch.fmod(0.5 + fidx * 0.75487766624669276005, 1.0)
     ny = torch.fmod(0.5 + fidx * 0.5698402909980532659114, 1.0)
     return torch.stack([nx, ny]).contiguous()
@@ -212,12 +216,13 @@ def prefilter_depths(view_depth, consts: dict, fp16: bool = False):
 
 
 def _main_pass(mips, normal_enc, gtao: dict, settings: GtaoSettings,
-               noise_index: int, row_start: int = 0, num_rows=None):
+               noise_index: int, row_start: int = 0, num_rows=None,
+               step=no_step):
     """K3h + K3 in the settings' variant, over the whole image or a band of
     rows (``kernels/gtao_main.band_rows``): (ao term, edges_u8)."""
     return gtao_main(mips, normal_enc.contiguous(),
                      gtao["vec16" if settings.fp16 else "vec"],
-                     noise_maps_64(noise_index, mips[0].device),
+                     noise_maps_64(noise_index, mips[0].device, step),
                      slice_count=settings.slice_count,
                      steps_per_slice=settings.steps_per_slice,
                      bent=settings.bent_normals,
@@ -236,7 +241,7 @@ def compute_ao(view_depth, normal_enc, gtao: dict, settings: GtaoSettings,
 
 def compute_ao_band(view_depth, normal_enc, gtao: dict,
                     settings: GtaoSettings, noise_index: int, row_start: int,
-                    band_rows: int):
+                    band_rows: int, step=no_step):
     """The final AO term of rows [row_start, row_start + band_rows) of the
     frame whose whole (H, W) depth and normals are given (tpurt's
     ``compute_ao_band``, the band-sharded frame's GTAO). The prefilter runs
@@ -250,7 +255,8 @@ def compute_ao_band(view_depth, normal_enc, gtao: dict,
     reads a repeated row that the whole frame's edge clamp does not see,
     so with two or more passes its first and last rows differ from its
     ``compute_ao`` (ROADMAP F22). Here the band array's edge is the
-    image's, and K4 clamps there as over the whole frame."""
+    image's, and K4 clamps there as over the whole frame. step(name) as in
+    ``engine/frame.py`` (the noise table's ``sync.noise``)."""
     h = view_depth.shape[0]
     if not (band_rows >= 1 and 0 <= row_start and row_start + band_rows <= h):
         raise ValueError(f"compute_ao_band: rows [{row_start}, "
@@ -260,7 +266,7 @@ def compute_ao_band(view_depth, normal_enc, gtao: dict,
     hi = min(row_start + band_rows + halo, h)
     mips = prefilter_depths(view_depth, gtao["host"], fp16=settings.fp16)
     ao, edges = _main_pass(mips, normal_enc, gtao, settings, noise_index,
-                           row_start=lo, num_rows=hi - lo)
+                           row_start=lo, num_rows=hi - lo, step=step)
     ao = denoise_chain(ao, edges, n_passes=settings.num_denoise_passes,
                        blur_beta=settings.denoise_blur_beta,
                        bent=settings.bent_normals, fp16=settings.fp16)

@@ -55,6 +55,7 @@ import torch
 
 from ..kernels.traverse_bvh2 import trace_any_bvh2
 from ..kernels.traverse_bvh8 import trace_any_bvh8, trace_any_bvh8_multi
+from ..utils.spans import no_step
 from . import brdf
 from .encodings import divide, rdivide, sqrt
 from .light import get_light_radiance, get_unnormalized_L_vec
@@ -592,7 +593,7 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
           fuse_shadows: bool = False, height: int = 0, width: int = 0, *,
           direction=None, aniso_taps: int = 1, image_rows: int = 0,
           attr_rows=None, quad_gather=None, quad_shape=None,
-          shadow_trace_fn=None, shadow_trace_multi_fn=None):
+          shadow_trace_fn=None, shadow_trace_multi_fn=None, step=no_step):
     """Shade one batch of primary hits; returns dict(color (N, 3),
     depth (N,), normal_enc (N, 3)). fuse_shadows as in the module
     docstring (tpurt's parameter and default); height and width, tpurt's
@@ -610,69 +611,85 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     the scene still holds), with quad_shape the slab's (U, H, W, 64);
     shadow_trace_fn(origin, dir, t_min, t_max) -> (N,) bool replaces each
     light's shadow trace, and shadow_trace_multi_fn(origin, dirs, t_min,
-    t_maxs) -> (S, N) bool, when set, every light's in one call."""
+    t_maxs) -> (S, N) bool, when set, every light's in one call.
+
+    step(name) as in ``engine/frame.py``: the surface reconstruction runs
+    inside ``shade.surface``, the light-ray pre-pass and each light's BRDF,
+    radiance and sum inside ``shade.lights`` (twice per light, around its
+    shadow trace), and each shadow trace call (per light, the fused K5 or
+    the sharded hooks) inside ``shade.shadow``; the G-buffer encode is
+    shade's own."""
     trace_any = shadow_tracer(tables, max_leaf)
-    surf = surface(scene, camera, hits, direction, aniso_taps=aniso_taps,
-                   rows=_rows(hits, height, image_rows), attr_rows=attr_rows,
-                   quad_gather=quad_gather, quad_shape=quad_shape)
+    with step("shade.surface"):
+        surf = surface(scene, camera, hits, direction, aniso_taps=aniso_taps,
+                       rows=_rows(hits, height, image_rows),
+                       attr_rows=attr_rows, quad_gather=quad_gather,
+                       quad_shape=quad_shape)
     N, V, albedo = surf["N"], surf["V"], surf["albedo"]
     world_pos = surf["world_pos"]
     metallic = surf["metallic"]
-    F0 = 0.04 * (1.0 - metallic[:, None]) + albedo * metallic[:, None]
-    corrected_roughness = surf["roughness"] * surf["roughness"]
+    with step("shade.lights"):
+        F0 = 0.04 * (1.0 - metallic[:, None]) + albedo * metallic[:, None]
+        corrected_roughness = surf["roughness"] * surf["roughness"]
 
-    nc_NdotV = _dot(N, V)
-    NdotV = torch.clamp(nc_NdotV, 1e-5, 1.0)
+        nc_NdotV = _dot(N, V)
+        NdotV = torch.clamp(nc_NdotV, 1e-5, 1.0)
 
-    # pre-pass: every light's L vector and shadow ray, so that all shadow
-    # rays can go out in one fused launch
-    num_lights = lights["pos"].shape[0]
-    pre = [light_ray(surf, _light(lights, i)) for i in range(num_lights)]
+        # pre-pass: every light's L vector and shadow ray, so that all
+        # shadow rays can go out in one fused launch
+        num_lights = lights["pos"].shape[0]
+        pre = [light_ray(surf, _light(lights, i)) for i in range(num_lights)]
 
     occ_all = None
     if shadow_trace_multi_fn is not None:
-        occ_all = shadow_trace_multi_fn(world_pos, [p["L"] for p in pre],
-                                        SHADOW_T_MIN,
-                                        [p["t_max"] for p in pre])
+        with step("shade.shadow"):
+            occ_all = shadow_trace_multi_fn(
+                world_pos, [p["L"] for p in pre], SHADOW_T_MIN,
+                [p["t_max"] for p in pre])
     elif fuse_shadows and shadow_trace_fn is None and tables == "bvh8" \
             and num_lights > 1:
-        occ_all = trace_any_bvh8_multi(scene, world_pos,
-                                       [p["L"] for p in pre], SHADOW_T_MIN,
-                                       [p["t_max"] for p in pre],
-                                       height=height, width=width)
+        with step("shade.shadow"):
+            occ_all = trace_any_bvh8_multi(
+                scene, world_pos, [p["L"] for p in pre], SHADOW_T_MIN,
+                [p["t_max"] for p in pre], height=height, width=width)
 
     rho = torch.zeros_like(albedo)
     for i, lr in enumerate(pre):
-        light = _light(lights, i)
-        L, nc_NdotL = lr["L"], lr["nc_NdotL"]
-        H = _normalize(V + L)
+        with step("shade.lights"):
+            light = _light(lights, i)
+            L, nc_NdotL = lr["L"], lr["nc_NdotL"]
+            H = _normalize(V + L)
 
-        NdotL = torch.clamp(nc_NdotL, 0.0, 1.0)
-        NdotH = torch.clamp(_dot(N, H), 0.0, 1.0)
-        LdotH = torch.clamp(_dot(L, H), 0.0, 1.0)
+            NdotL = torch.clamp(nc_NdotL, 0.0, 1.0)
+            NdotH = torch.clamp(_dot(N, H), 0.0, 1.0)
+            LdotH = torch.clamp(_dot(L, H), 0.0, 1.0)
 
-        Ks = brdf.f_schlick(F0, LdotH)
-        Kd = (1.0 - metallic[:, None]) * albedo
-        rho_s = brdf.cook_torrance_specular(NdotL, NdotV, NdotH,
-                                            corrected_roughness, Ks)
-        rho_d = Kd * brdf.burley_diffuse_local_sss(
-            corrected_roughness, NdotV, nc_NdotV, nc_NdotL, LdotH,
-            LOCAL_SSS_RATIO)[..., None]
+            Ks = brdf.f_schlick(F0, LdotH)
+            Kd = (1.0 - metallic[:, None]) * albedo
+            rho_s = brdf.cook_torrance_specular(NdotL, NdotV, NdotH,
+                                                corrected_roughness, Ks)
+            rho_d = Kd * brdf.burley_diffuse_local_sss(
+                corrected_roughness, NdotV, nc_NdotV, nc_NdotL, LdotH,
+                LOCAL_SSS_RATIO)[..., None]
 
         if occ_all is not None:
             occluded = occ_all[i]
         elif shadow_trace_fn is not None:
-            occluded = shadow_trace_fn(world_pos, L, SHADOW_T_MIN,
-                                       lr["t_max"])
+            with step("shade.shadow"):
+                occluded = shadow_trace_fn(world_pos, L, SHADOW_T_MIN,
+                                           lr["t_max"])
         else:
-            occluded = trace_any(scene, world_pos, L, SHADOW_T_MIN,
-                                 lr["t_max"], height=height, width=width)
-        attenuation = torch.where(lr["wants_shadow"] & occluded,
-                                  torch.full_like(NdotL, SHADOW_ATTENUATION),
-                                  torch.ones_like(NdotL))
-        radiance = get_light_radiance(light, world_pos, L)
-        rho = rho + ((rho_s + rho_d) * radiance
-                     * (attenuation * NdotL * light["active"])[..., None])
+            with step("shade.shadow"):
+                occluded = trace_any(scene, world_pos, L, SHADOW_T_MIN,
+                                     lr["t_max"], height=height, width=width)
+        with step("shade.lights"):
+            attenuation = torch.where(
+                lr["wants_shadow"] & occluded,
+                torch.full_like(NdotL, SHADOW_ATTENUATION),
+                torch.ones_like(NdotL))
+            radiance = get_light_radiance(light, world_pos, L)
+            rho = rho + ((rho_s + rho_d) * radiance
+                         * (attenuation * NdotL * light["active"])[..., None])
 
     return _shade_outputs(rho, surf["valid"], camera, world_pos, N)
 
