@@ -24,7 +24,9 @@ once, at 64x64):
            edges (K4, bit-exact). Prints the mismatch counts and the
            times.
   phase 2  >= 10 frames through Renderer.render(): launch counts per frame
-           (K1 1, K2 3, K3h 1, K3 1, K4 1), ms/frame, Mrays/s (W*H*(1 +
+           (K1 1, K2 3, K8a 1, K8b 1, K3h 1, K3 1, K4 1; every frame of
+           every phase launches K8a and K8b once per shade() call),
+           ms/frame, Mrays/s (W*H*(1 +
            shadow lights) rays per frame), a checksum and the share of lit
            pixels.
   phase 3  a 64x64 frame of the same scene on the card against the same
@@ -209,8 +211,15 @@ once, at 64x64):
            (sum of device_profile / sum of profile_frame) and render()
            ms/frame right after it.
 
-Phases 12, 13 and 14 run after both sizes' phases 1-11 and before phase
-8's device profile (torch.profiler).
+  phase 15 shade's light loop (K8a, K8b: csrc/shade_lights.cu) at each
+           size with the scene's 3 lights, after phase 13's band: K8a on
+           the frame's surface against the plain pre-pass (L, nc_NdotL,
+           wants_shadow, t_max), K8b on K2's occlusion against the plain
+           sum (rho), all bit-exact; both timed (`ms`, `cuda_ms`) beside
+           their byte bound and the plain chain's ms on the card.
+
+Phases 12, 13 and 14 run after both sizes' phases 1-11 and 15 and before
+phase 8's device profile (torch.profiler).
 
 Every kernel is timed twice: on the card alone (`ms`,
 tpurt_torch/kernels/build.device_ms: the least of 3 runs, each queued
@@ -304,12 +313,24 @@ KERNELS = (
     # compute_ao_band runs main_pass_pallas with row_start / num_rows)
     ("gtao_main_band", "tpurt_torch/csrc/gtao_main.cu",
      "tpurt/kernels/gtao_main_pallas.py:317"),
+    # K8a and K8b, shade's light loop around the shadow traces: no TPU
+    # kernel, tpurt's loop is XLA code
+    ("shade_light_rays", "tpurt_torch/csrc/shade_lights.cu",
+     "none (XLA: tpurt/passes/shade.py:747)"),
+    ("shade_light_sum", "tpurt_torch/csrc/shade_lights.cu",
+     "none (XLA: tpurt/passes/shade.py:747)"),
 )
 # the frames whose launches each new kernel's summary entry reports
 VARIANT_OF = {"bvh8_any_multi": "fused", "bvh8_any_multi_pop2": "fused_pop2",
               "bvh8_closest_pop2": "pop2", "bvh8_any_pop2": "pop2",
               "bvh8_closest_uvp": "uvp"}
 ALL_ZERO = {name: 0 for name, _, _ in KERNELS}
+
+
+def shade_calls(n):
+    """K8a's and K8b's launches over n shade() calls of the bench lights."""
+    return dict(shade_light_rays=n, shade_light_sum=n)
+
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) ops/s
 # and fp16 outside the tensor cores, twice the fp32 rate (the H100
@@ -720,6 +741,81 @@ def phase1(r, label):
     return out
 
 
+# K8a's and K8b's float operations, counted in csrc/shade_lights.cu as
+# the GTAO kernels' are (powf, acosf and sqrtf 1 each): K8a per pixel and
+# light 18 (the length, the normalize, N.L, the want) and the L vector by
+# light type, 3 for a point, spot or directional light, 92 for an area
+# light (its plane 17, the barycentrics 47, a segment 25, the difference
+# 3); K8b per pixel 22 (F0, Kd, the roughness, N.V and its pow) and per
+# light 104 (H 13, the clamps and dots 16, the specular 31, the diffuse
+# 26, the shadow 3, the sum 15), 20 more for a spot or area light's cone
+# and 17 for a falloff
+K8A_OPS = (18, {0: 3, 1: 3, 2: 3, 3: 92})
+K8B_OPS = (22, 104, 20, 17)
+
+
+def phase15_lights(r, label):
+    """K8a and K8b against the plain pre-pass and sum, at the frame's shape
+    with the scene's lights: bit-exact, timed beside the bound and the
+    plain chain on the card."""
+    from tpurt_torch.kernels.shade_lights import (RAY_KEYS, light_rays,
+                                                  light_rays_plain,
+                                                  light_sum, light_sum_plain)
+    from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
+                                                   trace_closest_bvh8)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import SHADOW_T_MIN, surface
+
+    c = r.config
+    w, h = c.width, c.height
+    cam, lights, _ = frame_inputs(r)
+    sc = r.scene_device
+    o, d = camera_rays(cam, w, h)
+    surf = surface(sc, cam, trace_closest_bvh8(sc, o, d, T_MIN, T_MAX,
+                                               height=h, width=w))
+    n, s = o.shape[0], lights["pos"].shape[0]
+    args = (surf["world_pos"], surf["N"], surf["valid"], lights)
+    rays, plain = light_rays(*args), light_rays_plain(*args)
+    for key in RAY_KEYS:
+        require(bits_equal(rays[key], plain[key]),
+                f"[{label}] K8a {key} differs from the plain pre-pass")
+    occ = [trace_any_bvh8(sc, surf["world_pos"], L, SHADOW_T_MIN, t,
+                          height=h, width=w)
+           for L, t in zip(rays["L"], rays["t_max"])]
+    rho = light_sum(surf, rays, occ, lights)
+    require(bits_equal(rho, light_sum_plain(surf, plain, occ, lights)),
+            f"[{label}] K8b rho differs from the plain sum")
+    types = lights["light_type"].tolist()
+    falloff = lights["falloff_distance"].tolist()
+    ops_a = n * sum(K8A_OPS[0] + K8A_OPS[1].get(t, 0) for t in types)
+    ops_b = n * (K8B_OPS[0] + sum(
+        K8B_OPS[1] + (K8B_OPS[2] if t in (1, 3) else 0)
+        + (K8B_OPS[3] if f > 0 else 0) for t, f in zip(types, falloff)))
+    table = nbytes(*lights.values())
+    # roughness and metallic: the 4 bytes of each that a pixel needs
+    moved_a = table + nbytes(*args[:3], *(rays[k] for k in RAY_KEYS))
+    moved_b = table + n * 8 + nbytes(
+        *(surf[k] for k in ("N", "V", "albedo", "world_pos")), rays["L"],
+        rays["nc_NdotL"], rays["wants_shadow"], *occ, rho)
+    out = {}
+    for name, what, fn, plain_fn, moved, ops in (
+            ("shade_light_rays", "K8a light rays", lambda: light_rays(*args),
+             lambda: light_rays_plain(*args), moved_a, ops_a),
+            ("shade_light_sum", "K8b light sum",
+             lambda: light_sum(surf, rays, occ, lights),
+             lambda: light_sum_plain(surf, rays, occ, lights), moved_b,
+             ops_b)):
+        t = kernel_ms(fn)
+        b_ms, by = bound(moved, ops)
+        t.update(plain_ms=cuda_ms(plain_fn, 3), bound_ms=b_ms, bound_by=by,
+                 max_abs_err=0.0, bytes=moved, ops=ops)
+        log(f"[{label}] {what}, {s} lights: {fmt_ms(t)}, bound "
+            f"{b_ms:.4f} ms ({by}: {moved / 1e6:.1f} MB, {ops / 1e9:.3f} "
+            f"Gflop), plain chain {t['plain_ms']:.3f} ms; bit-exact")
+        out[name] = t
+    return out
+
+
 def phase2(r, label):
     """Frames through Renderer.render(); the launch counts prove the path."""
     import torch
@@ -747,7 +843,8 @@ def phase2(r, label):
         f"{checksum}, lit share {lit:.4f}")
     shadow = r.stats()["shadow_casting_lights"]
     want = dict(ALL_ZERO, bvh8_closest=FRAMES, bvh8_any=shadow * FRAMES,
-                gtao_noise=FRAMES, gtao_main=FRAMES, gtao_denoise=FRAMES)
+                gtao_noise=FRAMES, gtao_main=FRAMES, gtao_denoise=FRAMES,
+                **shade_calls(FRAMES))
     require(counts == want, f"[{label}] launch counts {counts} != {want}")
     require(tuple(image.shape) == (c.height, c.width, 3)
             and image.dtype == torch.uint8, f"[{label}] bad image")
@@ -840,7 +937,8 @@ def phase9(r, label):
         frame = counted_once(
             lambda: r.render(block=False),
             dict(bvh8_closest=GT_SPP, bvh8_any=GT_SPP * shadow,
-                 gtao_noise=1, gtao_main=1, gtao_denoise=1),
+                 gtao_noise=1, gtao_main=1, gtao_denoise=1,
+                 **shade_calls(GT_SPP)),
             f"[{label}] spp={GT_SPP} frame")
         out["spp_frame"] = wall_and_device_ms(
             lambda: r.render(block=False), 3)
@@ -860,7 +958,8 @@ def phase9(r, label):
                                   GT_SAMPLES, width=w, height=h)
 
     st = counted_once(accumulate, dict(bvh8_closest=GT_SAMPLES,
-                                       bvh8_any=GT_SAMPLES * shadow),
+                                       bvh8_any=GT_SAMPLES * shadow,
+                                       **shade_calls(GT_SAMPLES)),
                       f"[{label}] accumulate_samples({GT_SAMPLES})")
     t = wall_and_device_ms(accumulate, 2)
     out["accumulate_per_sample"] = {k: v / GT_SAMPLES for k, v in t.items()}
@@ -972,7 +1071,8 @@ def phase10(r, label, default_frame, exact_kernels):
             counts = dict(build.launch_counts)
             n = VARIANT_FRAME_COUNT
             want = dict(ALL_ZERO, bvh8_closest=n, bvh8_any=shadow * n,
-                        **{noise_key: n, main_key: n, den_key: n * n_pass})
+                        **{noise_key: n, main_key: n, den_key: n * n_pass},
+                        **shade_calls(n))
             require(counts == want, f"[{label}] {name} frames launched "
                     f"{counts}, want {want}")
             image = out["image"]
@@ -1356,7 +1456,7 @@ def textured_launches(r, what):
     shadow = r.stats()["shadow_casting_lights"]
     counted_once(lambda: r.render_passes(r.noise_index), dict(
         bvh8_closest=1, bvh8_any=shadow, gtao_noise=1, gtao_main=1,
-        gtao_denoise=1), f"[textures] {what}")
+        gtao_denoise=1, **shade_calls(1)), f"[textures] {what}")
 
 
 def phase11_small():
@@ -1774,9 +1874,11 @@ def phase5(r, label):
     r.render_dynamic(frames[0])                    # warm-up, both paths
     r.render_dynamic(frames[0], refit=False)
     refit_want = dict(ALL_ZERO, bvh8_closest=1, bvh8_any=shadow,
-                      gtao_noise=1, gtao_main=1, gtao_denoise=1)
+                      gtao_noise=1, gtao_main=1, gtao_denoise=1,
+                      **shade_calls(1))
     rebuild_want = dict(ALL_ZERO, bvh2_closest=1, bvh2_any=shadow,
-                        gtao_noise=1, gtao_main=1, gtao_denoise=1)
+                        gtao_noise=1, gtao_main=1, gtao_denoise=1,
+                        **shade_calls(1))
     out = {}
     for path, want, kw in (("refit", refit_want, {}),
                            ("rebuild", rebuild_want, dict(refit=False))):
@@ -2057,7 +2159,8 @@ def phase7_frames(r, label):
                                   noise, width=c.width, height=c.height,
                                   gtao_settings=c.gtao)
 
-    ao_launches = dict(gtao_noise=1, gtao_main=1, gtao_denoise=1)
+    ao_launches = dict(gtao_noise=1, gtao_main=1, gtao_denoise=1,
+                       **shade_calls(1))
     variants = (
         ("pop2", dict(POP2_DEFAULT=True), rendered,
          dict(bvh8_closest_pop2=1, bvh8_any_pop2=shadow)),
@@ -2323,7 +2426,7 @@ def phase8_profile(r, label):
     launches = dict(build.launch_counts)
     # one untimed frame and 3 timed ones, each render()'s kernels
     want = dict(ALL_ZERO, bvh8_closest=4, bvh8_any=4 * shadow,
-                gtao_noise=4, gtao_main=4, gtao_denoise=4)
+                gtao_noise=4, gtao_main=4, gtao_denoise=4, **shade_calls(4))
     require(launches == want, f"[{label}] profile_frame launched {launches}")
     require(list(pf.ms_per_pass) == ["rays", "trace", "shade+shadows",
                                      "gtao", "tonemap"]
@@ -2367,7 +2470,8 @@ APP_SPP = 8
 APP_REPLAY_FRAMES = 30
 LIVE_FRAMES = 12
 # K3h, K3 and K4 per app frame (K1 1, K2 one per shadow-casting light)
-APP_LAUNCHES = dict(gtao_noise=1, gtao_main=1, gtao_denoise=1)
+APP_LAUNCHES = dict(gtao_noise=1, gtao_main=1, gtao_denoise=1,
+                    shade_light_rays=1, shade_light_sum=1)
 
 
 def app_scene_file(tmp):
@@ -2487,7 +2591,8 @@ def phase12():
                 and np.array_equal(resumed, once),
                 "[app] resumed accumulation differs from one run")
         require(counts == dict(ALL_ZERO, bvh8_closest=APP_SPP,
-                               bvh8_any=shadow * APP_SPP),
+                               bvh8_any=shadow * APP_SPP,
+                               **shade_calls(APP_SPP)),
                 f"[app] accumulation launched {counts}")
         log(f"[app] --spp {APP_SPP} --checkpoint-every 4: resumed after 4 "
             f"equals one run; launches {nonzero(counts)}")
@@ -2811,7 +2916,8 @@ def phase13_ranks(renderers):
     from tpurt_torch.dist import make_mesh
     from tpurt_torch.dist.sharding import transport
 
-    want_base = dict(ALL_ZERO, bvh8_closest=1, gtao_noise=1, gtao_denoise=1)
+    want_base = dict(ALL_ZERO, bvh8_closest=1, gtao_noise=1, gtao_denoise=1,
+                     **shade_calls(1))
     out = {}
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{free_port()}", world_size=1, rank=0)
@@ -2881,7 +2987,7 @@ def geo_launches(tier, n, lights, whole):
     """A ring frame's launches per rank: K1 and K5 once per stop ("bvh8"),
     or K6 closest once and any once per light per stop ("xla"); K3h, K3
     (over the band, or the whole frame with one rank) and K4 once."""
-    want = dict(ALL_ZERO, gtao_noise=1, gtao_denoise=1)
+    want = dict(ALL_ZERO, gtao_noise=1, gtao_denoise=1, **shade_calls(1))
     want["gtao_main" if whole else "gtao_main_band"] = 1
     if tier == "bvh8":
         return dict(want, bvh8_closest=n, bvh8_any_multi=n)
@@ -3575,6 +3681,7 @@ def main():
             gv = phase10(r, label, f, k)
             k.update(gv["kernels"])
             k["gtao_main_band"] = phase13_band(r, label)
+            k.update(phase15_lights(r, label))
             if (w, h) == SHAPES[0]:
                 tex = dict(tiers=phase11_tiers(), arena=phase11_arena(r, f),
                            small=phase11_small())

@@ -8,10 +8,11 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 (``--noconftest`` because the repository's conftest.py sets up JAX, which
 the machine with the card need not have.)
 
-Budgets (as chip_smoke.py holds them): K1, K2, K4, K5, K5p, K7a, K7b, K7c
-and K6 bit-identical with their plain versions (K1, K2, K7a, K7b, K7c and
-K6 in pixel tiles and on consecutive rays, K1, K7a, K7b, K7c and K6 also
-on triangle soups with equal-t ties and sibling boxes and K7a/K7b/K7c on
+Budgets (as chip_smoke.py holds them): K1, K2, K4, K5, K5p, K7a, K7b, K7c,
+K6, K8a and K8b bit-identical with their plain versions (K8a and K8b,
+shade's light loop, on every light set of tests/torch_light_cases.py; K1,
+K2, K7a, K7b, K7c and K6 in pixel tiles and on consecutive rays, K1,
+K7a, K7b, K7c and K6 also on triangle soups with equal-t ties and sibling boxes and K7a/K7b/K7c on
 a deep tree, K6
 also on SAH trees with leaves of up to 4, K2 also with the plain any hit
 over the rows, K5/K5p also with K2 per set (in pixel tiles
@@ -35,6 +36,10 @@ import pytest
 import torch
 
 pytestmark = pytest.mark.gpu
+
+
+# shade's light loop per shade() call: K8a and K8b once each
+SHADE_LIGHTS = dict(shade_light_rays=1, shade_light_sum=1)
 
 
 def _counts(**nonzero):
@@ -129,7 +134,7 @@ def test_frame_on_card_matches_host(cuda_frame):
     img_gpu = r.render_image()
     assert build.launch_counts == _counts(bvh8_closest=1, bvh8_any=3,
                                           gtao_noise=1, gtao_main=1,
-                                          gtao_denoise=1)
+                                          gtao_denoise=1, **SHADE_LIGHTS)
     img_cpu = host.render_image()
     # the host's pow/cos/log2 come from another math library than the
     # card's: a sample can move to another mip or a shading term by an ulp
@@ -223,7 +228,8 @@ def test_k6_bit_identical(cuda_frame):
                                           height=h, width=w), want)
         assert torch.equal(trace_any_bvh2(sc, so, sd, SHADOW_T_MIN, stmax),
                            want)
-    assert build.launch_counts == _counts(bvh2_any=6)
+    # shadow_rays' light-ray pre-pass: K8a once
+    assert build.launch_counts == _counts(bvh2_any=6, shade_light_rays=1)
 
 
 def test_k6_over_sah_trees_and_soups(cuda_frame):
@@ -286,9 +292,9 @@ def test_dynamic_frames_on_card_match_host(cuda_frame):
         field=dict(nx=4, nz=4, subdiv=3), cubes=4)
     t = _dynamic_inputs(r)[0]
     want = {True: _counts(bvh8_closest=1, bvh8_any=3, gtao_noise=1,
-                          gtao_main=1, gtao_denoise=1),
+                          gtao_main=1, gtao_denoise=1, **SHADE_LIGHTS),
             False: _counts(gtao_noise=1, gtao_main=1, gtao_denoise=1,
-                           bvh2_closest=1, bvh2_any=3)}
+                           bvh2_closest=1, bvh2_any=3, **SHADE_LIGHTS)}
     for refit in (True, False):
         host._frame_idx = r._frame_idx
         build.reset_counts()
@@ -352,10 +358,12 @@ def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
                            want)
         assert torch.equal(want, trace_any_plain(sc, so, sd, SHADOW_T_MIN,
                                                  stmax))
+    # shadow_rays' light-ray pre-pass: K8a once
     assert build.launch_counts == _counts(bvh8_closest=1,
                                           bvh8_closest_pop2=2,
                                           bvh8_closest_uvp=2,
-                                          bvh8_any_pop2=6)
+                                          bvh8_any_pop2=6,
+                                          shade_light_rays=1)
 
 
 @pytest.mark.parametrize("pop2", [False, True])
@@ -473,12 +481,14 @@ def test_variant_frames_on_card(cuda_frame):
 
     base = render()["image"]
     cases = [("uvp", dict(UVP_DEFAULT=True), render,
-              _counts(bvh8_closest_uvp=1, bvh8_any=3)),
-             ("fused", {}, fused, _counts(bvh8_closest=1, bvh8_any_multi=1)),
+              _counts(bvh8_closest_uvp=1, bvh8_any=3, **SHADE_LIGHTS)),
+             ("fused", {}, fused, _counts(bvh8_closest=1, bvh8_any_multi=1,
+                                          **SHADE_LIGHTS)),
              ("pop2", dict(POP2_DEFAULT=True), render,
-              _counts(bvh8_closest_pop2=1, bvh8_any_pop2=3)),
+              _counts(bvh8_closest_pop2=1, bvh8_any_pop2=3, **SHADE_LIGHTS)),
              ("fused_pop2", dict(POP2_DEFAULT=True), fused,
-              _counts(bvh8_closest_pop2=1, bvh8_any_multi_pop2=1))]
+              _counts(bvh8_closest_pop2=1, bvh8_any_multi_pop2=1,
+                      **SHADE_LIGHTS))]
     for name, flags, frame, want in cases:
         try:
             for k, val in flags.items():
@@ -695,7 +705,8 @@ def test_profiler_and_stream_on_card(cuda_frame):
     # one untimed and two timed frames of render()'s launches
     assert build.launch_counts == _counts(bvh8_closest=3, bvh8_any=9,
                                           gtao_noise=3, gtao_main=3,
-                                          gtao_denoise=3)
+                                          gtao_denoise=3, shade_light_rays=3,
+                                          shade_light_sum=3)
     assert list(stats.ms_per_pass) == ["rays", "trace", "shade+shadows",
                                        "gtao", "tonemap"]
     assert all(v > 0 for v in stats.ms_per_pass.values())
@@ -1112,3 +1123,110 @@ def test_sync_spans_are_the_stream_syncs(cuda_frame):
                                                                  inside)
     finally:
         r.camera_mut().set_pos(pos)
+
+
+LIGHT_CASES = ["point", "spot", "directional", "area", "mixed1", "mixed2",
+               "mixed3", "mixed4", "inactive", "no_shadow", "equal_angles",
+               "no_falloff", "other_type", "empty", "many"]
+
+
+@pytest.mark.parametrize("case", LIGHT_CASES)
+def test_shade_light_kernels_bit_identical(cuda_frame, case):
+    """K8a and K8b (csrc/shade_lights.cu) against the plain pre-pass and
+    sum on the card, bit for bit in L, nc_NdotL, wants_shadow, t_max and
+    rho, on the frame's surface with every 17th lane a miss: all 7,680
+    lanes (30 blocks) and the first 7,643 (not a multiple of the block);
+    the light sets of tests/torch_light_cases.py. shade()'s three outputs
+    against the plain chain (plain pre-pass, K2, plain sum, the encode),
+    with 1 + 1 launches per call (K8b 2 for 33 lights)."""
+    from torch_light_cases import light_cases
+
+    from tpurt_torch.engine import convert
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.shade_lights import (OCC_CHUNK, RAY_KEYS,
+                                                  light_rays,
+                                                  light_rays_plain,
+                                                  light_sum, light_sum_plain)
+    from tpurt_torch.kernels.traverse_bvh8 import (trace_any_bvh8,
+                                                   trace_closest_bvh8)
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import (SHADOW_T_MIN, _shade_outputs,
+                                          shade, surface)
+
+    r = cuda_frame
+    cam, _, _ = _inputs(r)
+    sc = r.scene_device
+    w, h = r.config.width, r.config.height
+    o, d = camera_rays(cam, w, h)
+    hits = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX)
+    hits["tri"][::17] = -1
+    lights = convert.light_tensors(light_cases(r)[case], "cuda")
+    s = lights["pos"].shape[0]
+    sums = -(-s // OCC_CHUNK)
+    whole = surface(sc, cam, hits)
+    assert bool(whole["valid"].any()) and not bool(whole["valid"].all())
+    for n in (w * h, w * h - 37):
+        surf = {k: v[:n] for k, v in whole.items()}
+        build.reset_counts()
+        rays = light_rays(surf["world_pos"], surf["N"], surf["valid"],
+                          lights)
+        assert build.launch_counts == _counts(shade_light_rays=1)
+        plain = light_rays_plain(surf["world_pos"], surf["N"],
+                                 surf["valid"], lights)
+        for key in RAY_KEYS:
+            assert torch.equal(_bits(rays[key]), _bits(plain[key])), (key, n)
+        occ = [trace_any_bvh8(sc, surf["world_pos"], L, SHADOW_T_MIN, t)
+               for L, t in zip(rays["L"], rays["t_max"])]
+        if case == "mixed3":
+            assert any(bool((m & o_).any())
+                       for m, o_ in zip(rays["wants_shadow"], occ))
+        build.reset_counts()
+        rho = light_sum(surf, rays, occ, lights)
+        assert build.launch_counts == _counts(shade_light_sum=sums)
+        want = light_sum_plain(surf, plain, occ, lights)
+        assert torch.equal(_bits(rho), _bits(want)), n
+    build.reset_counts()
+    got = shade(sc, cam, lights, hits)
+    assert build.launch_counts == _counts(bvh8_any=s, shade_light_rays=1,
+                                          shade_light_sum=sums)
+    plain = light_rays_plain(whole["world_pos"], whole["N"], whole["valid"],
+                             lights)
+    occ = [trace_any_bvh8(sc, whole["world_pos"], L, SHADOW_T_MIN, t)
+           for L, t in zip(plain["L"], plain["t_max"])]
+    want = _shade_outputs(light_sum_plain(whole, plain, occ, lights),
+                          whole["valid"], cam, whole["world_pos"], whole["N"])
+    for key in want:
+        assert torch.equal(_bits(got[key]), _bits(want[key])), key
+
+
+def test_shade_light_kernels_refuse_before_launch(cuda_frame):
+    """On the card the wrappers refuse a strided row, a light table on
+    another device and a missing occlusion mask with ValueError, and
+    launch nothing."""
+    from tpurt_torch.engine import convert
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.shade_lights import light_rays, light_sum
+    from tpurt_torch.kernels.traverse_bvh8 import trace_closest_bvh8
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import surface
+
+    r = cuda_frame
+    cam, lights, _ = _inputs(r)
+    sc = r.scene_device
+    o, d = camera_rays(cam, r.config.width, r.config.height)
+    surf = surface(sc, cam, trace_closest_bvh8(sc, o, d, T_MIN, T_MAX))
+    rays = light_rays(surf["world_pos"], surf["N"], surf["valid"], lights)
+    occ = torch.zeros_like(rays["wants_shadow"])
+    host_lights = convert.light_tensors(r.lights.shader_arrays(), "cpu")
+    strided = torch.stack([surf["N"], surf["N"]], -1)[..., 0]
+    build.reset_counts()
+    for call in (
+            lambda: light_rays(surf["world_pos"], strided, surf["valid"],
+                               lights),
+            lambda: light_rays(surf["world_pos"], surf["N"], surf["valid"],
+                               host_lights),
+            lambda: light_sum(dict(surf, V=strided), rays, occ, lights),
+            lambda: light_sum(surf, rays, occ[:-1], lights)):
+        with pytest.raises(ValueError):
+            call()
+    assert build.launch_counts == _counts()

@@ -3,13 +3,14 @@ default step) on a cut bench scene at 32x32 on the CPU, port only.
 
 Held: a recording hook sees every name of ``SPANS`` in its order, each
 under its parent (``shade.*`` inside ``shade``, ``sync.noise`` inside
-``gtao``, the uploads' ``sync.*`` outside every step), in the plain
-frame, the fused-shadow frame and at spp 2, with the outputs of the frame
-without a hook bit for bit; a moved camera uploads its five tensors each
-inside ``sync.camera`` and a still one none; the sharded hooks' shadow
-traces run inside ``shade.shadow``; with the profiler off the default
-step is one shared null context, and under ``torch.profiler`` the frame's
-Chrome trace holds the spans as user annotations.
+``gtao``, the uploads' ``sync.*`` outside every step; ``shade.lights``
+twice per shade call, ``shade.shadow`` once per light or fused trace), in
+the plain frame, the fused-shadow frame and at spp 2, with the outputs of
+the frame without a hook bit for bit; a moved camera uploads its five
+tensors each inside ``sync.camera`` and a still one none; the sharded
+hooks' shadow traces run inside ``shade.shadow``; with the profiler off
+the default step is one shared null context, and under ``torch.profiler``
+the frame's Chrome trace holds the spans as user annotations.
 """
 import collections
 import contextlib
@@ -98,7 +99,7 @@ def test_spans_in_order_under_their_parents(frame):
         assert parent == PARENT.get(name), (name, parent)
     counts = rec.counts()
     assert counts["shade"] == 1 and counts["shade.surface"] == spp
-    assert counts["shade.lights"] == spp * (1 + 2 * LIGHTS)
+    assert counts["shade.lights"] == spp * 2
     assert counts["shade.shadow"] == spp * (1 if frame == "fused"
                                             else LIGHTS)
     assert counts["sync.camera"] == 5 and counts["sync.noise"] == 1

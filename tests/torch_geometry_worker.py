@@ -272,7 +272,8 @@ def cuda_worker(rank, world, port, out_dir):
         launched = {k: v for k, v in build.launch_counts.items() if v}
         assert launched == dict(bvh8_closest=world, bvh8_any_multi=world,
                                 gtao_noise=1, gtao_main_band=1,
-                                gtao_denoise=1), launched
+                                gtao_denoise=1, shade_light_rays=1,
+                                shade_light_sum=1), launched
         got = gather_frame(band, mesh)
         off = {k: (got[k] != want[k]).reshape(h, w, -1).any(-1).cpu()
                for k in want}

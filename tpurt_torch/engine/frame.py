@@ -64,8 +64,9 @@ STEPS = ("rays", "trace", "shade", "quantize_color", "quantize_depth_normal",
          "gtao", "tonemap")
 # every span of the static frame (``render_passes``), in the order each is
 # first entered: the sync.* uploads of the camera, light and GTAO-constant
-# tensors run only when their host values changed; shade.lights and
-# shade.shadow repeat per light (one shade.shadow for a fused trace)
+# tensors run only when their host values changed; shade.lights runs
+# twice per shade call (the light-ray pre-pass and the lights' sum) and
+# shade.shadow once per light (once for a fused trace)
 SPANS = ("sync.camera", "sync.lights", "sync.gtao", "rays", "trace", "shade",
          "shade.surface", "shade.lights", "shade.shadow", "quantize_color",
          "quantize_depth_normal", "gtao", "sync.noise", "tonemap")

@@ -53,7 +53,9 @@ launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_noise": 0,
                  "bvh8_any_multi_pop2": 0,
                  "bvh8_closest_pop2": 0, "bvh8_any_pop2": 0,
                  "bvh8_closest_uvp": 0, "bvh8_closest_steps": 0,
-                 "bvh8_any_steps": 0, "trans_equiv": 0}
+                 "bvh8_any_steps": 0, "trans_equiv": 0,
+                 # K8a and K8b, shade's light loop (kernels/shade_lights.py)
+                 "shade_light_rays": 0, "shade_light_sum": 0}
 
 _LOCK = threading.Lock()
 _LIB = None

@@ -29,10 +29,13 @@ takes level 0 as XLA's conversion does), miss lanes read triangle 0.
 Outputs the unquantized G-buffer: color, view depth, encoded view normal.
 
 The light schedule (tpurt ``shade.py:747-804``): a pre-pass builds every
-light's L vector and shadow ray (lanes that need no ray get ``t_max = 0``);
-then, per light, the GGX + Burley BRDF math, the any-hit trace and the
-radiance accumulation. With ``fuse_shadows=True``, the BVH8 tables and
-more than one light, one fused multi-set trace (K5,
+light's L vector and shadow ray (lanes that need no ray get ``t_max = 0``),
+``kernels/shade_lights.light_rays`` (K8a, one launch for every light on
+the card); then each light's any-hit trace; then one sum of every light's
+GGX + Burley BRDF, shadow attenuation and radiance in index order,
+``light_sum`` (K8b, one launch). On CPU tensors both are the plain chain
+of ``passes/light.py`` and ``passes/brdf.py``. With ``fuse_shadows=True``,
+the BVH8 tables and more than one light, one fused multi-set trace (K5,
 ``trace_any_bvh8_multi``) covers every light instead of the per-light
 traces, bit-equal to them. tpurt's frame never sets it; a fused frame is
 ``engine/frame.render_frame_fused``. tpurt's ``light_eval="hoist"`` /
@@ -53,16 +56,13 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.shade_lights import light_rays, light_sum
 from ..kernels.traverse_bvh2 import trace_any_bvh2
 from ..kernels.traverse_bvh8 import trace_any_bvh8, trace_any_bvh8_multi
 from ..utils.spans import no_step
-from . import brdf
 from .encodings import divide, rdivide, sqrt
-from .light import get_light_radiance, get_unnormalized_L_vec
 
-LOCAL_SSS_RATIO = 0.4
 SHADOW_T_MIN = 0.01
-SHADOW_ATTENUATION = 0.05
 MISS_DEPTH = 10000.0
 
 
@@ -536,21 +536,6 @@ def surface(scene: dict, camera: dict, hits: dict, direction=None, *,
                 roughness=orm[:, 1], metallic=orm[:, 2])
 
 
-def light_ray(surf: dict, light: dict) -> dict:
-    """The normalized light vector and the shadow ray toward one light;
-    lanes that need no ray get t_max = 0 (the kernel retires them at
-    once)."""
-    nn_L = get_unnormalized_L_vec(light, surf["world_pos"])
-    L_len = _norm(nn_L)[:, 0]
-    L = nn_L / torch.clamp_min(L_len, 1e-20)[:, None]
-    nc_NdotL = _dot(surf["N"], L)
-    wants_shadow = (surf["valid"] & (light["casts_shadows"] > 0)
-                    & (nc_NdotL > 0))
-    t_max = torch.where(wants_shadow, L_len, torch.zeros_like(L_len))
-    return dict(L=L.contiguous(), nc_NdotL=nc_NdotL,
-                wants_shadow=wants_shadow, t_max=t_max)
-
-
 def _rows(hits: dict, height: int, image_rows: int) -> int:
     """The image's full height for the ray cone (tpurt
     ``shade.py:619-620``): image_rows, else height, else the side of a
@@ -566,11 +551,9 @@ def shadow_rays(scene: dict, camera: dict, lights: dict, hits: dict,
     shade() traces them (with shade()'s texture arguments)."""
     surf = surface(scene, camera, hits, direction, aniso_taps=aniso_taps,
                    rows=_rows(hits, height, image_rows))
-    rays = []
-    for i in range(lights["pos"].shape[0]):
-        lr = light_ray(surf, {k: arr[i] for k, arr in lights.items()})
-        rays.append((surf["world_pos"], lr["L"], lr["t_max"]))
-    return rays
+    rays = light_rays(surf["world_pos"], surf["N"], surf["valid"], lights)
+    return [(surf["world_pos"], L, t_max)
+            for L, t_max in zip(rays["L"], rays["t_max"])]
 
 
 def shadow_tracer(tables: str, max_leaf: int = 1):
@@ -582,10 +565,6 @@ def shadow_tracer(tables: str, max_leaf: int = 1):
         return lambda *args, height=0, width=0: trace_any_bvh2(
             *args, max_leaf=max_leaf, height=height, width=width)
     raise ValueError(f"unknown shadow tables {tables!r}")
-
-
-def _light(lights: dict, i: int) -> dict:
-    return {k: arr[i] for k, arr in lights.items()}
 
 
 def shade(scene: dict, camera: dict, lights: dict, hits: dict,
@@ -614,84 +593,49 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     t_maxs) -> (S, N) bool, when set, every light's in one call.
 
     step(name) as in ``engine/frame.py``: the surface reconstruction runs
-    inside ``shade.surface``, the light-ray pre-pass and each light's BRDF,
-    radiance and sum inside ``shade.lights`` (twice per light, around its
-    shadow trace), and each shadow trace call (per light, the fused K5 or
-    the sharded hooks) inside ``shade.shadow``; the G-buffer encode is
-    shade's own."""
+    inside ``shade.surface``, the light-ray pre-pass (K8a) and the lights'
+    sum (K8b) inside ``shade.lights`` (twice per call, before and after
+    the shadow traces), and each shadow trace call (per light, the fused
+    K5 or the sharded hooks) inside ``shade.shadow``; the G-buffer encode
+    is shade's own."""
     trace_any = shadow_tracer(tables, max_leaf)
     with step("shade.surface"):
         surf = surface(scene, camera, hits, direction, aniso_taps=aniso_taps,
                        rows=_rows(hits, height, image_rows),
                        attr_rows=attr_rows, quad_gather=quad_gather,
                        quad_shape=quad_shape)
-    N, V, albedo = surf["N"], surf["V"], surf["albedo"]
     world_pos = surf["world_pos"]
-    metallic = surf["metallic"]
     with step("shade.lights"):
-        F0 = 0.04 * (1.0 - metallic[:, None]) + albedo * metallic[:, None]
-        corrected_roughness = surf["roughness"] * surf["roughness"]
+        # every light's L vector and shadow ray first, so that all shadow
+        # rays can go out in one fused launch
+        rays = light_rays(world_pos, surf["N"], surf["valid"], lights)
+    dirs, t_maxs = list(rays["L"]), list(rays["t_max"])
 
-        nc_NdotV = _dot(N, V)
-        NdotV = torch.clamp(nc_NdotV, 1e-5, 1.0)
-
-        # pre-pass: every light's L vector and shadow ray, so that all
-        # shadow rays can go out in one fused launch
-        num_lights = lights["pos"].shape[0]
-        pre = [light_ray(surf, _light(lights, i)) for i in range(num_lights)]
-
-    occ_all = None
     if shadow_trace_multi_fn is not None:
         with step("shade.shadow"):
-            occ_all = shadow_trace_multi_fn(
-                world_pos, [p["L"] for p in pre], SHADOW_T_MIN,
-                [p["t_max"] for p in pre])
+            occluded = shadow_trace_multi_fn(world_pos, dirs, SHADOW_T_MIN,
+                                             t_maxs)
     elif fuse_shadows and shadow_trace_fn is None and tables == "bvh8" \
-            and num_lights > 1:
+            and len(dirs) > 1:
         with step("shade.shadow"):
-            occ_all = trace_any_bvh8_multi(
-                scene, world_pos, [p["L"] for p in pre], SHADOW_T_MIN,
-                [p["t_max"] for p in pre], height=height, width=width)
-
-    rho = torch.zeros_like(albedo)
-    for i, lr in enumerate(pre):
-        with step("shade.lights"):
-            light = _light(lights, i)
-            L, nc_NdotL = lr["L"], lr["nc_NdotL"]
-            H = _normalize(V + L)
-
-            NdotL = torch.clamp(nc_NdotL, 0.0, 1.0)
-            NdotH = torch.clamp(_dot(N, H), 0.0, 1.0)
-            LdotH = torch.clamp(_dot(L, H), 0.0, 1.0)
-
-            Ks = brdf.f_schlick(F0, LdotH)
-            Kd = (1.0 - metallic[:, None]) * albedo
-            rho_s = brdf.cook_torrance_specular(NdotL, NdotV, NdotH,
-                                                corrected_roughness, Ks)
-            rho_d = Kd * brdf.burley_diffuse_local_sss(
-                corrected_roughness, NdotV, nc_NdotV, nc_NdotL, LdotH,
-                LOCAL_SSS_RATIO)[..., None]
-
-        if occ_all is not None:
-            occluded = occ_all[i]
-        elif shadow_trace_fn is not None:
+            occluded = trace_any_bvh8_multi(scene, world_pos, dirs,
+                                            SHADOW_T_MIN, t_maxs,
+                                            height=height, width=width)
+    else:
+        occluded = []
+        for L, t_max in zip(dirs, t_maxs):
             with step("shade.shadow"):
-                occluded = shadow_trace_fn(world_pos, L, SHADOW_T_MIN,
-                                           lr["t_max"])
-        else:
-            with step("shade.shadow"):
-                occluded = trace_any(scene, world_pos, L, SHADOW_T_MIN,
-                                     lr["t_max"], height=height, width=width)
-        with step("shade.lights"):
-            attenuation = torch.where(
-                lr["wants_shadow"] & occluded,
-                torch.full_like(NdotL, SHADOW_ATTENUATION),
-                torch.ones_like(NdotL))
-            radiance = get_light_radiance(light, world_pos, L)
-            rho = rho + ((rho_s + rho_d) * radiance
-                         * (attenuation * NdotL * light["active"])[..., None])
+                if shadow_trace_fn is not None:
+                    occluded.append(shadow_trace_fn(world_pos, L,
+                                                    SHADOW_T_MIN, t_max))
+                else:
+                    occluded.append(trace_any(scene, world_pos, L,
+                                              SHADOW_T_MIN, t_max,
+                                              height=height, width=width))
 
-    return _shade_outputs(rho, surf["valid"], camera, world_pos, N)
+    with step("shade.lights"):
+        rho = light_sum(surf, rays, occluded, lights)
+    return _shade_outputs(rho, surf["valid"], camera, world_pos, surf["N"])
 
 
 def _shade_outputs(rho, valid, camera, world_pos, N):
