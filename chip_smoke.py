@@ -184,8 +184,10 @@ once, at 64x64):
            ranks sharing one H100 (no multi-GPU number). Last, at 800x800,
            the textures workload's "bvh8" frame over 4 gloo ranks: each
            rank's hbm_accounting beside its memory_allocated() after
-           setup and beside the replicated renderer's scene tensors, the
-           image at phase 3's bars against the single-device frame.
+           setup and beside the replicated renderer's scene tensors, its
+           launches (as above, and K9's rows 1 and K9 1: the texel rows
+           come through ring_gather to K9), the image at phase 3's bars
+           against the single-device frame.
   phase 8  the diagnostics path. The steps probe
            (tpurt_torch/tools/steps_probe.py) on the frame's rays with the
            counts at 0: K7a closest 1 and K7a any 3 (one per light), over
@@ -217,6 +219,20 @@ once, at 64x64):
            wants_shadow, t_max), K8b on K2's occlusion against the plain
            sum (rho), all bit-exact; both timed (`ms`, `cuda_ms`) beside
            their byte bound and the plain chain's ms on the card.
+  phase 16 a mip scene's texel fetch (K9: csrc/mip_texels.cu) at each
+           size, after phase 15: the textures workload (292,034 tris,
+           144 materials of 256x256 texels) with each tier forced by the
+           budgets (quad, pair, block4), its frame's hits through K1; K9
+           with 1 and 16 taps against the plain chain on the card, its
+           LOD, major axis and texels bit-exact, one launch a call; K9
+           timed (`ms`, `cuda_ms`) beside its bound, counted as
+           rtbench/metrics/k9_roofline.py counts it, and the plain chain's
+           ms on the card; the rows K9 reads (mip_texel_rows, the
+           sharded-geometry frame's first launch) equal to their plain
+           version, K9 over those rows served by a gather hook bit-exact
+           to K9 over the table, and the rows' launch timed beside its
+           byte bound. The summary's entries are the workload's tier
+           (pair) at 16 taps.
 
 Phases 12, 13 and 14 run after both sizes' phases 1-11 and 15 and before
 phase 8's device profile (torch.profiler).
@@ -319,6 +335,13 @@ KERNELS = (
      "none (XLA: tpurt/passes/shade.py:747)"),
     ("shade_light_sum", "tpurt_torch/csrc/shade_lights.cu",
      "none (XLA: tpurt/passes/shade.py:747)"),
+    # K9, a mip scene's texel fetch, and the rows it reads where a gather
+    # hook serves them (the sharded-geometry frame): no TPU kernel,
+    # tpurt's fetch is XLA code
+    ("mip_texels", "tpurt_torch/csrc/mip_texels.cu",
+     "none (XLA: tpurt/passes/shade.py:616)"),
+    ("mip_texel_rows", "tpurt_torch/csrc/mip_texels.cu",
+     "none (XLA: tpurt/passes/shade.py:616)"),
 )
 # the frames whose launches each new kernel's summary entry reports
 VARIANT_OF = {"bvh8_any_multi": "fused", "bvh8_any_multi_pop2": "fused_pop2",
@@ -814,6 +837,132 @@ def phase15_lights(r, label):
             f"Gflop), plain chain {t['plain_ms']:.3f} ms; bit-exact")
         out[name] = t
     return out
+
+
+# phase 16: K9's tiers and taps, and the renderers of the textures workload
+# per tier (built at the first size, resized for the next)
+K9_TIERS = ("quad", "pair", "block4")
+K9_TAPS = (1, 16)
+
+
+def k9_roofline():
+    """rtbench/metrics/k9_roofline.py, whose count and rates phase 16's
+    bound uses."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "k9_roofline", os.path.join(REPO, "rtbench", "metrics",
+                                    "k9_roofline.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def same_bits(got, want):
+    """Equal NaN masks and equal bits elsewhere (a NaN's payload may
+    differ between the kernel and PyTorch's ops)."""
+    import torch
+
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and bits_equal(got[~nan], want[~nan]))
+
+
+def phase16_texels(label, renderers):
+    """K9 against the plain chain on the textures workload's hits in each
+    tier, with 1 and 16 taps: bit-exact, one launch a call, timed beside
+    the bound and the plain chain; K9's rows (mip_texel_rows) against
+    their plain version, and K9 over those rows served by a gather hook
+    against K9 over the table, the rows' launch timed beside its byte
+    bound. `renderers` {tier: Renderer} is filled at the first size and
+    resized after."""
+    import torch
+
+    from tpurt_torch.kernels.mip_texels import (mip_texel_rows,
+                                                mip_texel_rows_plain,
+                                                mip_texels, mip_texels_plain)
+    from tpurt_torch.kernels.traverse_bvh8 import trace_closest_bvh8
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import _normalize, cone_spread
+
+    w, h = (int(x) for x in label.split("x"))
+    k9 = k9_roofline()
+    out, rows_out = {}, {}
+    for tier in K9_TIERS:
+        r = renderers.get(tier)
+        if r is None:
+            r = renderers[tier] = textured_renderer(w, h, "cuda", tier, 16)
+        r.resize(w, h)
+        sc = r.scene_device
+        require(f"tex_mip_{tier}" in sc, f"[{label}] K9: {tier} not shipped")
+        cam, _, _ = frame_inputs(r)
+        o, d = camera_rays(cam, w, h)
+        hits = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, height=h, width=w)
+        attr = sc["tri_attr"][torch.clamp_min(hits["tri"], 0).long()]
+        u, v = hits["u"][:, None], hits["v"][:, None]
+        wgt = 1.0 - u - v
+        uv = attr[:, 3:5] * wgt + attr[:, 15:17] * u + attr[:, 27:29] * v
+        normal = _normalize(attr[:, 5:8] * wgt + attr[:, 17:20] * u
+                            + attr[:, 29:32] * v)
+        table = sc[f"tex_mip_{tier}"]
+        tables = (sc[f"tex_mip_{tier}_offsets"], sc["tex_mip_sizes"])
+        for taps in K9_TAPS:
+            lanes = (hits["t"], d, normal, attr, uv, cone_spread(cam, h),
+                     taps)
+            args = (tier, table, *tables, *lanes)
+            got = counted_once(lambda: mip_texels(*args, footprint=True),
+                               dict(mip_texels=1), f"[{label}] K9 {tier}")
+            want = mip_texels_plain(*args, footprint=True)
+            for what, a, b in zip(("texels", "lod", "duv"), got, want):
+                require((a is None and b is None) or same_bits(a, b),
+                        f"[{label}] K9 {tier} {taps} taps: {what} differs "
+                        f"from the plain chain")
+            t = kernel_ms(lambda: mip_texels(*args))
+            moved, ops = k9.work(w, h, taps)
+            b_ms = k9.least_ms(w, h, taps)
+            by = ("bytes" if moved / k9.PEAK_BYTES_PER_S
+                  >= ops / k9.PEAK_UNFUSED_PER_S else "operations")
+            t.update(plain_ms=cuda_ms(lambda: mip_texels_plain(*args), 3),
+                     bound_ms=b_ms, bound_by=by, max_abs_err=0.0,
+                     bytes=moved, ops=ops, launches=1)
+            log(f"[{label}] K9 {tier}, {taps} taps: {fmt_ms(t)}, bound "
+                f"{b_ms:.4f} ms ({by}: {moved / 1e6:.1f} MB, "
+                f"{ops / 1e9:.3f} G unfused, {100 * b_ms / t['ms']:.1f}%), "
+                f"plain chain {t['plain_ms']:.3f} ms; bit-exact")
+            out[f"{tier} {taps}"] = t
+
+            rows_args = (tier, *tables, *lanes)
+            flats = counted_once(lambda: mip_texel_rows(*rows_args),
+                                 dict(mip_texel_rows=1),
+                                 f"[{label}] K9 rows {tier}")
+            require(torch.equal(flats, mip_texel_rows_plain(*rows_args)),
+                    f"[{label}] K9 rows {tier} {taps} taps differ from "
+                    f"the plain version")
+            through = counted_once(
+                lambda: mip_texels(tier, None, *tables, *lanes,
+                                   gather=lambda f: table[f]),
+                dict(mip_texels=1, mip_texel_rows=1),
+                f"[{label}] K9 over gathered rows {tier}")
+            require(same_bits(through, got[0]),
+                    f"[{label}] K9 {tier} {taps} taps over gathered rows "
+                    f"differs from K9 over the table")
+            t = kernel_ms(lambda: mip_texel_rows(*rows_args))
+            # the inputs once and the int32 indices out
+            moved = w * h * k9.INPUT_BYTES + flats.numel() * 4
+            b_ms, by = bound(moved, 0)
+            t.update(plain_ms=cuda_ms(
+                lambda: mip_texel_rows_plain(*rows_args), 3),
+                bound_ms=b_ms, bound_by=by, max_abs_err=0.0, bytes=moved,
+                launches=1)
+            log(f"[{label}] K9 rows {tier}, {taps} taps: {fmt_ms(t)}, "
+                f"bound {b_ms:.4f} ms ({moved / 1e6:.1f} MB, "
+                f"{100 * b_ms / t['ms']:.1f}%), plain "
+                f"{t['plain_ms']:.3f} ms; equal, and K9 over the gathered "
+                f"rows bit-exact")
+            rows_out[f"{tier} {taps}"] = t
+    log(f"[{label}] K9 {card_line()}")
+    return dict(mip_texels=dict(out["pair 16"], tiers=out),
+                mip_texel_rows=dict(rows_out["pair 16"], tiers=rows_out))
 
 
 def phase2(r, label):
@@ -1452,11 +1601,12 @@ def textured_renderer(width, height, device, tier, taps, field=None):
 
 def textured_launches(r, what):
     """One textured frame's launches: K1 once, K2 once per shadow light,
-    K3h, K3 and K4 once each."""
+    K3h, K3, K4, K8a, K8b and K9 once each."""
     shadow = r.stats()["shadow_casting_lights"]
     counted_once(lambda: r.render_passes(r.noise_index), dict(
         bvh8_closest=1, bvh8_any=shadow, gtao_noise=1, gtao_main=1,
-        gtao_denoise=1, **shade_calls(1)), f"[textures] {what}")
+        gtao_denoise=1, mip_texels=1, **shade_calls(1)),
+        f"[textures] {what}")
 
 
 def phase11_small():
@@ -3463,6 +3613,7 @@ def geo_textures_worker(rank, world, port, results):
                                       render_frame_sharded_geometry,
                                       shard_geometry, shard_tables)
         from tpurt_torch.engine import convert
+        from tpurt_torch.kernels import build
         from tpurt_torch.passes.gtao import gtao_constants
 
         mesh = make_mesh()
@@ -3488,16 +3639,21 @@ def geo_textures_worker(rank, world, port, results):
         setup_s = time.perf_counter() - t0
         acct = hbm_accounting(pt, shards, tbl, world, rank=rank)
         dist.barrier()
+        build.reset_counts()
         t0 = time.perf_counter()
         band = render_frame_sharded_geometry(
             sc, shard, cam, lights, gtao, lpm, 0, width=w, height=h,
             gtao_settings=c.gtao, mesh=mesh, tables="bvh8",
             shade_tables=chunks, meta=freeze_meta(meta))
+        launches = dict(build.launch_counts)
         full = gather_frame(band, mesh)
         torch.cuda.synchronize()
         frame_ms = (time.perf_counter() - t0) * 1000.0
+        want = dict(geo_launches("bvh8", world, host.stats()["lights"],
+                                 False), mip_texel_rows=1, mip_texels=1)
         results.put(dict(rank=rank, held=held, acct=acct, setup_s=setup_s,
-                         frame_ms=frame_ms,
+                         frame_ms=frame_ms, launches=nonzero(launches),
+                         want_launches=nonzero(want),
                          image=full["image"].cpu().numpy() if rank == 0
                          else None))
         dist.barrier()
@@ -3521,6 +3677,10 @@ def phase14_textures(tex_r):
     got = sorted(spawn_ranks(geo_textures_worker, world, 600),
                  key=lambda g: g["rank"])
     require(len(got) == world, f"[textures] {len(got)} ranks reported")
+    for g in got:
+        require(g["launches"] == g["want_launches"],
+                f"[textures] ring frame rank {g['rank']} launched "
+                f"{g['launches']}, want {g['want_launches']}")
     d = (torch.from_numpy(got[0]["image"]).to(torch.int32)
          - want.cpu().to(torch.int32)).abs().amax(dim=-1)
     agree = dict(equal=float((d == 0).float().mean()),
@@ -3662,7 +3822,7 @@ def main():
         [k for k in report if "gtao_main_kernel" in k["kernel"]
          or "gtao_noise_kernel" in k["kernel"]]))
 
-    results, renderers = {}, {}
+    results, renderers, k9_renderers = {}, {}, {}
     try:
         for w, h in SHAPES:
             label = f"{w}x{h}"
@@ -3682,6 +3842,7 @@ def main():
             k.update(gv["kernels"])
             k["gtao_main_band"] = phase13_band(r, label)
             k.update(phase15_lights(r, label))
+            k.update(phase16_texels(label, k9_renderers))
             if (w, h) == SHAPES[0]:
                 tex = dict(tiers=phase11_tiers(), arena=phase11_arena(r, f),
                            small=phase11_small())
@@ -3691,6 +3852,7 @@ def main():
                                   variants=var, profile=prof,
                                   ground_truth=gt, gtao_variants=gv)
             renderers[label] = r
+        k9_renderers.clear()
         app = phase12()
         sharded = phase13_ranks(renderers)
         for label in renderers:

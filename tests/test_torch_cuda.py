@@ -9,11 +9,14 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 the machine with the card need not have.)
 
 Budgets (as chip_smoke.py holds them): K1, K2, K4, K5, K5p, K7a, K7b, K7c,
-K6, K8a and K8b bit-identical with their plain versions (K8a and K8b,
-shade's light loop, on every light set of tests/torch_light_cases.py; K1,
-K2, K7a, K7b, K7c and K6 in pixel tiles and on consecutive rays, K1,
-K7a, K7b, K7c and K6 also on triangle soups with equal-t ties and sibling boxes and K7a/K7b/K7c on
-a deep tree, K6
+K6, K8a, K8b and K9 bit-identical with their plain versions (K8a and
+K8b, shade's light loop, on every light set of tests/torch_light_cases.py;
+K9, the texel fetch, in every tier at 1, 4 and 16 taps with its
+footprint, over the table and over rows a gather hook serves, and a
+textured frame with it against the frame with the torch chain; K1, K2,
+K7a, K7b, K7c and K6 in pixel tiles and on consecutive rays, K1, K7a,
+K7b, K7c and K6 also on triangle soups with equal-t ties and sibling
+boxes and K7a/K7b/K7c on a deep tree, K6
 also on SAH trees with leaves of up to 4, K2 also with the plain any hit
 over the rows, K5/K5p also with K2 per set (in pixel tiles
 and on consecutive rays, on soups and a deep tree), K7a's and K7b's t
@@ -1053,17 +1056,25 @@ def test_gtao_main_band(cuda_frame, bent, precision):
 
 def test_sharded_geometry_frame(tmp_path):
     """The sharded-geometry frame ("bvh8": K1 and K5 on each shard, the
-    attribute and texel rows through ring_gather) with 2 gloo ranks on the
-    card, spawned (tests/torch_geometry_worker.py checks each rank's
-    launches): every output equal to render()'s."""
+    attribute and texel rows through ring_gather, a mip scene's into K9)
+    with 2 gloo ranks on the card, spawned (tests/torch_geometry_worker.py
+    checks each rank's launches): every output of the default and the mip
+    frame equal to render()'s, and K9 over the ring's rows bit-equal to K9
+    over the table at 1 and 4 taps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import torch_geometry_worker as worker
 
     worker.spawn(worker.cuda_worker, 2, str(tmp_path))
-    off = np.load(tmp_path / "cuda.npz")
-    assert {k: int(off[k].sum()) for k in off.files} == {
-        k: 0 for k in off.files}
+    got = np.load(tmp_path / "cuda.npz")
+    cases = [c for c, _, _ in worker.CUDA_CASES]
+    assert {c: bool(got[f"{c}/ok_launches"]) for c in cases} == {
+        c: True for c in cases}
+    assert {c: bool(got[f"{c}/ok_texels"]) for c in cases} == {
+        c: True for c in cases}
+    off = [k for k in got.files if not k.split("/")[1].startswith("ok_")]
+    assert {k.split("/")[0] for k in off} == set(cases)
+    assert {k: int(got[k].sum()) for k in off} == {k: 0 for k in off}
 
 
 def test_sync_spans_are_the_stream_syncs(cuda_frame):
@@ -1230,3 +1241,153 @@ def test_shade_light_kernels_refuse_before_launch(cuda_frame):
         with pytest.raises(ValueError):
             call()
     assert build.launch_counts == _counts()
+
+
+# K9's tiers and taps; the cut textures workload (tests/test_torch_mip_frame
+# .py's field) and the budgets (quad, pair) that make flatten_scene pick
+# each tier
+MIP_TIERS = ("quad", "pair", "block4")
+MIP_TAPS = (1, 4, 16)
+MIP_FIELD = dict(nx=3, nz=3, subdiv=2, spacing=1.0, extents=(16, 32, 64))
+MIP_BUDGETS = dict(quad=(1 << 40, 1 << 40), pair=(0, 1 << 40),
+                   block4=(0, 0))
+
+
+def _same_bits(got, want):
+    """Equal NaN masks and equal bits elsewhere (a NaN's payload may
+    differ between the kernel and PyTorch's ops)."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(_bits(got[~nan]), _bits(want[~nan])))
+
+
+def _mip_renderer(tier, taps):
+    from tpurt_torch.app.textures_scene import build_textures_scene
+    from tpurt_torch.engine import Renderer, RendererConfig
+    from tpurt_torch.scene import scene
+
+    saved = scene.MIP_QUAD_BUDGET_BYTES, scene.MIP_PAIR_BUDGET_BYTES
+    try:
+        scene.MIP_QUAD_BUDGET_BYTES, scene.MIP_PAIR_BUDGET_BYTES = \
+            MIP_BUDGETS[tier]
+        r = build_textures_scene(Renderer(RendererConfig(
+            width=96, height=80, mipmaps=True, aniso_taps=taps,
+            device="cuda")), field=MIP_FIELD)
+    finally:
+        scene.MIP_QUAD_BUDGET_BYTES, scene.MIP_PAIR_BUDGET_BYTES = saved
+    assert f"tex_mip_{tier}" in r.scene_device
+    return r
+
+
+@pytest.mark.parametrize("tier", MIP_TIERS)
+def test_mip_texels_kernel_bit_identical(tier):
+    """K9 (csrc/mip_texels.cu) against its plain version on the card in
+    each tier at 1, 4 and 16 taps, on a textured frame's hits with
+    tests/test_torch_texture_sampling.py's edges (every 17th lane a miss,
+    a NaN distance, distances of 0 and 1e30 for LODs under 0 and past the
+    last level, uv = +-1e4): its LOD, its major axis and its texels
+    bit-equal to the torch chain's, one launch per call; the rows K9 reads
+    (mip_texel_rows) equal to the plain version's, and K9 over those rows
+    served by a gather hook bit-equal to K9 over the table, one launch
+    each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels.mip_texels import (mip_texel_rows,
+                                                mip_texel_rows_plain,
+                                                mip_texels, mip_texels_plain)
+    from tpurt_torch.kernels.traverse_bvh8 import trace_closest_bvh8
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import _normalize, cone_spread
+
+    r = _mip_renderer(tier, 1)
+    sc = r.scene_device
+    table, offsets, sizes = (sc[f"tex_mip_{tier}"],
+                             sc[f"tex_mip_{tier}_offsets"],
+                             sc["tex_mip_sizes"])
+    cam, _, _ = _inputs(r)
+    w, h = r.config.width, r.config.height
+    o, d = camera_rays(cam, w, h)
+    hits = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX)
+    hits["tri"][::17] = -1
+    hits["t"][::17] = T_MAX
+    hits["t"][5] = float("nan")
+    hits["t"][6] = 0.0
+    hits["t"][7] = 1e30
+    tri = torch.clamp_min(hits["tri"], 0).long()
+    attr = sc["tri_attr"][tri]
+    u, v = hits["u"][:, None], hits["v"][:, None]
+    wgt = 1.0 - u - v
+    uv = attr[:, 3:5] * wgt + attr[:, 15:17] * u + attr[:, 27:29] * v
+    uv[1:5] = torch.tensor([[1e4, -1e4], [-1e4, 1e4], [1e4, 1e4],
+                            [-1e4, -1e4]], device=uv.device)
+    normal = _normalize(attr[:, 5:8] * wgt + attr[:, 17:20] * u
+                        + attr[:, 29:32] * v)
+    spread = cone_spread(cam, h)
+    served = []
+
+    def gather(flat):
+        served.append(flat.numel())
+        return table[flat]
+
+    for taps in MIP_TAPS:
+        lanes = (hits["t"], d, normal, attr, uv, spread, taps)
+        build.reset_counts()
+        got, lod, duv = mip_texels(tier, table, offsets, sizes, *lanes,
+                                   footprint=True)
+        assert build.launch_counts == _counts(mip_texels=1)
+        want, want_lod, want_duv = mip_texels_plain(
+            tier, table, offsets, sizes, *lanes, footprint=True)
+        assert _same_bits(lod, want_lod), (tier, taps, "lod")
+        assert float(lod[6]) < 0 and float(lod[7]) > sizes.shape[1]
+        if taps > 1:
+            assert _same_bits(duv, want_duv), (tier, taps, "duv")
+        assert bool(torch.isnan(got[5]).all())
+        assert _same_bits(got, want), (tier, taps, "texels")
+        build.reset_counts()
+        rows = mip_texel_rows(tier, offsets, sizes, *lanes)
+        assert build.launch_counts == _counts(mip_texel_rows=1)
+        assert torch.equal(rows, mip_texel_rows_plain(
+            tier, offsets, sizes, *lanes)), (tier, taps, "rows")
+        build.reset_counts()
+        served.clear()
+        through = mip_texels(tier, None, offsets, sizes, *lanes,
+                             gather=gather)
+        assert build.launch_counts == _counts(mip_texels=1,
+                                              mip_texel_rows=1)
+        assert served == [rows.numel()]
+        assert _same_bits(through, got), (tier, taps, "gathered")
+
+
+@pytest.mark.parametrize("tier", MIP_TIERS)
+def test_textured_frame_with_k9_equals_the_torch_chain(tier, monkeypatch):
+    """A textured render() frame with K9 against the same frame with the
+    torch chain in its place, at 1 and 16 taps: every output bit-equal;
+    K9 launches once per frame beside K1, K2 per shadow light, K8a, K8b,
+    K3h, K3 and K4 once each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels import mip_texels as k9
+    from tpurt_torch.passes import shade
+
+    for taps in (1, 16):
+        r = _mip_renderer(tier, taps)
+        shadow = r.stats()["shadow_casting_lights"]
+        r.render()
+        torch.cuda.synchronize()
+        build.reset_counts()
+        got = r.render_passes(r.noise_index)
+        torch.cuda.synchronize()
+        assert build.launch_counts == _counts(
+            bvh8_closest=1, bvh8_any=shadow, gtao_noise=1, gtao_main=1,
+            gtao_denoise=1, mip_texels=1, **SHADE_LIGHTS), build.launch_counts
+        with monkeypatch.context() as m:
+            m.setattr(shade, "mip_texels", k9.mip_texels_plain)
+            build.reset_counts()
+            want = r.render_passes(r.noise_index)
+            assert build.launch_counts["mip_texels"] == 0
+        assert float((got["image"].amax(-1) > 0).float().mean()) > 0.3
+        for key in ("image", "color", "depth", "normal", "ao"):
+            assert torch.equal(_bits(got[key]), _bits(want[key])), (
+                tier, taps, key)

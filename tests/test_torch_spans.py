@@ -6,7 +6,10 @@ under its parent (``shade.*`` inside ``shade``, ``sync.noise`` inside
 ``gtao``, the uploads' ``sync.*`` outside every step; ``shade.lights``
 twice per shade call, ``shade.shadow`` once per light or fused trace), in
 the plain frame, the fused-shadow frame and at spp 2, with the outputs of
-the frame without a hook bit for bit; a moved camera uploads its five
+the frame without a hook bit for bit; ``shade.texels`` (the texel fetch,
+inside ``shade.surface``) once per shade call on a mip scene (the cut
+textures workload, 1 and 4 taps, spp 1 and 2) and never on the bench
+scene; a moved camera uploads its five
 tensors each inside ``sync.camera`` and a still one none; the sharded
 hooks' shadow traces run inside ``shade.shadow``; with the profiler off
 the default step is one shared null context, and under ``torch.profiler``
@@ -22,8 +25,11 @@ import torch
 
 SIZE = 32
 LIGHTS = 3
-PARENT = {"shade.surface": "shade", "shade.lights": "shade",
-          "shade.shadow": "shade", "sync.noise": "gtao"}
+PARENT = {"shade.surface": "shade", "shade.texels": "shade.surface",
+          "shade.lights": "shade", "shade.shadow": "shade",
+          "sync.noise": "gtao"}
+# the cut textures workload (tests/test_torch_mip_frame.py's)
+FIELD = dict(nx=3, nz=3, subdiv=2, spacing=1.0, extents=(16, 32, 64))
 KEYS = ("image", "color", "depth", "normal", "ao")
 
 
@@ -93,18 +99,45 @@ def test_spans_in_order_under_their_parents(frame):
     rec = Recorder()
     got = run(r, 3, rec.step)
     names = rec.names()
-    assert _first_seen(names) == list(SPANS)
+    # the bench scene has no mips: no texel fetch
+    assert _first_seen(names) == [n for n in SPANS if n != "shade.texels"]
     assert [n for n in names if n in STEPS] == list(STEPS)
     for name, parent in rec.entered:
         assert parent == PARENT.get(name), (name, parent)
     counts = rec.counts()
     assert counts["shade"] == 1 and counts["shade.surface"] == spp
+    assert counts["shade.texels"] == 0
     assert counts["shade.lights"] == spp * 2
     assert counts["shade.shadow"] == spp * (1 if frame == "fused"
                                             else LIGHTS)
     assert counts["sync.camera"] == 5 and counts["sync.noise"] == 1
     assert counts["sync.gtao"] == 2
     out = run(r, 3, lambda name: contextlib.nullcontext())
+    for key in KEYS:
+        assert torch.equal(got[key], out[key]), key
+
+
+@pytest.mark.parametrize("spp,taps", [(1, 1), (2, 4)])
+def test_texel_span_once_per_shade_call_on_a_mip_scene(spp, taps):
+    """On a mip scene the texel fetch runs inside shade.texels, a child
+    of shade.surface, once per shade() call, and every span keeps SPANS'
+    order."""
+    from tpurt_torch.app.textures_scene import build_textures_scene
+    from tpurt_torch.engine import Renderer, RendererConfig
+    from tpurt_torch.engine.frame import SPANS
+
+    r = build_textures_scene(Renderer(RendererConfig(
+        width=SIZE, height=SIZE, spp=spp, mipmaps=True, aniso_taps=taps,
+        device="cpu")), field=FIELD)
+    assert "tex_mip_sizes" in r.scene_device
+    rec = Recorder()
+    got = r.render_passes(2, rec.step)
+    assert _first_seen(rec.names()) == list(SPANS)
+    for name, parent in rec.entered:
+        assert parent == PARENT.get(name), (name, parent)
+    counts = rec.counts()
+    assert counts["shade.texels"] == counts["shade.surface"] == spp
+    out = r.render_passes(2)
     for key in KEYS:
         assert torch.equal(got[key], out[key]), key
 

@@ -235,13 +235,66 @@ def refusal_worker(rank, world, port):
         dist.destroy_process_group()
 
 
+# the cuda worker's frames: (case, RendererConfig kwargs, the mip tier
+# forced); the mip frame's texel rows come through ring_gather to K9. The
+# sharded-geometry frame samples one tap, as tpurt's (it takes no
+# aniso_taps); K9 over the ring's rows is also held at RING_TAPS
+CUDA_CASES = (("default", {}, None),
+              ("mip_pair", dict(mipmaps=True), "pair"))
+RING_TAPS = (1, 4)
+
+
+def _texels_through_ring(r, pt, tier, chunks, quad_chunk, mesh, rank,
+                         world, w, h, taps):
+    """K9 at `taps` taps on the band's camera hits over the host tables
+    `pt` (which the rank's scene addresses; the renderer's own rows sit in
+    its arena) against K9 over the rows ring_gather serves: True when
+    bit-equal (NaN where NaN)."""
+    from tpurt_torch.dist.geometry import ring_gather
+    from tpurt_torch.kernels.mip_texels import mip_texels
+    from tpurt_torch.kernels.traverse_bvh8 import trace_closest_bvh8
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+    from tpurt_torch.passes.shade import _normalize, cone_spread
+
+    band = h // world
+    cam, _, _ = r._frame_inputs()
+    o, d = camera_rays(cam, w, h, rank * band, band)
+    hits = trace_closest_bvh8(r.scene_device, o, d, T_MIN, T_MAX,
+                              height=band, width=w)
+    dev = d.device
+
+    def table(key):
+        return torch.from_numpy(pt[key]).to(dev)
+
+    attr = table("tri_attr")[torch.clamp_min(hits["tri"], 0).long()]
+    u, v = hits["u"][:, None], hits["v"][:, None]
+    wgt = 1.0 - u - v
+    uv = attr[:, 3:5] * wgt + attr[:, 15:17] * u + attr[:, 27:29] * v
+    normal = _normalize(attr[:, 5:8] * wgt + attr[:, 17:20] * u
+                        + attr[:, 29:32] * v)
+    args = (table(f"tex_mip_{tier}_offsets"), table("tex_mip_sizes"),
+            hits["t"], d, normal, attr, uv, cone_spread(cam, h), taps)
+    direct = mip_texels(tier, table(f"tex_mip_{tier}"), *args)
+    ring = mip_texels(tier, None, *args, gather=lambda f: ring_gather(
+        chunks["quad_rows"], quad_chunk, f, mesh))
+    nan = torch.isnan(direct)
+    return bool(torch.equal(torch.isnan(ring), nan)
+                and torch.equal(ring[~nan].view(torch.int32),
+                                direct[~nan].view(torch.int32)))
+
+
 def cuda_worker(rank, world, port, out_dir):
-    """On the card (cuda:0, gloo ranks): the "bvh8" ring frame of a 96x80
-    cut bench scene against render(); each rank launches K1 and K5 once
-    per shard, K3h, K3 over its band and K4 once, and no K2. Rank 0 writes
-    each output's mask of differing pixels."""
+    """On the card (cuda:0, gloo ranks): the "bvh8" ring frames of a 96x80
+    cut bench scene (CUDA_CASES) against render(); each rank launches K1
+    and K5 once per shard, K3h, K3 over its band and K4 once, and no K2;
+    on the mip scene K9's rows and K9 once, and K9 over the ring's rows
+    equals K9 over the table on the band's hits at RING_TAPS taps. Rank 0
+    writes each case's masks of differing pixels per output and the
+    launches' and texels' verdicts; a rank records a failed check there
+    rather than raising, so that every rank reaches every collective."""
     import torch.distributed as dist
 
+    import tpurt_torch.scene.scene as scene_mod
     from tpurt_torch.app.bench_scene import build_bench_scene
     from tpurt_torch.dist import (freeze_meta, gather_frame, make_mesh,
                                   rank_tensors,
@@ -255,31 +308,48 @@ def cuda_worker(rank, world, port, out_dir):
     try:
         mesh = make_mesh(device_type="cuda")
         w, h = 96, 80
-        r = build_bench_scene(Renderer(RendererConfig(
-            width=w, height=h, device="cuda")),
-            field=dict(nx=4, nz=4, subdiv=3), cubes=4)
-        want = r.render_passes(0)
-        pt = r.scene.as_pytree()
-        tbl, meta = shard_tables(pt, world)
-        sc, shard, chunks = rank_tensors(
-            pt, shard_geometry(pt, world, "bvh8"), tbl, rank, "cuda")
-        cam, lights, gtao = r._frame_inputs()
-        build.reset_counts()
-        band = render_frame_sharded_geometry(
-            sc, shard, cam, lights, gtao, r._lpm, 0, width=w, height=h,
-            gtao_settings=r.config.gtao, mesh=mesh, tables="bvh8",
-            shade_tables=chunks, meta=freeze_meta(meta))
-        launched = {k: v for k, v in build.launch_counts.items() if v}
-        assert launched == dict(bvh8_closest=world, bvh8_any_multi=world,
-                                gtao_noise=1, gtao_main_band=1,
-                                gtao_denoise=1, shade_light_rays=1,
-                                shade_light_sum=1), launched
-        got = gather_frame(band, mesh)
-        off = {k: (got[k] != want[k]).reshape(h, w, -1).any(-1).cpu()
-               for k in want}
+        saved = {}
+        for case, config, tier in CUDA_CASES:
+            old = scene_mod.MIP_QUAD_BUDGET_BYTES
+            if tier == "pair":
+                scene_mod.MIP_QUAD_BUDGET_BYTES = 0
+            try:
+                r = build_bench_scene(Renderer(RendererConfig(
+                    width=w, height=h, device="cuda", **config)),
+                    field=dict(nx=4, nz=4, subdiv=3), cubes=4)
+            finally:
+                scene_mod.MIP_QUAD_BUDGET_BYTES = old
+            want = r.render_passes(0)
+            pt = r.scene.as_pytree()
+            tbl, meta = shard_tables(pt, world)
+            sc, shard, chunks = rank_tensors(
+                pt, shard_geometry(pt, world, "bvh8"), tbl, rank, "cuda")
+            cam, lights, gtao = r._frame_inputs()
+            build.reset_counts()
+            band = render_frame_sharded_geometry(
+                sc, shard, cam, lights, gtao, r._lpm, 0, width=w, height=h,
+                gtao_settings=r.config.gtao, mesh=mesh, tables="bvh8",
+                shade_tables=chunks, meta=freeze_meta(meta))
+            launched = {k: v for k, v in build.launch_counts.items() if v}
+            texels = {} if tier is None else dict(mip_texel_rows=1,
+                                                  mip_texels=1)
+            launches_ok = launched == dict(
+                bvh8_closest=world, bvh8_any_multi=world, gtao_noise=1,
+                gtao_main_band=1, gtao_denoise=1, shade_light_rays=1,
+                shade_light_sum=1, **texels)
+            got = gather_frame(band, mesh)
+            saved.update({f"{case}/{k}": (got[k] != want[k]).reshape(
+                h, w, -1).any(-1).cpu().numpy() for k in want})
+            ok = torch.tensor([launches_ok, tier is None or all(
+                _texels_through_ring(r, pt, tier, chunks,
+                                     freeze_meta(meta)[1], mesh, rank,
+                                     world, w, h, taps)
+                for taps in RING_TAPS)], dtype=torch.int32)
+            dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+            saved[f"{case}/ok_launches"] = np.array(bool(ok[0]))
+            saved[f"{case}/ok_texels"] = np.array(bool(ok[1]))
         if rank == 0:
-            np.savez(os.path.join(out_dir, "cuda.npz"),
-                     **{k: v.numpy() for k, v in off.items()})
+            np.savez(os.path.join(out_dir, "cuda.npz"), **saved)
         dist.barrier()
     finally:
         dist.destroy_process_group()

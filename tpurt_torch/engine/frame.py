@@ -11,7 +11,8 @@ Each pass runs inside ``step(name)``, a context manager the caller may
 pass: ``rays``, ``trace``, ``shade``, ``quantize_color``,
 ``quantize_depth_normal``, ``gtao``, ``tonemap``, in that order
 (``STEPS``). The same hook is the program's span API: inside the steps,
-shade enters ``shade.surface``, ``shade.lights`` and ``shade.shadow``
+shade enters ``shade.surface`` (on a mip scene with its child
+``shade.texels``, the texel fetch), ``shade.lights`` and ``shade.shadow``
 (``passes/shade.py``), and every host-to-device copy on ``render()``'s
 path, which synchronises the stream, runs inside a ``sync.*`` span:
 ``sync.camera``, ``sync.lights``, ``sync.gtao`` (``Renderer``'s uploads of
@@ -65,11 +66,13 @@ STEPS = ("rays", "trace", "shade", "quantize_color", "quantize_depth_normal",
 # every span of the static frame (``render_passes``), in the order each is
 # first entered: the sync.* uploads of the camera, light and GTAO-constant
 # tensors run only when their host values changed; shade.lights runs
-# twice per shade call (the light-ray pre-pass and the lights' sum) and
-# shade.shadow once per light (once for a fused trace)
+# twice per shade call (the light-ray pre-pass and the lights' sum),
+# shade.shadow once per light (once for a fused trace) and shade.texels
+# once per shade call on a mip scene only
 SPANS = ("sync.camera", "sync.lights", "sync.gtao", "rays", "trace", "shade",
-         "shade.surface", "shade.lights", "shade.shadow", "quantize_color",
-         "quantize_depth_normal", "gtao", "sync.noise", "tonemap")
+         "shade.surface", "shade.texels", "shade.lights", "shade.shadow",
+         "quantize_color", "quantize_depth_normal", "gtao", "sync.noise",
+         "tonemap")
 
 
 def no_gather(x):

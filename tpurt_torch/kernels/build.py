@@ -55,7 +55,10 @@ launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_noise": 0,
                  "bvh8_closest_uvp": 0, "bvh8_closest_steps": 0,
                  "bvh8_any_steps": 0, "trans_equiv": 0,
                  # K8a and K8b, shade's light loop (kernels/shade_lights.py)
-                 "shade_light_rays": 0, "shade_light_sum": 0}
+                 "shade_light_rays": 0, "shade_light_sum": 0,
+                 # K9, a mip scene's texel fetch (kernels/mip_texels.py),
+                 # and the rows it reads where a gather hook serves them
+                 "mip_texels": 0, "mip_texel_rows": 0}
 
 _LOCK = threading.Lock()
 _LIB = None

@@ -16,11 +16,14 @@ albedo, ORM and normal-map texels, all three layers at once:
   the one ``flatten_scene`` ships) trilinearly at the ray-cone LOD of the
   primary ray (``ray_cone_lod``), or with ``aniso_taps > 1`` taps along
   the cone's elliptical footprint (``ray_cone_aniso``), tpurt
-  ``shade.py:616-694``. It reads no uv payload, as tpurt takes this
-  branch first. The per-layer atlas's samplers (``sample_trilinear``,
-  ``sample_anisotropic``) and ``sample_bilinear`` over the padded stack
-  are the plain definitions the tiers and the quad rows are held to; no
-  frame reads them.
+  ``shade.py:616-694``: on the card one launch of K9
+  (``kernels/mip_texels.mip_texels``) for the footprint and every tap
+  (two where the sharded-geometry ``gather=`` hook serves the rows), on
+  CPU tensors the tier samplers below. It reads no uv payload, as tpurt
+  takes this branch first. The per-layer atlas's samplers
+  (``sample_trilinear``, ``sample_anisotropic``) and
+  ``sample_bilinear`` over the padded stack are the plain definitions the
+  tiers and the quad rows are held to; no frame reads them.
 
 Every gather index is in range by construction, as tpurt's arithmetic
 makes it: texel coordinates wrap by ``torch.remainder`` with the level's
@@ -56,6 +59,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels.mip_texels import mip_texels
 from ..kernels.shade_lights import light_rays, light_sum
 from ..kernels.traverse_bvh2 import trace_any_bvh2
 from ..kernels.traverse_bvh8 import trace_any_bvh8, trace_any_bvh8_multi
@@ -357,7 +361,12 @@ def _texel_density(p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h):
     edges e1, e2 and uv edges duv1, duv2."""
     e1 = p1 - p0
     e2 = p2 - p0
-    world_area = 0.5 * _norm(torch.linalg.cross(e1, e2))[:, 0]
+    # the cross product as products and one difference per component, the
+    # same roundings on every device (a library kernel may fuse them)
+    cross = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                         e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                         e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], -1)
+    world_area = 0.5 * _norm(cross)[:, 0]
     duv1 = uv1 - uv0
     duv2 = uv2 - uv0
     uv_area = 0.5 * torch.abs(duv1[:, 0] * duv2[:, 1]
@@ -418,40 +427,26 @@ def ray_cone_aniso(t, direction, N, p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h,
     return lod_minor, duv_major
 
 
-# the mip tiers a scene may ship, in tpurt's order of precedence, with
-# their trilinear and anisotropic samplers (all three layers at once)
-_MIP_TIERS = (
-    ("tex_mip_block4", sample_trilinear_block4, sample_anisotropic_block4),
-    ("tex_mip_pair", sample_trilinear_pair, sample_anisotropic_pair),
-    ("tex_mip_quad", sample_trilinear_quad, sample_anisotropic_quad),
-)
+# the mip tiers a scene may ship, in tpurt's order of precedence
+_MIP_TIERS = ("block4", "pair", "quad")
 
 
-def _mip_texels(scene, hits, direction, prim, corners, uvs, world_normal,
-                tex_coord, spread, aniso_taps: int, gather=None):
+def _mip_texels(scene, hits, direction, attr, world_normal, tex_coord,
+                spread, aniso_taps: int, gather=None):
     """The three layers (N, 12) through the scene's mip tier at the
     ray-cone LOD (tpurt ``shade.py:616-694``): anisotropic with
-    aniso_taps > 1, else trilinear. Extents come from level 0 of the hit
-    primitive's chain. The tier is the one whose offsets the scene holds;
-    with `gather` its rows come from there and the scene need not hold
-    the table."""
-    sizes = scene["tex_mip_sizes"]
-    tex_hw = sizes[prim.long(), 0].to(torch.float32)
-    cone = (hits["t"], direction, world_normal, *corners, *uvs,
-            tex_hw[:, 1], tex_hw[:, 0], spread)
-    if aniso_taps > 1:
-        lod, duv = ray_cone_aniso(*cone, max_aniso=16)
-    else:
-        lod, duv = ray_cone_lod(*cone), None
-    key, trilinear, anisotropic = next(t for t in _MIP_TIERS
-                                       if t[0] + "_offsets" in scene)
-    table = scene[key] if gather is None else None
-    offsets = scene[key + "_offsets"]
-    if duv is None:
-        return trilinear(table, offsets, sizes, prim, tex_coord, lod,
-                         gather=gather)
-    return anisotropic(table, offsets, sizes, prim, tex_coord, lod, duv,
-                       aniso_taps, gather=gather)
+    aniso_taps > 1, else trilinear, through ``kernels/mip_texels``'s K9
+    (the torch chain on CPU tensors). Extents come from level 0 of the
+    hit primitive's chain, read with its corners and uvs from the
+    ``tri_attr`` rows `attr`. The tier is the one whose offsets the scene
+    holds; with `gather` its rows come from there and the scene need not
+    hold the table."""
+    tier = next(t for t in _MIP_TIERS if f"tex_mip_{t}_offsets" in scene)
+    key = f"tex_mip_{tier}"
+    return mip_texels(tier, scene[key] if gather is None else None,
+                      scene[key + "_offsets"], scene["tex_mip_sizes"],
+                      hits["t"], direction, world_normal, attr, tex_coord,
+                      spread, aniso_taps, gather=gather)
 
 
 def cone_spread(camera: dict, rows: int):
@@ -462,14 +457,15 @@ def cone_spread(camera: dict, rows: int):
 
 def surface(scene: dict, camera: dict, hits: dict, direction=None, *,
             aniso_taps: int = 1, rows: int = 0, attr_rows=None,
-            quad_gather=None, quad_shape=None) -> dict:
+            quad_gather=None, quad_shape=None, step=no_step) -> dict:
     """Reconstruct the shading point of each hit: position, shading normal
     N, view vector V and the material terms. A mip scene (its
     ``tex_mip_sizes``) samples its tier at the ray-cone LOD of the primary
-    rays' `direction`, over an image of `rows` rows, and reads no uv
-    payload (tpurt takes that branch first); otherwise one quad row, from
-    the payload when the trace emitted it. attr_rows, quad_gather and
-    quad_shape are ``shade``'s sharded-table hooks."""
+    rays' `direction`, over an image of `rows` rows, inside the span
+    ``shade.texels``, and reads no uv payload (tpurt takes that branch
+    first); otherwise one quad row, from the payload when the trace
+    emitted it. attr_rows, quad_gather and quad_shape are ``shade``'s
+    sharded-table hooks."""
     tri = hits["tri"]
     valid = tri >= 0
     tidx = torch.clamp_min(tri, 0).long()
@@ -499,10 +495,11 @@ def surface(scene: dict, camera: dict, hits: dict, direction=None, *,
         if direction is None or rows <= 0:
             raise ValueError("a mip scene needs the primary rays' "
                              "direction and the image's rows")
-        packed = _mip_texels(
-            scene, hits, direction, attr[:, 36].to(torch.int32),
-            (p0, p1, p2), (uv0, uv1, uv2), world_normal, tex_coord,
-            cone_spread(camera, rows), aniso_taps, gather=quad_gather)
+        spread = cone_spread(camera, rows)
+        with step("shade.texels"):
+            packed = _mip_texels(scene, hits, direction, attr,
+                                 world_normal, tex_coord, spread,
+                                 aniso_taps, gather=quad_gather)
     else:
         quad = scene["tex_quad"] if quad_gather is None else None
         shape = scene.get("tex_quad_shape") if quad_shape is None \
@@ -593,7 +590,8 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
     t_maxs) -> (S, N) bool, when set, every light's in one call.
 
     step(name) as in ``engine/frame.py``: the surface reconstruction runs
-    inside ``shade.surface``, the light-ray pre-pass (K8a) and the lights'
+    inside ``shade.surface`` (a mip scene's texel fetch inside its child
+    ``shade.texels``), the light-ray pre-pass (K8a) and the lights'
     sum (K8b) inside ``shade.lights`` (twice per call, before and after
     the shadow traces), and each shadow trace call (per light, the fused
     K5 or the sharded hooks) inside ``shade.shadow``; the G-buffer encode
@@ -603,7 +601,7 @@ def shade(scene: dict, camera: dict, lights: dict, hits: dict,
         surf = surface(scene, camera, hits, direction, aniso_taps=aniso_taps,
                        rows=_rows(hits, height, image_rows),
                        attr_rows=attr_rows, quad_gather=quad_gather,
-                       quad_shape=quad_shape)
+                       quad_shape=quad_shape, step=step)
     world_pos = surf["world_pos"]
     with step("shade.lights"):
         # every light's L vector and shadow ray first, so that all shadow
