@@ -233,6 +233,15 @@ once, at 64x64):
            to K9 over the table, and the rows' launch timed beside its
            byte bound. The summary's entries are the workload's tier
            (pair) at 16 taps.
+  phase 17 shade's surface reconstruction (K10: csrc/shade_surface.cu)
+           at each size, after phase 16: on the bench scene's hits (one
+           launch) and on the textures workload's (pair tier, 16 taps:
+           K10's pre-pass and epilogue around K9) against the plain chain
+           (passes/shade.surface_plain) on the card, every output
+           bit-exact, the launches counted; K10 timed (`ms`, `cuda_ms`;
+           on the textures workload with K9's texels given) beside its
+           byte bound and the plain chain's ms. The summary's entry is the
+           bench scene's, the textures workload's under `scenes`.
 
 Phases 12, 13 and 14 run after both sizes' phases 1-11 and 15 and before
 phase 8's device profile (torch.profiler).
@@ -342,17 +351,24 @@ KERNELS = (
      "none (XLA: tpurt/passes/shade.py:616)"),
     ("mip_texel_rows", "tpurt_torch/csrc/mip_texels.cu",
      "none (XLA: tpurt/passes/shade.py:616)"),
+    # K10, shade's surface reconstruction: no TPU kernel, tpurt's is XLA
+    # code
+    ("shade_surface", "tpurt_torch/csrc/shade_surface.cu",
+     "none (XLA: tpurt/passes/shade.py:573)"),
 )
 # the frames whose launches each new kernel's summary entry reports
 VARIANT_OF = {"bvh8_any_multi": "fused", "bvh8_any_multi_pop2": "fused_pop2",
               "bvh8_closest_pop2": "pop2", "bvh8_any_pop2": "pop2",
               "bvh8_closest_uvp": "uvp"}
-ALL_ZERO = {name: 0 for name, _, _ in KERNELS}
+# every counter at 0: the kernels above and K10's epilogue, which phase 17
+# times with K10 (the summary's shade_surface entry)
+ALL_ZERO = dict({name: 0 for name, _, _ in KERNELS}, shade_surface_nmap=0)
 
 
 def shade_calls(n):
-    """K8a's and K8b's launches over n shade() calls of the bench lights."""
-    return dict(shade_light_rays=n, shade_light_sum=n)
+    """K10's, K8a's and K8b's launches over n shade() calls of the bench
+    lights."""
+    return dict(shade_surface=n, shade_light_rays=n, shade_light_sum=n)
 
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) ops/s
@@ -963,6 +979,89 @@ def phase16_texels(label, renderers):
     log(f"[{label}] K9 {card_line()}")
     return dict(mip_texels=dict(out["pair 16"], tiers=out),
                 mip_texel_rows=dict(rows_out["pair 16"], tiers=rows_out))
+
+
+# phase 17: K10's bytes, each read and written once: a pixel's own (the
+# hit in, 12; without mips the seven outputs, 57; on a mip scene the
+# pre-pass's outputs, 229 with the attr row, and the epilogue's K9 texels
+# and TBN in, 84, and its outputs, 32), and the tables each at most once:
+# the tri_attr rows (160 B a row) and, without mips, the quad rows (48 of
+# their 64 B) that the frame's hits read, no more than the whole table
+K10_PIXEL_BYTES = dict(quad=12 + 57, mip=12 + 229 + 84 + 32)
+
+
+def k10_bytes(sc, n, mip):
+    """K10's byte count over n lanes of the scene `sc`."""
+    moved = n * K10_PIXEL_BYTES["mip" if mip else "quad"]
+    moved += min(sc["tri_attr"].numel() * 4, n * 160)
+    if not mip:
+        moved += min(sc["tex_quad"].shape[0] * 48, n * 48)
+    return moved
+
+
+def phase17_surface(r, label, k9_renderers):
+    """K10 (shade's surface reconstruction) against the plain chain on the
+    bench scene (one launch) and on the textures workload (pair tier, 16
+    taps: the pre-pass and the epilogue around K9): every output
+    bit-exact, the launches counted, timed with K9's texels given (K10
+    alone) beside the byte bound (k10_bytes) and the plain chain."""
+    import torch
+
+    from tpurt_torch.kernels.traverse_bvh8 import trace_closest_bvh8
+    from tpurt_torch.passes import shade
+    from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
+
+    w, h = (int(x) for x in label.split("x"))
+    out = {}
+    tex = k9_renderers["pair"]
+    tex.resize(w, h)
+    for name, rr in (("bench43k", r), ("textures", tex)):
+        sc = rr.scene_device
+        cam, _, _ = frame_inputs(rr)
+        o, d = camera_rays(cam, w, h)
+        hits = trace_closest_bvh8(sc, o, d, T_MIN, T_MAX, height=h, width=w)
+        mip = "tex_mip_sizes" in sc
+        kw = (dict(direction=d, rows=h, aniso_taps=rr.config.aniso_taps)
+              if mip else {})
+        want_launches = (dict(shade_surface=1, mip_texels=1,
+                              shade_surface_nmap=1) if mip
+                         else dict(shade_surface=1))
+        fetch = shade._mip_texels
+        texels = []
+
+        def keep(*args, **kwargs):
+            texels.append(fetch(*args, **kwargs))
+            return texels[-1]
+
+        shade._mip_texels = keep
+        try:
+            got = counted_once(lambda: shade.surface(sc, cam, hits, **kw),
+                               want_launches, f"[{label}] K10 {name}")
+            want = shade.surface_plain(sc, cam, hits, **kw)
+            for key in want:
+                require(same_bits(got[key], want[key])
+                        if want[key].is_floating_point()
+                        else torch.equal(got[key], want[key]),
+                        f"[{label}] K10 {name}: {key} differs from the "
+                        f"plain chain")
+            if mip:
+                shade._mip_texels = lambda *args, **kwargs: texels[0]
+            t = kernel_ms(lambda: shade.surface(sc, cam, hits, **kw))
+        finally:
+            shade._mip_texels = fetch
+        moved = k10_bytes(sc, w * h, mip)
+        b_ms, by = bound(moved, 0)
+        t.update(plain_ms=cuda_ms(
+            lambda: shade.surface_plain(sc, cam, hits, **kw), 3),
+            bound_ms=b_ms, bound_by=by, max_abs_err=0.0, bytes=moved,
+            launches=2 if mip else 1)
+        log(f"[{label}] K10 {name}{' (K9 given)' if mip else ''}: "
+            f"{fmt_ms(t)}, bound {b_ms:.4f} ms ({moved / 1e6:.1f} MB, "
+            f"{100 * b_ms / t['ms']:.1f}%), plain chain "
+            f"{t['plain_ms']:.3f} ms; bit-exact")
+        out[name] = t
+    log(f"[{label}] K10 {card_line()}")
+    return dict(shade_surface=dict(out["bench43k"], scenes=out))
 
 
 def phase2(r, label):
@@ -1601,11 +1700,12 @@ def textured_renderer(width, height, device, tier, taps, field=None):
 
 def textured_launches(r, what):
     """One textured frame's launches: K1 once, K2 once per shadow light,
-    K3h, K3, K4, K8a, K8b and K9 once each."""
+    K3h, K3, K4, K8a, K8b, K9, K10 and its epilogue once each."""
     shadow = r.stats()["shadow_casting_lights"]
     counted_once(lambda: r.render_passes(r.noise_index), dict(
         bvh8_closest=1, bvh8_any=shadow, gtao_noise=1, gtao_main=1,
-        gtao_denoise=1, mip_texels=1, **shade_calls(1)),
+        gtao_denoise=1, mip_texels=1, shade_surface_nmap=1,
+        **shade_calls(1)),
         f"[textures] {what}")
 
 
@@ -2619,9 +2719,10 @@ APP_FRAMES = 10
 APP_SPP = 8
 APP_REPLAY_FRAMES = 30
 LIVE_FRAMES = 12
-# K3h, K3 and K4 per app frame (K1 1, K2 one per shadow-casting light)
+# K3h, K3, K4, K10, K8a and K8b per app frame (K1 1, K2 one per
+# shadow-casting light)
 APP_LAUNCHES = dict(gtao_noise=1, gtao_main=1, gtao_denoise=1,
-                    shade_light_rays=1, shade_light_sum=1)
+                    **shade_calls(1))
 
 
 def app_scene_file(tmp):
@@ -3134,13 +3235,15 @@ GRAZE_MAX = 4096
 
 
 def geo_launches(tier, n, lights, whole):
-    """A ring frame's launches per rank: K1 and K5 once per stop ("bvh8"),
-    or K6 closest once and any once per light per stop ("xla"); K3h, K3
-    (over the band, or the whole frame with one rank) and K4 once."""
+    """A ring frame's launches per rank: K1 and K5 once per stop and K10's
+    epilogue once, the texel rows coming from the ring ("bvh8"), or K6
+    closest once and any once per light per stop ("xla"); K3h, K3 (over
+    the band, or the whole frame with one rank), K4 and K10 once."""
     want = dict(ALL_ZERO, gtao_noise=1, gtao_denoise=1, **shade_calls(1))
     want["gtao_main" if whole else "gtao_main_band"] = 1
     if tier == "bvh8":
-        return dict(want, bvh8_closest=n, bvh8_any_multi=n)
+        return dict(want, bvh8_closest=n, bvh8_any_multi=n,
+                    shade_surface_nmap=1)
     return dict(want, bvh2_closest=n, bvh2_any=lights * n)
 
 
@@ -3843,6 +3946,7 @@ def main():
             k["gtao_main_band"] = phase13_band(r, label)
             k.update(phase15_lights(r, label))
             k.update(phase16_texels(label, k9_renderers))
+            k.update(phase17_surface(r, label, k9_renderers))
             if (w, h) == SHAPES[0]:
                 tex = dict(tiers=phase11_tiers(), arena=phase11_arena(r, f),
                            small=phase11_small())

@@ -9,7 +9,8 @@ without one (a CUDA kernel has no CPU mode). Run them on the card with
 the machine with the card need not have.)
 
 Budgets (as chip_smoke.py holds them): K1, K2, K4, K5, K5p, K7a, K7b, K7c,
-K6, K8a, K8b and K9 bit-identical with their plain versions (K8a and
+K6, K8a, K8b, K9 and K10 bit-identical with their plain versions (K10,
+shade's surface, in tests/test_torch_surface.py; K8a and
 K8b, shade's light loop, on every light set of tests/torch_light_cases.py;
 K9, the texel fetch, in every tier at 1, 4 and 16 taps with its
 footprint, over the table and over rows a gather hook serves, and a
@@ -41,8 +42,9 @@ import torch
 pytestmark = pytest.mark.gpu
 
 
-# shade's light loop per shade() call: K8a and K8b once each
-SHADE_LIGHTS = dict(shade_light_rays=1, shade_light_sum=1)
+# per shade() call: K10 (the surface) and shade's light loop, K8a and K8b,
+# once each
+SHADE_CALL = dict(shade_surface=1, shade_light_rays=1, shade_light_sum=1)
 
 
 def _counts(**nonzero):
@@ -137,7 +139,7 @@ def test_frame_on_card_matches_host(cuda_frame):
     img_gpu = r.render_image()
     assert build.launch_counts == _counts(bvh8_closest=1, bvh8_any=3,
                                           gtao_noise=1, gtao_main=1,
-                                          gtao_denoise=1, **SHADE_LIGHTS)
+                                          gtao_denoise=1, **SHADE_CALL)
     img_cpu = host.render_image()
     # the host's pow/cos/log2 come from another math library than the
     # card's: a sample can move to another mip or a shading term by an ulp
@@ -231,8 +233,9 @@ def test_k6_bit_identical(cuda_frame):
                                           height=h, width=w), want)
         assert torch.equal(trace_any_bvh2(sc, so, sd, SHADOW_T_MIN, stmax),
                            want)
-    # shadow_rays' light-ray pre-pass: K8a once
-    assert build.launch_counts == _counts(bvh2_any=6, shade_light_rays=1)
+    # shadow_rays' surface and light-ray pre-pass: K10 and K8a once
+    assert build.launch_counts == _counts(bvh2_any=6, shade_surface=1,
+                                          shade_light_rays=1)
 
 
 def test_k6_over_sah_trees_and_soups(cuda_frame):
@@ -295,9 +298,9 @@ def test_dynamic_frames_on_card_match_host(cuda_frame):
         field=dict(nx=4, nz=4, subdiv=3), cubes=4)
     t = _dynamic_inputs(r)[0]
     want = {True: _counts(bvh8_closest=1, bvh8_any=3, gtao_noise=1,
-                          gtao_main=1, gtao_denoise=1, **SHADE_LIGHTS),
+                          gtao_main=1, gtao_denoise=1, **SHADE_CALL),
             False: _counts(gtao_noise=1, gtao_main=1, gtao_denoise=1,
-                           bvh2_closest=1, bvh2_any=3, **SHADE_LIGHTS)}
+                           bvh2_closest=1, bvh2_any=3, **SHADE_CALL)}
     for refit in (True, False):
         host._frame_idx = r._frame_idx
         build.reset_counts()
@@ -361,11 +364,12 @@ def test_pop2_and_payload_kernels_bit_identical(cuda_frame):
                            want)
         assert torch.equal(want, trace_any_plain(sc, so, sd, SHADOW_T_MIN,
                                                  stmax))
-    # shadow_rays' light-ray pre-pass: K8a once
+    # shadow_rays' surface and light-ray pre-pass: K10 and K8a once
     assert build.launch_counts == _counts(bvh8_closest=1,
                                           bvh8_closest_pop2=2,
                                           bvh8_closest_uvp=2,
                                           bvh8_any_pop2=6,
+                                          shade_surface=1,
                                           shade_light_rays=1)
 
 
@@ -484,14 +488,14 @@ def test_variant_frames_on_card(cuda_frame):
 
     base = render()["image"]
     cases = [("uvp", dict(UVP_DEFAULT=True), render,
-              _counts(bvh8_closest_uvp=1, bvh8_any=3, **SHADE_LIGHTS)),
+              _counts(bvh8_closest_uvp=1, bvh8_any=3, **SHADE_CALL)),
              ("fused", {}, fused, _counts(bvh8_closest=1, bvh8_any_multi=1,
-                                          **SHADE_LIGHTS)),
+                                          **SHADE_CALL)),
              ("pop2", dict(POP2_DEFAULT=True), render,
-              _counts(bvh8_closest_pop2=1, bvh8_any_pop2=3, **SHADE_LIGHTS)),
+              _counts(bvh8_closest_pop2=1, bvh8_any_pop2=3, **SHADE_CALL)),
              ("fused_pop2", dict(POP2_DEFAULT=True), fused,
               _counts(bvh8_closest_pop2=1, bvh8_any_multi_pop2=1,
-                      **SHADE_LIGHTS))]
+                      **SHADE_CALL))]
     for name, flags, frame, want in cases:
         try:
             for k, val in flags.items():
@@ -708,7 +712,8 @@ def test_profiler_and_stream_on_card(cuda_frame):
     # one untimed and two timed frames of render()'s launches
     assert build.launch_counts == _counts(bvh8_closest=3, bvh8_any=9,
                                           gtao_noise=3, gtao_main=3,
-                                          gtao_denoise=3, shade_light_rays=3,
+                                          gtao_denoise=3, shade_surface=3,
+                                          shade_light_rays=3,
                                           shade_light_sum=3)
     assert list(stats.ms_per_pass) == ["rays", "trace", "shade+shadows",
                                        "gtao", "tonemap"]
@@ -1198,7 +1203,8 @@ def test_shade_light_kernels_bit_identical(cuda_frame, case):
         assert torch.equal(_bits(rho), _bits(want)), n
     build.reset_counts()
     got = shade(sc, cam, lights, hits)
-    assert build.launch_counts == _counts(bvh8_any=s, shade_light_rays=1,
+    assert build.launch_counts == _counts(bvh8_any=s, shade_surface=1,
+                                          shade_light_rays=1,
                                           shade_light_sum=sums)
     plain = light_rays_plain(whole["world_pos"], whole["N"], whole["valid"],
                              lights)
@@ -1363,8 +1369,8 @@ def test_mip_texels_kernel_bit_identical(tier):
 def test_textured_frame_with_k9_equals_the_torch_chain(tier, monkeypatch):
     """A textured render() frame with K9 against the same frame with the
     torch chain in its place, at 1 and 16 taps: every output bit-equal;
-    K9 launches once per frame beside K1, K2 per shadow light, K8a, K8b,
-    K3h, K3 and K4 once each."""
+    K9 launches once per frame beside K1, K2 per shadow light, K10 and
+    its epilogue, K8a, K8b, K3h, K3 and K4 once each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from tpurt_torch.kernels import build
@@ -1381,7 +1387,8 @@ def test_textured_frame_with_k9_equals_the_torch_chain(tier, monkeypatch):
         torch.cuda.synchronize()
         assert build.launch_counts == _counts(
             bvh8_closest=1, bvh8_any=shadow, gtao_noise=1, gtao_main=1,
-            gtao_denoise=1, mip_texels=1, **SHADE_LIGHTS), build.launch_counts
+            gtao_denoise=1, mip_texels=1, shade_surface_nmap=1,
+            **SHADE_CALL), build.launch_counts
         with monkeypatch.context() as m:
             m.setattr(shade, "mip_texels", k9.mip_texels_plain)
             build.reset_counts()

@@ -13,7 +13,10 @@ scene; a moved camera uploads its five
 tensors each inside ``sync.camera`` and a still one none; the sharded
 hooks' shadow traces run inside ``shade.shadow``; with the profiler off
 the default step is one shared null context, and under ``torch.profiler``
-the frame's Chrome trace holds the spans as user annotations.
+the frame's Chrome trace holds the spans as user annotations. On the card
+(marked ``gpu``, skipped without one), by the launch counter inside each
+span: ``shade.surface`` holds K10 alone on the bench scene, and K10, K9
+(inside ``shade.texels``) and K10's epilogue on a mip scene.
 """
 import collections
 import contextlib
@@ -228,3 +231,47 @@ def test_profiled_frame_holds_the_spans(tmp_path):
     assert spans["shade.shadow"] == LIGHTS
     for key in KEYS:
         assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scene", ["bench", "mip"])
+def test_surface_span_launches_on_the_card(scene):
+    """On the card, by the launch counter inside each span of one
+    render_passes frame: shade.surface holds K10 alone on the bench scene
+    (no child span) and K10, K9 and K10's epilogue on a mip scene, K9
+    inside its child shade.texels; one shade() call each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpurt_torch.app.bench_scene import build_bench_scene
+    from tpurt_torch.app.textures_scene import build_textures_scene
+    from tpurt_torch.engine import Renderer, RendererConfig
+    from tpurt_torch.kernels import build
+
+    if scene == "bench":
+        r = build_bench_scene(Renderer(RendererConfig(
+            width=96, height=80, device="cuda")),
+            field=dict(nx=2, nz=2, subdiv=1), cubes=2)
+    else:
+        r = build_textures_scene(Renderer(RendererConfig(
+            width=96, height=80, mipmaps=True, aniso_taps=4,
+            device="cuda")), field=FIELD)
+    r.render_passes(0)
+    inside = collections.defaultdict(collections.Counter)
+
+    @contextlib.contextmanager
+    def step(name):
+        before = dict(build.launch_counts)
+        yield
+        inside[name].update({k: v - before[k] for k, v in
+                             build.launch_counts.items() if v != before[k]})
+
+    r.render_passes(1, step)
+    torch.cuda.synchronize()
+    if scene == "bench":
+        assert inside["shade.surface"] == dict(shade_surface=1)
+        assert "shade.texels" not in inside
+    else:
+        assert inside["shade.surface"] == dict(
+            shade_surface=1, mip_texels=1, shade_surface_nmap=1)
+        assert inside["shade.texels"] == dict(mip_texels=1)
+    assert inside["shade"]["shade_surface"] == 1

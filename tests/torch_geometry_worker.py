@@ -286,7 +286,8 @@ def _texels_through_ring(r, pt, tier, chunks, quad_chunk, mesh, rank,
 def cuda_worker(rank, world, port, out_dir):
     """On the card (cuda:0, gloo ranks): the "bvh8" ring frames of a 96x80
     cut bench scene (CUDA_CASES) against render(); each rank launches K1
-    and K5 once per shard, K3h, K3 over its band and K4 once, and no K2;
+    and K5 once per shard, K10 and its epilogue, K3h, K3 over its band and
+    K4 once, and no K2;
     on the mip scene K9's rows and K9 once, and K9 over the ring's rows
     equals K9 over the table on the band's hits at RING_TAPS taps. Rank 0
     writes each case's masks of differing pixels per output and the
@@ -336,7 +337,8 @@ def cuda_worker(rank, world, port, out_dir):
             launches_ok = launched == dict(
                 bvh8_closest=world, bvh8_any_multi=world, gtao_noise=1,
                 gtao_main_band=1, gtao_denoise=1, shade_light_rays=1,
-                shade_light_sum=1, **texels)
+                shade_light_sum=1, shade_surface=1, shade_surface_nmap=1,
+                **texels)
             got = gather_frame(band, mesh)
             saved.update({f"{case}/{k}": (got[k] != want[k]).reshape(
                 h, w, -1).any(-1).cpu().numpy() for k in want})

@@ -58,7 +58,12 @@ launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_noise": 0,
                  "shade_light_rays": 0, "shade_light_sum": 0,
                  # K9, a mip scene's texel fetch (kernels/mip_texels.py),
                  # and the rows it reads where a gather hook serves them
-                 "mip_texels": 0, "mip_texel_rows": 0}
+                 "mip_texels": 0, "mip_texel_rows": 0,
+                 # K10, shade's surface reconstruction (kernels/
+                 # shade_surface.py): the kernel or pre-pass once per
+                 # shade() call, the epilogue where K9 or a hook's rows
+                 # come between
+                 "shade_surface": 0, "shade_surface_nmap": 0}
 
 _LOCK = threading.Lock()
 _LIB = None

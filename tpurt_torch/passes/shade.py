@@ -25,6 +25,12 @@ albedo, ORM and normal-map texels, all three layers at once:
   ``sample_bilinear`` over the padded stack are the plain definitions the
   tiers and the quad rows are held to; no frame reads them.
 
+On the card the whole reconstruction, from the ``tri_attr`` row to the
+material terms, is K10 (``kernels/shade_surface``): one launch without
+mips, a pre-pass and an epilogue around K9 on a mip scene or around the
+``quad_gather`` hook's rows; on CPU tensors ``surface_plain``, the torch
+chain below, bit-equal to it.
+
 Every gather index is in range by construction, as tpurt's arithmetic
 makes it: texel coordinates wrap by ``torch.remainder`` with the level's
 extent, LODs clamp to [0, L-1] (a NaN LOD, only from non-finite inputs,
@@ -61,6 +67,7 @@ import torch
 
 from ..kernels.mip_texels import mip_texels
 from ..kernels.shade_lights import light_rays, light_sum
+from ..kernels.shade_surface import shade_surface
 from ..kernels.traverse_bvh2 import trace_any_bvh2
 from ..kernels.traverse_bvh8 import trace_any_bvh8, trace_any_bvh8_multi
 from ..utils.spans import no_step
@@ -356,17 +363,20 @@ def sample_anisotropic_block4(b4, boffsets, sizes, prim, uv, lod_minor,
         duv_major, taps)
 
 
+def _cross(a, b):
+    """a x b of (N, 3) rows as products and one difference per component:
+    the same roundings on every device (a library kernel may fuse them)."""
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], -1)
+
+
 def _texel_density(p0, p1, p2, uv0, uv1, uv2, tex_w, tex_h):
     """Texels per world unit of a triangle's texture mapping, and its
     edges e1, e2 and uv edges duv1, duv2."""
     e1 = p1 - p0
     e2 = p2 - p0
-    # the cross product as products and one difference per component, the
-    # same roundings on every device (a library kernel may fuse them)
-    cross = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
-                         e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
-                         e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], -1)
-    world_area = 0.5 * _norm(cross)[:, 0]
+    world_area = 0.5 * _norm(_cross(e1, e2))[:, 0]
     duv1 = uv1 - uv0
     duv2 = uv2 - uv0
     uv_area = 0.5 * torch.abs(duv1[:, 0] * duv2[:, 1]
@@ -465,7 +475,20 @@ def surface(scene: dict, camera: dict, hits: dict, direction=None, *,
     ``shade.texels``, and reads no uv payload (tpurt takes that branch
     first); otherwise one quad row, from the payload when the trace
     emitted it. attr_rows, quad_gather and quad_shape are ``shade``'s
-    sharded-table hooks."""
+    sharded-table hooks. On the card K10 (``kernels/shade_surface``), on
+    CPU tensors :func:`surface_plain`."""
+    return shade_surface(scene, camera, hits, direction,
+                         aniso_taps=aniso_taps, rows=rows,
+                         attr_rows=attr_rows, quad_gather=quad_gather,
+                         quad_shape=quad_shape, step=step)
+
+
+def surface_plain(scene: dict, camera: dict, hits: dict, direction=None, *,
+                  aniso_taps: int = 1, rows: int = 0, attr_rows=None,
+                  quad_gather=None, quad_shape=None, step=no_step) -> dict:
+    """:func:`surface` as the torch chain, on any device: the plain
+    version of K10 (and of K9 on CPU tensors), bit-equal to it on the
+    card."""
     tri = hits["tri"]
     valid = tri >= 0
     tidx = torch.clamp_min(tri, 0).long()
@@ -488,8 +511,7 @@ def surface(scene: dict, camera: dict, hits: dict, direction=None, *,
     world_tangent = _normalize(
         world_tangent
         - _dot(world_tangent, world_normal)[:, None] * world_normal)
-    world_binormal = torch.linalg.cross(world_normal, world_tangent) \
-        * t0[:, 3:4]
+    world_binormal = _cross(world_normal, world_tangent) * t0[:, 3:4]
 
     if "tex_mip_sizes" in scene:
         if direction is None or rows <= 0:
