@@ -23,12 +23,15 @@ once, at 64x64):
            plain version; K3 alone timed apart); the main pass's AO and
            edges (K4, bit-exact). Prints the mismatch counts and the
            times.
-  phase 2  >= 10 frames through Renderer.render(): launch counts per frame
-           (K1 1, K2 3, K8a 1, K8b 1, K3h 1, K3 1, K4 1; every frame of
-           every phase launches K8a and K8b once per shade() call),
-           ms/frame, Mrays/s (W*H*(1 +
-           shadow lights) rays per frame), a checksum and the share of lit
-           pixels.
+  phase 2  >= 10 frames through Renderer.render(), after the warm-up
+           frames (the eager frame and the capture of the frame's CUDA
+           graph): each frame one launch of the graph on the host and no
+           kernel launch; the kernels the capture recorded (K1 1, K2 3,
+           K8a 1, K8b 1, K3h 1, K3 1, K4 1; every frame of every phase
+           runs K8a and K8b once per shade() call), ms/frame, Mrays/s
+           (W*H*(1 + shadow lights) rays per frame), a checksum and the
+           share of lit pixels. What the replays run on the card is
+           counted in phase 18.
   phase 3  a 64x64 frame of the same scene on the card against the same
            frame from the plain versions on the host.
   phase 4  the dynamic scene's kernels at the rebuild path's shapes, with
@@ -207,7 +210,8 @@ once, at 64x64):
            float64; P1's time beside the card-only timer's floor (an empty
            kernel timed the same way). render() and render_stream ms/frame
            at depth 1 and 3 over 10 frames each; profile_frame(r, 3)
-           (render()'s launches per frame). Last, after every other phase
+           (its untimed frame one launch of render()'s CUDA graph, its 3
+           timed frames eager with their hook). Last, after every other phase
            of both sizes (launches after torch.profiler run slower):
            device_profile(r), kernel time per pass, the device-busy share
            (sum of device_profile / sum of profile_frame) and render()
@@ -243,8 +247,18 @@ once, at 64x64):
            byte bound and the plain chain's ms. The summary's entry is the
            bench scene's, the textures workload's under `scenes`.
 
+  phase 18 what render()'s frames replayed from their CUDA graph run on
+           the card, at each size, after every timed phase (launches after
+           torch.profiler run slower): a torch.profiler trace of 10
+           replays of the default frame (phase 2), of phase 7's pop2 and
+           uvp frames and of phase 10's GTAO variants, its kernels counted
+           by name (tpurt_torch/engine/profiler.kernel_launches), each 10
+           times what the frame's capture recorded. These are the
+           launches the summary reports for K1-K4, K7b, K7c, K8a, K8b and
+           K10.
+
 Phases 12, 13 and 14 run after both sizes' phases 1-11 and 15 and before
-phase 8's device profile (torch.profiler).
+phases 18 and 8's device profile (torch.profiler).
 
 Every kernel is timed twice: on the card alone (`ms`,
 tpurt_torch/kernels/build.device_ms: the least of 3 runs, each queued
@@ -360,9 +374,11 @@ KERNELS = (
 VARIANT_OF = {"bvh8_any_multi": "fused", "bvh8_any_multi_pop2": "fused_pop2",
               "bvh8_closest_pop2": "pop2", "bvh8_any_pop2": "pop2",
               "bvh8_closest_uvp": "uvp"}
-# every counter at 0: the kernels above and K10's epilogue, which phase 17
-# times with K10 (the summary's shade_surface entry)
-ALL_ZERO = dict({name: 0 for name, _, _ in KERNELS}, shade_surface_nmap=0)
+# every counter at 0: the kernels above, K10's epilogue, which phase 17
+# times with K10 (the summary's shade_surface entry), and the launches of
+# render()'s CUDA graph (engine/frame_graph.py)
+ALL_ZERO = dict({name: 0 for name, _, _ in KERNELS}, shade_surface_nmap=0,
+                frame_graph=0)
 
 
 def shade_calls(n):
@@ -1065,7 +1081,9 @@ def phase17_surface(r, label, k9_renderers):
 
 
 def phase2(r, label):
-    """Frames through Renderer.render(); the launch counts prove the path."""
+    """Frames through Renderer.render(): the host launches the frame's CUDA
+    graph once a frame, whose capture recorded the frame's kernels
+    (phase 18 counts what the replays run on the card)."""
     import torch
 
     from tpurt_torch.kernels import build
@@ -1086,23 +1104,29 @@ def phase2(r, label):
     image = out["image"]
     checksum = int(image.to(torch.int64).sum())
     lit = float((image.amax(dim=-1) > 0).float().mean())
-    log(f"[{label}] frames {FRAMES}: launches {counts}, {ms:.3f} ms/frame, "
+    shadow = r.stats()["shadow_casting_lights"]
+    per_frame = dict(bvh8_closest=1, bvh8_any=shadow, gtao_noise=1,
+                     gtao_main=1, gtao_denoise=1, **shade_calls(1))
+    log(f"[{label}] frames {FRAMES}: host launches {nonzero(counts)}, the "
+        f"graph's capture recorded {r._graph.recorded}, {ms:.3f} ms/frame, "
         f"{rays / ms / 1e3:.2f} Mrays/s ({rays} rays/frame), checksum "
         f"{checksum}, lit share {lit:.4f}")
-    shadow = r.stats()["shadow_casting_lights"]
-    want = dict(ALL_ZERO, bvh8_closest=FRAMES, bvh8_any=shadow * FRAMES,
-                gtao_noise=FRAMES, gtao_main=FRAMES, gtao_denoise=FRAMES,
-                **shade_calls(FRAMES))
-    require(counts == want, f"[{label}] launch counts {counts} != {want}")
+    # the warm-up frames ran the eager frame and the capture
+    require(counts == dict(ALL_ZERO, frame_graph=FRAMES), f"[{label}] "
+            f"{FRAMES} frames launched {nonzero(counts)} on the host, want "
+            f"the frame's CUDA graph {FRAMES} times")
+    recorded(r, per_frame, f"[{label}] phase 2")
     require(tuple(image.shape) == (c.height, c.width, 3)
             and image.dtype == torch.uint8, f"[{label}] bad image")
     for key in ("color", "depth", "normal"):
         require(bool(torch.isfinite(out[key]).all()),
                 f"[{label}] non-finite {key}")
     require(checksum > 0 and lit > 0.2, f"[{label}] frame is black")
+    # launches: what the replays run on the card, from phase 18
     return dict(ms_per_frame=ms, mrays_per_s=rays / ms / 1e3,
-                rays_per_frame=rays, launches=counts, checksum=checksum,
-                lit_share=lit, noise_index=(r.noise_index - 1) % 64)
+                rays_per_frame=rays, host_launches=counts,
+                per_frame=per_frame, checksum=checksum, lit_share=lit,
+                noise_index=(r.noise_index - 1) % 64)
 
 
 def phase3():
@@ -1144,6 +1168,47 @@ def counted_once(fn, want, what):
     require(counts == dict(ALL_ZERO, **want),
             f"{what} launched {counts}, want {want}")
     return out
+
+
+def recorded(r, want, what):
+    """The kernel launches the capture of r's frame graph recorded, which
+    must equal `want`: what each replay runs (phase 18 counts it on the
+    card)."""
+    got = r._graph.recorded
+    require(got == nonzero(want), f"{what}: the frame's CUDA graph "
+            f"recorded {got}, want {nonzero(want)}")
+
+
+def card_launches(fn):
+    """fn()'s result and the port's kernels it ran on the card, by CUDA
+    function, from a torch.profiler trace (engine/profiler.kernel_launches):
+    a replayed CUDA graph's kernels, which no host counter sees."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurt_torch.engine.profiler import kernel_launches
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, kernel_launches(prof.events())
+
+
+def card_counts(ran, want, what):
+    """`want`'s counters as measured on the card: `ran`
+    (``card_launches``) must hold just want's kernels, each counter's
+    kernel its own; returns every counter, read from `ran`."""
+    from tpurt_torch.kernels import build
+
+    want = nonzero(want)
+    kernels = [build.KERNEL_OF[k] for k in want]
+    require(len(set(kernels)) == len(kernels),
+            f"{what}: {sorted(want)} share a kernel")
+    require(ran == build.by_kernel(want), f"{what} ran {ran} on the card, "
+            f"want {build.by_kernel(want)}")
+    return dict(ALL_ZERO, **{k: ran[build.KERNEL_OF[k]] for k in want})
 
 
 def wall_and_device_ms(fn, reps):
@@ -1308,7 +1373,8 @@ def phase10(r, label, default_frame, exact_kernels):
             noise_key = "gtao_noise_fp16" if st.fp16 else "gtao_noise"
             den_key = dn_key(bent, st.fp16)
             n_pass = st.num_denoise_passes
-            r.render()
+            for _ in range(2):  # the eager frame, the graph's capture
+                r.render()
             torch.cuda.synchronize()
             build.reset_counts()
             t0 = time.perf_counter()
@@ -1318,11 +1384,13 @@ def phase10(r, label, default_frame, exact_kernels):
             ms = (time.perf_counter() - t0) * 1000.0 / VARIANT_FRAME_COUNT
             counts = dict(build.launch_counts)
             n = VARIANT_FRAME_COUNT
-            want = dict(ALL_ZERO, bvh8_closest=n, bvh8_any=shadow * n,
-                        **{noise_key: n, main_key: n, den_key: n * n_pass},
-                        **shade_calls(n))
-            require(counts == want, f"[{label}] {name} frames launched "
-                    f"{counts}, want {want}")
+            per_frame = dict(bvh8_closest=1, bvh8_any=shadow,
+                             **{noise_key: 1, main_key: 1, den_key: n_pass},
+                             **shade_calls(1))
+            require(counts == dict(ALL_ZERO, frame_graph=n),
+                    f"[{label}] {name} frames launched {nonzero(counts)} "
+                    f"on the host, want the frame's CUDA graph {n} times")
+            recorded(r, per_frame, f"[{label}] {name} frames")
             image = out["image"]
             lit = float((image.amax(dim=-1) > 0).float().mean())
             require(lit > 0.2 and all(bool(torch.isfinite(out[k]).all())
@@ -1337,7 +1405,9 @@ def phase10(r, label, default_frame, exact_kernels):
             else:
                 require("bent_normals" not in out, f"[{label}] {name}: "
                         f"bent normals without the setting")
-            frames[name] = dict(ms_per_frame=ms, launches=counts,
+            # launches: what the replays run on the card, from phase 18
+            frames[name] = dict(ms_per_frame=ms, host_launches=counts,
+                                per_frame=per_frame, settings=over,
                                 lit_share=lit,
                                 checksum=int(image.to(torch.int64).sum()))
 
@@ -1698,15 +1768,25 @@ def textured_renderer(width, height, device, tier, taps, field=None):
         scene.MIP_QUAD_BUDGET_BYTES, scene.MIP_PAIR_BUDGET_BYTES = saved
 
 
-def textured_launches(r, what):
-    """One textured frame's launches: K1 once, K2 once per shadow light,
+def textured_frame(r):
+    """One textured frame's kernels: K1 once, K2 once per shadow light,
     K3h, K3, K4, K8a, K8b, K9, K10 and its epilogue once each."""
     shadow = r.stats()["shadow_casting_lights"]
-    counted_once(lambda: r.render_passes(r.noise_index), dict(
-        bvh8_closest=1, bvh8_any=shadow, gtao_noise=1, gtao_main=1,
-        gtao_denoise=1, mip_texels=1, shade_surface_nmap=1,
-        **shade_calls(1)),
-        f"[textures] {what}")
+    return dict(bvh8_closest=1, bvh8_any=shadow, gtao_noise=1, gtao_main=1,
+                gtao_denoise=1, mip_texels=1, shade_surface_nmap=1,
+                **shade_calls(1))
+
+
+def textured_launches(r, what):
+    """A textured render() frame after the eager frame and the capture:
+    one launch of its CUDA graph on the host, whose capture recorded
+    ``textured_frame``'s kernels (phase11_profile counts what the replays
+    run on the card)."""
+    for _ in range(2):
+        r.render_passes(r.noise_index)
+    counted_once(lambda: r.render_passes(r.noise_index),
+                 dict(frame_graph=1), f"[textures] {what}")
+    recorded(r, textured_frame(r), f"[textures] {what}")
 
 
 def phase11_small():
@@ -1784,10 +1864,13 @@ def phase11_profile(r, out):
     """Under torch.profiler, after every other phase: the workload frame's
     CUDA kernel launches and device milliseconds per frame, and the
     device-busy share against its unprofiled host wall time
-    (phase11_workload's)."""
+    (phase11_workload's); the port's kernels among them, by name, twice
+    ``textured_frame``'s."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from tpurt_torch.engine.profiler import kernel_launches
 
     for taps in (1, 16):
         r.config.aniso_taps = taps
@@ -1803,10 +1886,14 @@ def phase11_profile(r, out):
         kernels = [e for e in prof.events()
                    if e.device_type == DeviceType.CUDA]
         require(kernels, "[textures] torch.profiler saw no device work")
+        port = card_counts(kernel_launches(prof.events()),
+                           {k: 2 * n for k, n in textured_frame(r).items()},
+                           f"[textures] workload aniso {taps} on the card")
         dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 2e3
         entry = out["frames"][str(taps)]
         busy = dev_ms / entry["wall_ms"]
         entry.update(launches_per_frame=len(kernels) / 2,
+                     port_launches=nonzero(port),
                      device_ms=dev_ms, busy_share=busy,
                      profiled_wall_ms=wall)
         log(f"[textures] workload aniso_taps={taps} under torch.profiler: "
@@ -2406,8 +2493,8 @@ def phase7_frames(r, label):
 
     def fused(noise):
         return render_frame_fused(r.scene_device, cam, lights, gtao, r._lpm,
-                                  noise, width=c.width, height=c.height,
-                                  gtao_settings=c.gtao)
+                                  r._noise[noise % 64], width=c.width,
+                                  height=c.height, gtao_settings=c.gtao)
 
     ao_launches = dict(gtao_noise=1, gtao_main=1, gtao_denoise=1,
                        **shade_calls(1))
@@ -2423,13 +2510,20 @@ def phase7_frames(r, label):
     counts = build.launch_counts
     out = {}
     for name, flags, frame, launches in variants:
-        want = dict(ALL_ZERO, **ao_launches, **launches)
+        per_frame = dict(**ao_launches, **launches)
+        # render()'s frames after the warm-up (the eager frame and the
+        # capture: a switch is part of the graph's key) each launch the
+        # frame's CUDA graph; the fused frames run eagerly
+        want = dict(ALL_ZERO, **(per_frame if frame is fused
+                                 else dict(frame_graph=1)))
         try:
             for key, val in flags.items():
                 setattr(tb, key, val)
             for i in range(WARMUP_FRAMES):
                 frame(i)
             torch.cuda.synchronize()
+            if frame is rendered:
+                recorded(r, per_frame, f"[{label}] {name} frames")
             build.reset_counts()
             t0 = time.perf_counter()
             for i in range(FRAMES):
@@ -2448,7 +2542,7 @@ def phase7_frames(r, label):
         diff = (img.int() - base.int()).abs().amax(dim=-1)
         eq = float((diff == 0).float().mean())
         far = float((diff > 2).float().mean())
-        log(f"[{label}] {name} frames {FRAMES}: launches {total}, "
+        log(f"[{label}] {name} frames {FRAMES}: host launches {total}, "
             f"{ms:.3f} ms/frame, {rays / ms / 1e3:.2f} Mrays/s, image vs the "
             f"default frame: equal pixels {eq:.6f}, off by > 2 {far:.6f}, "
             f"max diff {int(diff.max())}")
@@ -2460,8 +2554,14 @@ def phase7_frames(r, label):
                     f"[{label}] {name} image outside budget")
         require(bool((img.amax(dim=-1) > 0).float().mean() > 0.2),
                 f"[{label}] {name} frame is black")
+        # render()'s frames: launches on the card from phase 18
         out[name] = dict(ms_per_frame=ms, mrays_per_s=rays / ms / 1e3,
-                         launches=total, equal_pixels=eq, off_by_gt2=far)
+                         host_launches=total, equal_pixels=eq,
+                         off_by_gt2=far, per_frame=per_frame)
+        if frame is fused:
+            out[name]["launches"] = total
+        else:
+            out[name]["switches"] = flags
     return out
 
 
@@ -2674,9 +2774,11 @@ def phase8_profile(r, label):
     build.reset_counts()
     pf = profiler.profile_frame(r, 3)
     launches = dict(build.launch_counts)
-    # one untimed frame and 3 timed ones, each render()'s kernels
-    want = dict(ALL_ZERO, bvh8_closest=4, bvh8_any=4 * shadow,
-                gtao_noise=4, gtao_main=4, gtao_denoise=4, **shade_calls(4))
+    # one untimed frame, render()'s: a launch of its CUDA graph (the
+    # frames above captured it), and 3 timed ones, eager with their hook
+    want = dict(ALL_ZERO, bvh8_closest=3, bvh8_any=3 * shadow,
+                gtao_noise=3, gtao_main=3, gtao_denoise=3, **shade_calls(3),
+                frame_graph=1)
     require(launches == want, f"[{label}] profile_frame launched {launches}")
     require(list(pf.ms_per_pass) == ["rays", "trace", "shade+shadows",
                                      "gtao", "tonemap"]
@@ -2689,6 +2791,56 @@ def phase8_profile(r, label):
     return dict(profile_frame=pf.ms_per_pass, rays_traced=pf.rays_traced,
                 render_ms_per_frame=render_ms,
                 stream_ms_per_frame={str(k): v for k, v in stream.items()})
+
+
+def phase18_replays(r, label, res):
+    """What render()'s frames replayed from their CUDA graph run on the
+    card (module docstring): the default frame (phase 2), phase 7's
+    render() frames and phase 10's GTAO variants, FRAMES replays each
+    under torch.profiler after the eager frame and the capture; each
+    entry's `launches` becomes what the card ran."""
+    import dataclasses
+
+    import torch
+
+    from tpurt_torch.kernels import build
+    from tpurt_torch.kernels import traverse_bvh8 as tb
+
+    def replays(what, per_frame):
+        for _ in range(2):
+            r.render()
+        torch.cuda.synchronize()
+        build.reset_counts()
+        _, ran = card_launches(
+            lambda: [r.render(block=False) for _ in range(FRAMES)])
+        host = dict(build.launch_counts)
+        require(host == dict(ALL_ZERO, frame_graph=FRAMES),
+                f"[{label}] {what}: {FRAMES} replays launched "
+                f"{nonzero(host)} on the host")
+        got = card_counts(ran, {k: FRAMES * n for k, n in per_frame.items()},
+                          f"[{label}] {what}: {FRAMES} replays")
+        log(f"[{label}] {what}: {FRAMES} replays ran {nonzero(got)} on the "
+            f"card")
+        return got
+
+    res["frame"]["launches"] = replays("default frame",
+                                       res["frame"]["per_frame"])
+    for name, v in res["variants"].items():
+        if "switches" in v:
+            try:
+                for key, val in v["switches"].items():
+                    setattr(tb, key, val)
+                v["launches"] = replays(f"{name} frames", v["per_frame"])
+            finally:
+                tb.POP2_DEFAULT = tb.UVP_DEFAULT = False
+    c = r.config
+    default = c.gtao
+    try:
+        for name, v in res["gtao_variants"]["frames"].items():
+            c.gtao = dataclasses.replace(default, **v["settings"])
+            v["launches"] = replays(f"GTAO {name} frames", v["per_frame"])
+    finally:
+        c.gtao = default
 
 
 def phase8_device(r, label, prof):
@@ -2804,8 +2956,10 @@ def phase12():
             offline.FrameTimer = timer
         st = _StampTimer.stamps
         cli_ms = (st[-1] - st[0]) * 1000.0 / (len(st) - 1)
-        want = {k: APP_FRAMES * v for k, v in APP_LAUNCHES.items()}
-        want.update(bvh8_closest=APP_FRAMES, bvh8_any=shadow * APP_FRAMES)
+        # the first frame eager, then the capture of the frame's CUDA
+        # graph and its launches
+        want = dict(APP_LAUNCHES, bvh8_closest=1, bvh8_any=shadow,
+                    frame_graph=APP_FRAMES - 1)
         require(counts == dict(ALL_ZERO, **want),
                 f"[app] offline.main launched {counts}, want {want}")
         got = np.asarray(Image.open(png))
@@ -2817,9 +2971,10 @@ def phase12():
                 and np.array_equal(got, ref),
                 "[app] the CLI's PNG differs from Renderer.render_image()")
         require(lit > 0.05, f"[app] the CLI's frame is black ({lit})")
-        counted_once(lambda: r.render(), dict(APP_LAUNCHES, bvh8_closest=1,
-                                              bvh8_any=shadow),
+        counted_once(lambda: r.render(), dict(frame_graph=1),
                      "[app] one app frame")
+        recorded(r, dict(APP_LAUNCHES, bvh8_closest=1, bvh8_any=shadow),
+                 "[app] one app frame")
         log(f"[app] bench glTF {tris} tris; offline.main {APP_FRAMES} "
             f"frames at {APP_SIZE}x{APP_SIZE}: {cli_ms:.3f} ms/frame (its "
             f"frame loop, read-back included), launches {nonzero(counts)}, "
@@ -2864,8 +3019,9 @@ def phase12():
                 and not np.array_equal(r.camera.dir, dir0),
                 "[app] the replay did not move the camera")
         require(lit > 0.05, f"[app] the replay's last frame is black ({lit})")
-        require(counts["bvh8_closest"] == APP_REPLAY_FRAMES,
-                f"[app] replay launched {counts}")
+        # each frame eager (its K1) or a launch of the frame's CUDA graph
+        require(counts["bvh8_closest"] + counts["frame_graph"]
+                == APP_REPLAY_FRAMES, f"[app] replay launched {counts}")
         log(f"[app] run_replay over record_orbit({APP_REPLAY_FRAMES}): "
             f"{replay_ms:.3f} ms/frame (blocking), camera moved, last frame "
             f"lit share {lit:.4f}, launches {nonzero(counts)}")
@@ -2925,10 +3081,11 @@ def phase12():
                     f"[app] live loop at depth {depth} did not finish")
             counts = dict(build.launch_counts)
             n = app.frames_rendered
-            require(counts == dict(ALL_ZERO, bvh8_closest=n,
-                                   bvh8_any=shadow * n,
-                                   **{k: n * v for k, v in
-                                      APP_LAUNCHES.items()}),
+            # the first frame eager, then the capture of the frame's CUDA
+            # graph and its launches
+            require(counts == dict(ALL_ZERO, bvh8_closest=1,
+                                   bvh8_any=shadow, **APP_LAUNCHES,
+                                   frame_graph=n - 1),
                     f"[app] live loop launched {counts} for {n} frames")
             # the first two frames warm up
             fps = (LIVE_FRAMES - 3) / (stamps[LIVE_FRAMES - 1] - stamps[2])
@@ -3410,7 +3567,8 @@ def geo_rank_frames(r, mesh, label, problems):
 
         def frame():
             return render_frame_sharded_geometry(
-                sc, shard, cam, lights, gtao, r._lpm, 0, width=c.width,
+                sc, shard, cam, lights, gtao, r._lpm, r._noise[0],
+                width=c.width,
                 height=c.height, gtao_settings=c.gtao, mesh=mesh,
                 tables=tier, shade_tables=chunks,
                 meta=None if meta is None else freeze_meta(meta))
@@ -3717,7 +3875,7 @@ def geo_textures_worker(rank, world, port, results):
                                       shard_geometry, shard_tables)
         from tpurt_torch.engine import convert
         from tpurt_torch.kernels import build
-        from tpurt_torch.passes.gtao import gtao_constants
+        from tpurt_torch.passes.gtao import gtao_constants, noise_maps_64
 
         mesh = make_mesh()
         w, h = SHAPES[0]
@@ -3745,7 +3903,8 @@ def geo_textures_worker(rank, world, port, results):
         build.reset_counts()
         t0 = time.perf_counter()
         band = render_frame_sharded_geometry(
-            sc, shard, cam, lights, gtao, lpm, 0, width=w, height=h,
+            sc, shard, cam, lights, gtao, lpm, noise_maps_64(0, "cuda"),
+            width=w, height=h,
             gtao_settings=c.gtao, mesh=mesh, tables="bvh8",
             shade_tables=chunks, meta=freeze_meta(meta))
         launches = dict(build.launch_counts)
@@ -3969,6 +4128,7 @@ def main():
         gt_small = phase9_small()
         # torch.profiler last: launches after it run slower (PERF.md)
         for label, r in renderers.items():
+            phase18_replays(r, label, results[label])
             phase8_device(r, label, results[label]["profile"])
         phase11_profile(tex_r, tex["workload"])
     except CheckFailed as e:

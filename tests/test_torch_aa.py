@@ -85,11 +85,13 @@ def test_fused_spp_frame_equals_per_light(aa):
     """render_frame_fused takes spp too: one fused shadow trace per
     sample gives the per-light frame bit for bit."""
     from tpurt_torch.engine.frame import render_frame, render_frame_fused
+    from tpurt_torch.passes.gtao import noise_maps_64
 
     port_r = aa["port_r"]
     c = port_r.config
     cam, lights, gtao = port_r._frame_inputs()
-    args = (port_r.scene_device, cam, lights, gtao, port_r._lpm, 0)
+    args = (port_r.scene_device, cam, lights, gtao, port_r._lpm,
+            noise_maps_64(0, "cpu"))
     kw = dict(width=SIZE, height=SIZE, gtao_settings=c.gtao, spp=SPP)
     fused, plain = render_frame_fused(*args, **kw), render_frame(*args, **kw)
     for key in plain:

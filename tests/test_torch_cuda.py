@@ -35,6 +35,8 @@ byte of the packed term, with K3h's fp16 table bit-exact, and K4's
 against the plain frame on the host:
 equal on >= 99.9% of pixels, <= 0.1% off by more than 2.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -52,6 +54,20 @@ def _counts(**nonzero):
     from tpurt_torch.kernels import build
 
     return {k: nonzero.get(k, 0) for k in build.launch_counts}
+
+
+def _launched(fn):
+    """fn()'s result and the port's kernels it ran on the card, by CUDA
+    function, from a torch.profiler trace (``profiler.kernel_launches``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurt_torch.engine.profiler import kernel_launches
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, kernel_launches(prof.events())
 
 
 @pytest.fixture(scope="module")
@@ -134,12 +150,16 @@ def test_frame_on_card_matches_host(cuda_frame):
     host = build_bench_scene(
         Renderer(RendererConfig(width=96, height=80, device="cpu")),
         field=dict(nx=4, nz=4, subdiv=3), cubes=4)
+    for _ in range(2):  # the frame's CUDA graph captured by now
+        r.render()
     host._frame_idx = r._frame_idx  # the same GTAO noise index
     build.reset_counts()
-    img_gpu = r.render_image()
-    assert build.launch_counts == _counts(bvh8_closest=1, bvh8_any=3,
+    img_gpu, ran = _launched(r.render_image)
+    # one launch of the graph, which runs the frame's kernels on the card
+    assert build.launch_counts == _counts(frame_graph=1)
+    assert ran == build.by_kernel(_counts(bvh8_closest=1, bvh8_any=3,
                                           gtao_noise=1, gtao_main=1,
-                                          gtao_denoise=1, **SHADE_CALL)
+                                          gtao_denoise=1, **SHADE_CALL))
     img_cpu = host.render_image()
     # the host's pow/cos/log2 come from another math library than the
     # card's: a sample can move to another mip or a shading term by an ulp
@@ -479,8 +499,8 @@ def test_variant_frames_on_card(cuda_frame):
 
     def fused():
         return render_frame_fused(r.scene_device, cam, lights, gtao, r._lpm,
-                                  0, width=c.width, height=c.height,
-                                  gtao_settings=c.gtao)
+                                  r._noise[0], width=c.width,
+                                  height=c.height, gtao_settings=c.gtao)
 
     def render():
         r._frame_idx = 0
@@ -707,14 +727,16 @@ def test_profiler_and_stream_on_card(cuda_frame):
     from tpurt_torch.kernels import build
 
     r = cuda_frame
+    for _ in range(2):  # the frame's CUDA graph captured by now
+        r.render()
     build.reset_counts()
     stats = profiler.profile_frame(r, 2)
-    # one untimed and two timed frames of render()'s launches
-    assert build.launch_counts == _counts(bvh8_closest=3, bvh8_any=9,
-                                          gtao_noise=3, gtao_main=3,
-                                          gtao_denoise=3, shade_surface=3,
-                                          shade_light_rays=3,
-                                          shade_light_sum=3)
+    # one untimed frame, render()'s replay, and two timed eager frames
+    assert build.launch_counts == _counts(bvh8_closest=2, bvh8_any=6,
+                                          gtao_noise=2, gtao_main=2,
+                                          gtao_denoise=2, shade_surface=2,
+                                          shade_light_rays=2,
+                                          shade_light_sum=2, frame_graph=1)
     assert list(stats.ms_per_pass) == ["rays", "trace", "shade+shadows",
                                        "gtao", "tonemap"]
     assert all(v > 0 for v in stats.ms_per_pass.values())
@@ -1051,10 +1073,11 @@ def test_gtao_main_band(cuda_frame, bent, precision):
             gtao_main(*args, row_start=row_start, num_rows=rows, **kw)
     assert build.launch_counts == _counts()
     s = GtaoSettings(9, 3, denoise=2, bent_normals=bent, precision=precision)
-    full = compute_ao(out["depth"], out["normal"], gtao, s, 3)
+    noise = noise_maps_64(3, r.device)
+    full = compute_ao(out["depth"], out["normal"], gtao, s, noise)
     band = h // 4
     for k in range(4):
-        got = compute_ao_band(out["depth"], out["normal"], gtao, s, 3,
+        got = compute_ao_band(out["depth"], out["normal"], gtao, s, noise,
                               k * band, band)
         assert torch.equal(got, full[k * band:(k + 1) * band])
 
@@ -1083,62 +1106,259 @@ def test_sharded_geometry_frame(tmp_path):
 
 
 def test_sync_spans_are_the_stream_syncs(cuda_frame):
-    """Over a moved-camera frame on the card, torch's sync-debug mode warns
-    once per stream synchronisation ("called a synchronizing CUDA
-    operation"; turning the mode on warns once that it is a prototype),
-    and each warning falls inside one sync.* span of the frame's step
-    hook: as many spans as warnings, five of them the camera's uploads. A
-    still camera leaves the noise table's alone. The camera is put back
-    afterwards."""
+    """No frame of render_passes synchronises the stream, with the camera
+    moved or still: neither the eager frame (a step hook) nor the replay
+    of the frame's CUDA graph raises a warning of torch.cuda's sync debug
+    mode; the hooked frame enters no sync.* span, and one upload span
+    where the camera moved. The camera is put back afterwards."""
     import collections
-    import contextlib
     import warnings
+
+    from tpurt_torch.kernels import build
 
     r = cuda_frame
     pos = np.array(r.camera.pos)
-    r.render_passes(r.noise_index)
+    for _ in range(2):  # the eager frame of this key, then the capture
+        r.render_passes(r.noise_index)
     torch.cuda.synchronize()
 
-    def frame():
-        spans, open_, inside = [], [], []
+    def frame(hooked):
+        spans = collections.Counter()
 
         @contextlib.contextmanager
         def step(name):
-            open_.append(name)
-            try:
-                yield
-            finally:
-                open_.pop()
-            if name.startswith("sync."):
-                spans.append(name)
+            spans[name] += 1
+            yield
 
-        def show(message, category, *args, **kwargs):
-            if "called a synchronizing CUDA operation" in str(message):
-                inside.append(next((s for s in reversed(open_)
-                                    if s.startswith("sync.")), None))
-
-        old = warnings.showwarning
-        with warnings.catch_warnings():
+        with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            warnings.showwarning = show
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                r.render_passes(r.noise_index, step)
+                if hooked:
+                    r.render_passes(r.noise_index, step)
+                else:
+                    r.render_passes(r.noise_index)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-                warnings.showwarning = old
         torch.cuda.synchronize()
-        return collections.Counter(spans), collections.Counter(inside)
+        syncs = [str(w.message) for w in caught
+                 if "synchronizing CUDA operation" in str(w.message)]
+        return spans, syncs
 
     try:
-        r.camera_mut().set_pos(pos + np.float32([0.05, 0.0, 0.0]))
-        spans, inside = frame()
-        assert spans == inside and spans["sync.camera"] == 5, (spans, inside)
-        spans, inside = frame()
-        assert spans == inside and "sync.camera" not in spans, (spans,
-                                                                 inside)
+        for hooked in (True, False):
+            for moved in (True, False):
+                if moved:
+                    r.camera_mut().set_pos(np.array(r.camera.pos)
+                                           + np.float32([0.05, 0.0, 0.0]))
+                replays = build.launch_counts["frame_graph"]
+                spans, syncs = frame(hooked)
+                assert syncs == [], (hooked, moved, syncs)
+                assert not [n for n in spans if n.startswith("sync.")]
+                if hooked:
+                    assert spans["upload"] == int(moved), spans
+                assert build.launch_counts["frame_graph"] == replays + (
+                    not hooked)
     finally:
         r.camera_mut().set_pos(pos)
+
+
+def _eager_step(name):
+    """A step hook that times nothing: the frame runs eagerly."""
+    return contextlib.nullcontext()
+
+
+def _bench_renderer(width=96, height=80):
+    from tpurt_torch.app.bench_scene import build_bench_scene
+    from tpurt_torch.engine import Renderer, RendererConfig
+
+    return build_bench_scene(Renderer(RendererConfig(
+        width=width, height=height, device="cuda")),
+        field=dict(nx=4, nz=4, subdiv=3), cubes=4)
+
+
+FRAME_KEYS = ("image", "color", "depth", "normal", "ao")
+
+
+def _same_frame(got, want, what):
+    for key in FRAME_KEYS:
+        assert torch.equal(_bits(got[key]), _bits(want[key])), (what, key)
+
+
+def _graph_moves(r, fn):
+    """fn()'s result and what r's frame graph did in it: (launches of the
+    graph, captures)."""
+    from tpurt_torch.kernels import build
+
+    launches, captures = build.launch_counts["frame_graph"], r._graph.captures
+    out = fn()
+    return out, (build.launch_counts["frame_graph"] - launches,
+                 r._graph.captures - captures)
+
+
+def _nonzero(counts):
+    return {k: n for k, n in counts.items() if n}
+
+
+def test_graph_frames_equal_eager_frames():
+    """12 render() frames, the camera moved before each, all enqueued
+    without a sync (more than 3 in flight) and every output held to the
+    end: the first frame runs eagerly, the second captures the frame's
+    CUDA graph, and from it every frame is one launch of the graph and no
+    kernel launch of the host; each frame's outputs are tensors of their
+    own, read after at least three later replays, and equal bit for bit
+    the eager frame (a hooked render_passes) of a second renderer at the
+    same pose and noise index. On the card (a torch.profiler trace) the
+    last 10 frames run 10 times the eager frame's kernels, the launches
+    the capture recorded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpurt_torch.kernels import build
+
+    g, e = _bench_renderer(), _bench_renderer()
+    pos0 = np.array(g.camera.pos)
+    poses = [pos0 + np.float32([0.02 * i, 0.01 * i, 0.0]) for i in range(12)]
+    outs, host = [], []
+
+    def frames(poses):
+        for pos in poses:
+            g.camera_mut().set_pos(pos)
+            before = dict(build.launch_counts)
+            outs.append(g.render(block=False))
+            host.append({k: n - before[k]
+                         for k, n in build.launch_counts.items()
+                         if n != before[k]})
+
+    frames(poses[:2])
+    _, ran = _launched(lambda: frames(poses[2:]))
+    torch.cuda.synchronize()
+    ptrs = {outs[i][k].data_ptr() for i in range(12) for k in FRAME_KEYS}
+    assert len(ptrs) == 12 * len(FRAME_KEYS)
+    assert not torch.equal(outs[0]["image"], outs[11]["image"])
+    eager = []
+    for i, pos in enumerate(poses):
+        e.camera_mut().set_pos(pos)
+        build.reset_counts()
+        want = e.render_passes(i, _eager_step)
+        eager.append(_nonzero(build.launch_counts))
+        _same_frame(outs[i], want, i)
+    per_frame = eager[0]
+    assert eager == [per_frame] * 12 and "frame_graph" not in per_frame
+    assert host == [per_frame] + [{"frame_graph": 1}] * 11
+    assert g._graph.captures == 1 and g._graph.recorded == per_frame
+    assert ran == {k: 10 * n for k, n in build.by_kernel(per_frame).items()}
+
+
+def test_graph_recaptures_on_resize_and_light_count():
+    """A light recoloured in place replays the same graph; a resize and a
+    new light count each run one eager frame and capture again at the
+    next; every frame equals the eager frame of a second renderer with
+    the same change, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpurt_torch.scene.lights import PointLight
+
+    g, e = _bench_renderer(), _bench_renderer()
+
+    def recolour(r):
+        light = r.lights_mut().all_lights()[0]
+        light.color = np.asarray(light.color, np.float32) * 0.5
+
+    def resize(r):
+        r.resize(80, 64)
+
+    def add_light(r):
+        r.lights_mut().point_lights.append(PointLight(
+            pos=np.float32([0.0, -3.0, 0.0]),
+            color=np.float32([2.0, 1.5, 1.0]), falloff_distance=12.0,
+            casts_shadows=True))
+
+    for _ in range(3):  # eager, capture, replay
+        g.render()
+    for change, want_moves in ((recolour, [(1, 0)]),
+                               (resize, [(0, 0), (1, 1), (1, 0)]),
+                               (add_light, [(0, 0), (1, 1), (1, 0)])):
+        change(g)
+        change(e)
+        for want in want_moves:
+            noise = g.noise_index
+            got, moves = _graph_moves(g, g.render)
+            assert moves == want, change.__name__
+            _same_frame(got, e.render_passes(noise, _eager_step),
+                        change.__name__)
+    assert tuple(got["image"].shape) == (64, 80, 3)
+
+
+def test_replayed_frame_launches_equal_the_eager_frame():
+    """On a mip scene (K9 and K10's epilogue in the frame) the kernel
+    launches the host counts at an eager frame are those the capture
+    records, and those a replay runs on the card (a torch.profiler
+    trace, by kernel); the host launches the graph once a replayed
+    frame and no kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from tpurt_torch.kernels import build
+
+    r = _mip_renderer("pair", 4)
+    shadow = r.stats()["shadow_casting_lights"]
+    want = _nonzero(_counts(bvh8_closest=1, bvh8_any=shadow, gtao_noise=1,
+                            gtao_main=1, gtao_denoise=1, mip_texels=1,
+                            shade_surface_nmap=1, **SHADE_CALL))
+    seen = []
+    for _ in range(2):  # eager, capture
+        build.reset_counts()
+        _, moves = _graph_moves(r, r.render)
+        seen.append((_nonzero(build.launch_counts), moves))
+    assert seen == [(want, (0, 0)), ({"frame_graph": 1}, (1, 1))]
+    assert r._graph.recorded == want
+    build.reset_counts()
+    (_, moves), ran = _launched(lambda: _graph_moves(r, r.render))
+    assert (_nonzero(build.launch_counts), moves) == ({"frame_graph": 1},
+                                                      (1, 0))
+    assert ran == build.by_kernel(want)
+
+
+def test_hooked_dynamic_and_mesh_frames_run_eager():
+    """The frames that need a hook, a sync or a collective stay eager
+    (frame_graph does not move): render_passes with a step hook,
+    render_dynamic (refit and rebuild), and render() over a one-rank
+    NCCL mesh, whose frame equals the single-device frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import socket
+
+    import torch.distributed as dist
+
+    from tpurt_torch.app.bench_scene import rotation_frames
+    from tpurt_torch.dist import make_mesh
+    from tpurt_torch.kernels import build
+
+    r = _bench_renderer()
+    t = rotation_frames(r.scene.transforms, 3)[2]
+    replays = build.launch_counts["frame_graph"]
+    for _ in range(3):
+        r.render_passes(r.noise_index, _eager_step)
+        r.render_dynamic(t, refit=True)
+        r.render_dynamic(t, refit=False)
+    assert build.launch_counts["frame_graph"] == replays
+    single = _bench_renderer()
+    for _ in range(2):
+        single.render()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        meshed = _bench_renderer()
+        meshed.config.mesh = make_mesh()
+        replays = build.launch_counts["frame_graph"]
+        for _ in range(2):
+            got = meshed.render()
+        assert build.launch_counts["frame_graph"] == replays
+    finally:
+        dist.destroy_process_group()
+    _same_frame(got, single.render_passes(1, _eager_step), "mesh")
 
 
 LIGHT_CASES = ["point", "spot", "directional", "area", "mixed1", "mixed2",
@@ -1380,19 +1600,20 @@ def test_textured_frame_with_k9_equals_the_torch_chain(tier, monkeypatch):
     for taps in (1, 16):
         r = _mip_renderer(tier, taps)
         shadow = r.stats()["shadow_casting_lights"]
-        r.render()
+        for _ in range(2):  # eager, the graph's capture
+            r.render()
         torch.cuda.synchronize()
-        build.reset_counts()
-        got = r.render_passes(r.noise_index)
-        torch.cuda.synchronize()
-        assert build.launch_counts == _counts(
+        # a replay: its kernels on the card
+        got, ran = _launched(lambda: r.render_passes(r.noise_index))
+        assert ran == build.by_kernel(_counts(
             bvh8_closest=1, bvh8_any=shadow, gtao_noise=1, gtao_main=1,
             gtao_denoise=1, mip_texels=1, shade_surface_nmap=1,
-            **SHADE_CALL), build.launch_counts
+            **SHADE_CALL)), ran
         with monkeypatch.context() as m:
             m.setattr(shade, "mip_texels", k9.mip_texels_plain)
             build.reset_counts()
-            want = r.render_passes(r.noise_index)
+            # a hooked frame runs eagerly: the graph holds K9
+            want = r.render_passes(r.noise_index, _eager_step)
             assert build.launch_counts["mip_texels"] == 0
         assert float((got["image"].amax(-1) > 0).float().mean()) > 0.3
         for key in ("image", "color", "depth", "normal", "ao"):

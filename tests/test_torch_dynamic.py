@@ -48,6 +48,7 @@ def case():
                                             make_refit_data,
                                             render_frame_dynamic,
                                             render_frame_dynamic_refit)
+    from tpurt_torch.passes.gtao import noise_maps_64
 
     ref_r = build_bench_scene(
         RefRenderer(RefConfig(width=W, height=H, tracer="bvh8")),
@@ -69,6 +70,7 @@ def case():
     poses = dict(rest=base, rotated=rotation_frames(base, 3)[2])
 
     pcam, plights, pgtao = port_r._frame_inputs()
+    noise = noise_maps_64(0, "cpu")
     obj = convert.object_tensors(port_r.scene.as_object_pytree(), "cpu")
     refit = convert.refit_tensors(make_refit_data(port_r.scene), "cpu")
     out = dict(port_r=port_r, obj_host=(ref_r.scene.as_object_pytree(),
@@ -83,14 +85,16 @@ def case():
                                  height=H, gtao_settings=gtao,
                                  use_pallas=True),
                      render_frame_dynamic(obj, t, pcam, plights, pgtao,
-                                          port_r._lpm, 0, width=W, height=H,
+                                          port_r._lpm, noise, width=W,
+                                          height=H,
                                           gtao_settings=port_r.config.gtao)),
             refit=(ref_refit(obj_ref, refit_ref, tj, cam, lights, consts,
                              ref_r._lpm_derived, np.int32(0), width=W,
                              height=H, gtao_settings=gtao),
                    render_frame_dynamic_refit(
-                       obj, refit, t, pcam, plights, pgtao, port_r._lpm, 0,
-                       width=W, height=H, gtao_settings=port_r.config.gtao)))
+                       obj, refit, t, pcam, plights, pgtao, port_r._lpm,
+                       noise, width=W, height=H,
+                       gtao_settings=port_r.config.gtao)))
     return out
 
 

@@ -92,18 +92,18 @@ def test_band_rows_refusals():
     ids=["exact-0", "exact-1", "bent-2", "fp16-3", "half-1", "bent_fp16-2"])
 def test_compute_ao_band_equals_compute_ao(gbuffer, denoise, over):
     from tpurt_torch.passes.gtao import (GtaoSettings, compute_ao,
-                                         compute_ao_band)
+                                         compute_ao_band, noise_maps_64)
 
     depth, normal, gtao = gbuffer
     s = GtaoSettings(3, 3, denoise=denoise, **over)
-    full = compute_ao(depth, normal, gtao, s, NOISE_INDEX)
+    noise = noise_maps_64(NOISE_INDEX, "cpu")
+    full = compute_ao(depth, normal, gtao, s, noise)
     band = H // 4
     for k in range(4):
-        got = compute_ao_band(depth, normal, gtao, s, NOISE_INDEX, k * band,
-                              band)
+        got = compute_ao_band(depth, normal, gtao, s, noise, k * band, band)
         assert torch.equal(got, full[k * band:(k + 1) * band]), k
     with pytest.raises(ValueError):
-        compute_ao_band(depth, normal, gtao, s, NOISE_INDEX, H - 2, band)
+        compute_ao_band(depth, normal, gtao, s, noise, H - 2, band)
 
 
 def _seeded_gbuffer(h, w, seed):
@@ -140,13 +140,14 @@ def test_compute_ao_band_against_tpurt(denoise):
         lambda d, n: ref.compute_ao(d, n, consts, ref_s,
                                     jnp.int32(NOISE_INDEX)))(
         jnp.asarray(depth), jnp.asarray(normal)))
-    port_full = gtao.compute_ao(d_t, n_t, tensors, port_s, NOISE_INDEX)
+    noise = gtao.noise_maps_64(NOISE_INDEX, "cpu")
+    port_full = gtao.compute_ao(d_t, n_t, tensors, port_s, noise)
     for k in range(4):
         rows = slice(k * band, (k + 1) * band)
         ref_band = np.asarray(ref_band_fn(
             jnp.asarray(depth), jnp.asarray(normal),
             jnp.int32(k * band))).astype(int)
-        got = gtao.compute_ao_band(d_t, n_t, tensors, port_s, NOISE_INDEX,
+        got = gtao.compute_ao_band(d_t, n_t, tensors, port_s, noise,
                                    k * band, band).numpy().astype(int)
         np.testing.assert_array_equal(got, port_full[rows].numpy())
         # tpurt's band leaves its whole frame only in the image's first and

@@ -49,7 +49,8 @@ def test_debug_image_matches(mode, variant):
         ref.GtaoSettings(**kw), jnp.int32(9), mode))
     got = gtao.gtao_debug_image(torch.tensor(depth), torch.tensor(normal),
                                 convert.gtao_tensors(consts, "cpu"),
-                                gtao.GtaoSettings(**kw), 9, mode).numpy()
+                                gtao.GtaoSettings(**kw),
+                                gtao.noise_maps_64(9, "cpu"), mode).numpy()
     _assert_image(got, want, mode)
     assert got[..., :3].std() > 0
 
@@ -59,7 +60,8 @@ def test_debug_image_refuses_unknown_mode():
 
     with pytest.raises(ValueError):
         gtao.gtao_debug_image(torch.ones(8, 8), torch.ones(8, 8, 3),
-                              None, gtao.GtaoSettings(), 0, "depth")
+                              None, gtao.GtaoSettings(),
+                              gtao.noise_maps_64(0, "cpu"), "depth")
 
 
 @pytest.fixture(scope="module")

@@ -109,6 +109,7 @@ CHECKS = {
         from tpurt_torch.engine import Renderer, RendererConfig
         from tpurt_torch.engine.frame import render_frame_fused
         from tpurt_torch.kernels import traverse_bvh8 as tb
+        from tpurt_torch.passes.gtao import noise_maps_64
         r = build_bench_scene(Renderer(RendererConfig(
             width=32, height=32, device="cpu")),
             field=dict(nx=2, nz=2, subdiv=1), cubes=2)
@@ -116,7 +117,8 @@ CHECKS = {
         cam, lights, gtao = r._frame_inputs()
         tb.POP2_DEFAULT = True
         fused = render_frame_fused(r.scene_device, cam, lights, gtao, r._lpm,
-                                   0, width=32, height=32,
+                                   noise_maps_64(0, "cpu"), width=32,
+                                   height=32,
                                    gtao_settings=r.config.gtao)["image"]
         tb.POP2_DEFAULT, tb.UVP_DEFAULT = False, True
         r._frame_idx = 0
@@ -275,6 +277,7 @@ CHECKS = {
         from tpurt_torch.engine import Renderer, RendererConfig
         from tpurt_torch.kernels.traverse_bvh8 import (_moller_trumbore,
                                                        trace_closest_bvh8)
+        from tpurt_torch.passes.gtao import noise_maps_64
         from tpurt_torch.passes.rays import T_MAX, T_MIN, camera_rays
         from tpurt_torch.passes.shade import SHADOW_T_MIN, shadow_rays
         with socket.socket() as s:
@@ -297,7 +300,8 @@ CHECKS = {
                 sc, shard, chunks = rank_tensors(
                     pt, shard_geometry(pt, 1, tier), tbl, 0, "cpu")
                 got = gather_frame(render_frame_sharded_geometry(
-                    sc, shard, cam, lights, gtao, r._lpm, 0, width=32,
+                    sc, shard, cam, lights, gtao, r._lpm,
+                    noise_maps_64(0, "cpu"), width=32,
                     height=32, gtao_settings=r.config.gtao, mesh=mesh,
                     tables=tier, shade_tables=chunks,
                     meta=meta and freeze_meta(meta)), mesh)

@@ -89,7 +89,7 @@ def test_whole_frame_within_one_percent(config4, tier, denoise):
     from oracle_post import (oracle_gtao_consts, oracle_post_process,
                              xegtao_full)
     from tpurt_torch.engine.frame import render_frame
-    from tpurt_torch.passes.gtao import GtaoSettings
+    from tpurt_torch.passes.gtao import GtaoSettings, noise_maps_64
     from tpurt_torch.passes.tonemap import LpmParams, lpm_setup
     from tpurt_torch.utils.image_metrics import rmse
 
@@ -98,7 +98,8 @@ def test_whole_frame_within_one_percent(config4, tier, denoise):
     port_r, ref = config4["port_r"], config4["ref"]
     cam, lights, gtao = port_r._frame_inputs()
     out = render_frame(port_r.scene_device, cam, lights, gtao, port_r._lpm,
-                       noise_index, width=SIZE, height=SIZE,
+                       noise_maps_64(noise_index, "cpu"), width=SIZE,
+                       height=SIZE,
                        gtao_settings=GtaoSettings(slices, steps,
                                                   denoise=denoise))
     ours = out["image"].numpy()

@@ -164,6 +164,43 @@ def test_device_ms_by_range():
         device_ms_by_range(events[:2], ["trace", "shade"])
 
 
+@pytest.mark.parametrize("name, kernel", [
+    ("void (anonymous namespace)::gtao_main_kernel<9, 3, false, false, "
+     "false>((anonymous namespace)::Mips, float const*)", "gtao_main_kernel"),
+    ("bvh8_any_kernel<48>", "bvh8_any_kernel"),
+    ("(anonymous namespace)::light_sum_kernel(float const*, int)",
+     "light_sum_kernel"),
+    ("shade_surface_nmap_kernel", "shade_surface_nmap_kernel"),
+    ("at::native::elementwise_kernel<128, 2>(int)", None),
+    ("mip_texels_kernel_copy<1>(int)", None)])
+def test_kernel_launches_by_function(name, kernel):
+    """The port's kernels among profiler events counted by CUDA function,
+    from the name a trace gives (return type, namespaces, template
+    arguments and parameters dropped): device events only, and no other
+    kernel."""
+    from torch.autograd import DeviceType
+
+    from tpurt_torch.engine.profiler import kernel_launches
+    from tpurt_torch.kernels.build import KERNEL_OF
+
+    events = [SimpleNamespace(name=name, device_type=DeviceType.CUDA),
+              SimpleNamespace(name=name, device_type=DeviceType.CUDA),
+              SimpleNamespace(name=name, device_type=DeviceType.CPU)]
+    assert kernel_launches(events) == ({} if kernel is None
+                                       else {kernel: 2})
+    assert kernel is None or kernel in KERNEL_OF.values()
+
+
+def test_by_kernel_sums_counters_of_one_function():
+    from tpurt_torch.kernels import build
+
+    assert build.by_kernel(dict(gtao_main=2, gtao_main_bent=1, bvh8_any=3,
+                                bvh8_closest=0, frame_graph=5)) == {
+        "gtao_main_kernel": 3, "bvh8_any_kernel": 3}
+    assert set(build.KERNEL_OF) == set(build.launch_counts) - {
+        "frame_graph"}
+
+
 def test_frame_timer_equals_tpurt(monkeypatch):
     import tpurt.engine.frame_timer as ref_mod
     import tpurt_torch.engine.frame_timer as mod

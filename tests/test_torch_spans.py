@@ -2,15 +2,16 @@
 default step) on a cut bench scene at 32x32 on the CPU, port only.
 
 Held: a recording hook sees every name of ``SPANS`` in its order, each
-under its parent (``shade.*`` inside ``shade``, ``sync.noise`` inside
-``gtao``, the uploads' ``sync.*`` outside every step; ``shade.lights``
-twice per shade call, ``shade.shadow`` once per light or fused trace), in
-the plain frame, the fused-shadow frame and at spp 2, with the outputs of
-the frame without a hook bit for bit; ``shade.texels`` (the texel fetch,
-inside ``shade.surface``) once per shade call on a mip scene (the cut
-textures workload, 1 and 4 taps, spp 1 and 2) and never on the bench
-scene; a moved camera uploads its five
-tensors each inside ``sync.camera`` and a still one none; the sharded
+under its parent (``shade.*`` inside ``shade``, the inputs' ``upload``
+outside every step; ``shade.lights`` twice per shade call,
+``shade.shadow`` once per light or fused trace), in the plain frame, the
+fused-shadow frame and at spp 2, with the outputs of the frame without a
+hook bit for bit; ``shade.texels`` (the texel fetch, inside
+``shade.surface``) once per shade call on a mip scene (the cut textures
+workload, 1 and 4 taps, spp 1 and 2) and never on the bench scene; no
+span is a ``sync.*`` span, and a moved camera, a changed light or a
+resize uploads its inputs in one ``upload`` (the same tensors while the
+shapes stay) and a still camera none; the sharded
 hooks' shadow traces run inside ``shade.shadow``; with the profiler off
 the default step is one shared null context, and under ``torch.profiler``
 the frame's Chrome trace holds the spans as user annotations. On the card
@@ -29,8 +30,7 @@ import torch
 SIZE = 32
 LIGHTS = 3
 PARENT = {"shade.surface": "shade", "shade.texels": "shade.surface",
-          "shade.lights": "shade", "shade.shadow": "shade",
-          "sync.noise": "gtao"}
+          "shade.lights": "shade", "shade.shadow": "shade"}
 # the cut textures workload (tests/test_torch_mip_frame.py's)
 FIELD = dict(nx=3, nz=3, subdiv=2, spacing=1.0, extents=(16, 32, 64))
 KEYS = ("image", "color", "depth", "normal", "ao")
@@ -83,11 +83,13 @@ def _first_seen(names):
 def _fused_frame(r, noise, step):
     """render_passes with every light's shadow rays in one fused trace."""
     from tpurt_torch.engine.frame import render_frame_fused
+    from tpurt_torch.passes.gtao import noise_maps_64
 
     c = r.config
     cam, lights, gtao = r._frame_inputs(step)
     return render_frame_fused(r.scene_device, cam, lights, gtao, r._lpm,
-                              noise, width=c.width, height=c.height,
+                              noise_maps_64(noise, r.device),
+                              width=c.width, height=c.height,
                               gtao_settings=c.gtao, spp=c.spp, step=step)
 
 
@@ -113,8 +115,8 @@ def test_spans_in_order_under_their_parents(frame):
     assert counts["shade.lights"] == spp * 2
     assert counts["shade.shadow"] == spp * (1 if frame == "fused"
                                             else LIGHTS)
-    assert counts["sync.camera"] == 5 and counts["sync.noise"] == 1
-    assert counts["sync.gtao"] == 2
+    assert counts["upload"] == 1
+    assert not [n for n in names if n.startswith("sync.")]
     out = run(r, 3, lambda name: contextlib.nullcontext())
     for key in KEYS:
         assert torch.equal(got[key], out[key]), key
@@ -145,19 +147,48 @@ def test_texel_span_once_per_shade_call_on_a_mip_scene(spp, taps):
         assert torch.equal(got[key], out[key]), key
 
 
-def test_moved_camera_uploads_its_five_tensors():
+def _moved_camera(r):
+    r.camera_mut().set_pos(r.camera.pos + np.float32([0.05, 0.0, 0.0]))
+
+
+def _recoloured_light(r):
+    light = r.lights_mut().all_lights()[0]
+    light.color = np.asarray(light.color, np.float32) * 0.5
+
+
+def _resized(r):
+    r.resize(SIZE + 8, SIZE)
+
+
+@pytest.mark.parametrize("change,uploads", [
+    ("moved", 1), ("still", 0), ("light", 1), ("resize", 1)])
+def test_moved_camera_uploads_its_five_tensors(change, uploads):
+    """A frame whose camera moved (or whose light changed colour, or that
+    was resized) copies its inputs once, inside ``upload``, into the same
+    tensors, and makes no blocking host-to-device copy: no ``sync.*`` span,
+    and every host-to-device transfer of the frame's inputs goes through
+    the one packed copy; a still camera copies nothing. The frame equals a
+    fresh renderer's frame with the same camera, lights and size."""
     r = _renderer()
     r.render_passes(0)
-    for move, camera_spans in ((True, 5), (False, 0)):
-        if move:
-            r.camera_mut().set_pos(r.camera.pos
-                                   + np.float32([0.05, 0.0, 0.0]))
-        rec = Recorder()
-        r.render_passes(1, rec.step)
-        counts = rec.counts()
-        assert counts["sync.camera"] == camera_spans, counts
-        assert counts["sync.lights"] == counts["sync.gtao"] == 0
-        assert counts["sync.noise"] == 1
+    before = r._frame_inputs()
+    {"moved": _moved_camera, "still": lambda r: None,
+     "light": _recoloured_light, "resize": _resized}[change](r)
+    rec = Recorder()
+    got = r.render_passes(1, rec.step)
+    counts = rec.counts()
+    assert counts["upload"] == uploads, counts
+    assert not [n for n in counts if n.startswith("sync.")], counts
+    after = r._frame_inputs()
+    for a, b in zip(before, after):
+        assert all(a[k] is b[k] for k in a if k != "host")
+    fresh = _renderer()
+    fresh.camera_mut().set_pos(r.camera.pos)
+    fresh.lights = r.lights
+    fresh.resize(r.config.width, r.config.height)
+    want = fresh.render_passes(1)
+    for key in KEYS:
+        assert torch.equal(got[key], want[key]), key
 
 
 @pytest.mark.parametrize("hook", ["per_light", "multi"])
@@ -199,7 +230,7 @@ def test_default_step_is_one_null_context_while_the_profiler_is_off():
 
     from tpurt_torch.engine.frame import no_step
 
-    a, b = no_step("shade"), no_step("sync.noise")
+    a, b = no_step("shade"), no_step("upload")
     assert a is b and isinstance(a, contextlib.nullcontext)
     with profile(activities=[ProfilerActivity.CPU]):
         assert isinstance(no_step("shade"),
@@ -209,14 +240,14 @@ def test_default_step_is_one_null_context_while_the_profiler_is_off():
 
 def test_profiled_frame_holds_the_spans(tmp_path):
     """A frame with no hook under torch.profiler: its Chrome trace holds
-    every step and the shade.* and sync.noise spans as user annotations,
+    every step and the shade.* and upload spans as user annotations,
     and the frame equals the unprofiled one."""
     from torch.profiler import ProfilerActivity, profile
 
     from tpurt_torch.engine.frame import STEPS
 
     r = _renderer()
-    want = r.render_passes(4)
+    want = _renderer().render_passes(4)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         got = r.render_passes(4)
     path = tmp_path / "trace.json"
@@ -226,7 +257,7 @@ def test_profiled_frame_holds_the_spans(tmp_path):
     spans = collections.Counter(e["name"] for e in events
                                 if e.get("cat") == "user_annotation")
     for name in ("shade.surface", "shade.lights", "shade.shadow",
-                 "sync.noise", *STEPS):
+                 "upload", *STEPS):
         assert spans[name] >= 1, (name, spans)
     assert spans["shade.shadow"] == LIGHTS
     for key in KEYS:

@@ -67,7 +67,7 @@ def frame_worker(rank, world, port, out_dir):
     from tpurt_torch.dist import make_mesh, render_frame_sharded
     from tpurt_torch.dist.sharding import transport
     from tpurt_torch.engine.frame import SPANS, STEPS
-    from tpurt_torch.passes.gtao import GtaoSettings
+    from tpurt_torch.passes.gtao import GtaoSettings, noise_maps_64
 
     _init(rank, world, port)
     try:
@@ -82,7 +82,8 @@ def frame_worker(rank, world, port, out_dir):
         cam, lights, gtao = r._frame_inputs()
         c = r.config
         band = render_frame_sharded(
-            r.scene_device, cam, lights, gtao, r._lpm, 0, width=W, height=H,
+            r.scene_device, cam, lights, gtao, r._lpm,
+            noise_maps_64(0, "cpu"), width=W, height=H,
             gtao_settings=c.gtao, mesh=mesh, enable_gtao=True,
             enable_tonemap=False, spp=2)
         rows = slice(rank * H // world, (rank + 1) * H // world)
@@ -125,20 +126,22 @@ def refusal_worker(rank, world, port):
     import torch.distributed as dist
 
     from tpurt_torch.dist import make_mesh, render_frame_sharded
+    from tpurt_torch.passes.gtao import noise_maps_64
 
     _init(rank, world, port)
     try:
         mesh = make_mesh(device_type="cpu")
         r = renderer()
         cam, lights, gtao = r._frame_inputs()
+        noise = noise_maps_64(0, "cpu")
         kw = dict(width=W, gtao_settings=r.config.gtao)
         with pytest.raises(ValueError, match="divisible"):
             render_frame_sharded(r.scene_device, cam, lights, gtao, r._lpm,
-                                 0, height=H + 1, mesh=mesh, **kw)
+                                 noise, height=H + 1, mesh=mesh, **kw)
         cuda_mesh = make_mesh(device_type="cuda")
         with pytest.raises(ValueError, match="the mesh on cuda"):
             render_frame_sharded(r.scene_device, cam, lights, gtao, r._lpm,
-                                 0, height=H, mesh=cuda_mesh, **kw)
+                                 noise, height=H, mesh=cuda_mesh, **kw)
         with pytest.raises(ValueError):
             make_mesh(world - 1, device_type="cpu")
     finally:

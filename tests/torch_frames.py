@@ -112,11 +112,13 @@ def _ref_tail(g, consts, lpm, noise_index, *, gtao):
 def port_fused_frame(port_r):
     """The port's fused-shadow frame (noise index 0)."""
     from tpurt_torch.engine.frame import render_frame_fused
+    from tpurt_torch.passes.gtao import noise_maps_64
 
     c = port_r.config
     cam, lights, gtao = port_r._frame_inputs()
     return render_frame_fused(
-        port_r.scene_device, cam, lights, gtao, port_r._lpm, 0,
+        port_r.scene_device, cam, lights, gtao, port_r._lpm,
+        noise_maps_64(0, "cpu"),
         width=c.width, height=c.height, gtao_settings=c.gtao,
         enable_gtao=c.enable_gtao,
         enable_tonemap=c.enable_tonemap)["image"].numpy()

@@ -142,6 +142,7 @@ def frame_worker(rank, world, port, out_dir):
                                   render_frame_sharded_geometry,
                                   shard_geometry, shard_tables)
     from tpurt_torch.dist import geometry
+    from tpurt_torch.passes.gtao import noise_maps_64
 
     _init(rank, world, port)
     try:
@@ -172,7 +173,8 @@ def frame_worker(rank, world, port, out_dir):
                         k in sc for k in geometry.TEXEL_TABLES + (
                             "tex_quad",)), sorted(sc)
                 band = render_frame_sharded_geometry(
-                    sc, shard, cam, lights, gtao, r._lpm, 0, width=W,
+                    sc, shard, cam, lights, gtao, r._lpm,
+                    noise_maps_64(0, "cpu"), width=W,
                     height=H, gtao_settings=r.config.gtao, mesh=mesh,
                     tables=tier, shade_tables=chunks,
                     meta=None if meta is None else freeze_meta(meta))
@@ -206,6 +208,7 @@ def refusal_worker(rank, world, port):
     from tpurt_torch.dist import (make_mesh, rank_tensors,
                                   render_frame_sharded_geometry,
                                   shard_geometry)
+    from tpurt_torch.passes.gtao import noise_maps_64
 
     _init(rank, world, port)
     try:
@@ -216,7 +219,8 @@ def refusal_worker(rank, world, port):
         sc, shard, _ = rank_tensors(pt, shard_geometry(pt, world, "bvh8"),
                                     None, rank, "cpu")
         kw = dict(width=W, gtao_settings=r.config.gtao)
-        args = (sc, shard, cam, lights, gtao, r._lpm, 0)
+        args = (sc, shard, cam, lights, gtao, r._lpm,
+                noise_maps_64(0, "cpu"))
         with pytest.raises(ValueError, match="divisible"):
             render_frame_sharded_geometry(*args, height=H + 1, mesh=mesh,
                                           **kw)
@@ -303,6 +307,7 @@ def cuda_worker(rank, world, port, out_dir):
                                   shard_geometry, shard_tables)
     from tpurt_torch.engine import Renderer, RendererConfig
     from tpurt_torch.kernels import build
+    from tpurt_torch.passes.gtao import noise_maps_64
 
     torch.cuda.set_device(0)
     _init(rank, world, port)
@@ -328,7 +333,8 @@ def cuda_worker(rank, world, port, out_dir):
             cam, lights, gtao = r._frame_inputs()
             build.reset_counts()
             band = render_frame_sharded_geometry(
-                sc, shard, cam, lights, gtao, r._lpm, 0, width=w, height=h,
+                sc, shard, cam, lights, gtao, r._lpm,
+                noise_maps_64(0, "cuda"), width=w, height=h,
                 gtao_settings=r.config.gtao, mesh=mesh, tables="bvh8",
                 shade_tables=chunks, meta=freeze_meta(meta))
             launched = {k: v for k, v in build.launch_counts.items() if v}

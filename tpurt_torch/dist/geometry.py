@@ -328,7 +328,7 @@ def shard_tracers(shard: dict, tables: str, band: int, width: int):
 
 def render_frame_sharded_geometry(scene: dict, shards: dict, camera: dict,
                                   lights: dict, gtao: dict, lpm: dict,
-                                  noise_index: int, *, width: int,
+                                  noise, *, width: int,
                                   height: int, gtao_settings: GtaoSettings,
                                   mesh, enable_gtao: bool = True,
                                   enable_tonemap: bool = True,
@@ -395,7 +395,7 @@ def render_frame_sharded_geometry(scene: dict, shards: dict, camera: dict,
 
         kw.update(shadow_trace_fn=shadow)
     g = shade(scene, camera, lights, hits, **kw)
-    return finish_frame(g, gtao, lpm, noise_index, width=width,
+    return finish_frame(g, gtao, lpm, noise, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,
                         enable_tonemap=enable_tonemap, row_start=row0,

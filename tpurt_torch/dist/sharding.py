@@ -105,7 +105,7 @@ def ring_shift(tree, mesh):
 
 
 def render_frame_sharded(scene: dict, camera: dict, lights: dict, gtao: dict,
-                         lpm: dict, noise_index: int, *, width: int,
+                         lpm: dict, noise, *, width: int,
                          height: int, gtao_settings: GtaoSettings, mesh,
                          enable_gtao: bool = True,
                          enable_tonemap: bool = True, spp: int = 1,
@@ -130,7 +130,7 @@ def render_frame_sharded(scene: dict, camera: dict, lights: dict, gtao: dict,
     g = render_gbuffer(scene, camera, lights, width=width, height=height,
                        row_start=row0, num_rows=band, spp=spp,
                        aniso_taps=aniso_taps, step=step)
-    return finish_frame(g, gtao, lpm, noise_index, width=width,
+    return finish_frame(g, gtao, lpm, noise, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,
                         enable_tonemap=enable_tonemap, step=step,

@@ -14,6 +14,11 @@ and ``compact_bvh2`` builds K6's compact child-pair table from its rows.
   gtao_tensors    gtao_constants(...)              (f32 and fp16 vectors)
   lpm_tensors     lpm_setup(...)[1]
 
+``InputBuffer`` holds the frame's camera, light and GTAO-constant arrays
+(``camera_arrays``, ``Lights.shader_arrays()``, ``gtao_arrays``) in one
+device buffer, updated in place by one non-blocking copy: the renderer's
+frame inputs.
+
 The tests use these to feed identical inputs to both packages. The texel
 table that ships (``FlatScene.as_pytree``) uploads as it is: the quad slab
 as one flat (rows, 64) u8 table with its shape, or a mip tier with its
@@ -39,18 +44,6 @@ MAX_EXACT_INDEX = 1 << 24
 def _t(x, device, dtype=None):
     return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                            device=device)
-
-
-def _uploads(arrays: dict, device, step, span: str) -> dict:
-    """Each array of `arrays` on `device`, its copy alone inside
-    step(span): a copy from pageable host memory synchronises the
-    stream."""
-    out = {}
-    for k, v in arrays.items():
-        v = np.ascontiguousarray(v)
-        with step(span):
-            out[k] = torch.as_tensor(v, device=device)
-    return out
 
 
 def bvh8_depth(nodes8: np.ndarray) -> int:
@@ -257,28 +250,28 @@ def refit_tensors(refit: dict, device) -> dict:
         rest_quality=float(refit["rest_quality"]))
 
 
-def camera_tensors(uniform: dict, device, step=no_step) -> dict:
-    """Camera.uniform()'s arrays as f32 tensors, each copy inside
-    step("sync.camera") (``engine/frame.py``'s spans)."""
-    return _uploads({k: np.asarray(v, np.float32)
-                     for k, v in uniform.items()}, device, step,
-                    "sync.camera")
+def camera_arrays(uniform: dict) -> dict:
+    """Camera.uniform()'s arrays as the f32 arrays the frame reads."""
+    return {k: np.asarray(v, np.float32) for k, v in uniform.items()}
 
 
-def light_tensors(arrays: dict, device, step=no_step) -> dict:
-    """Lights.shader_arrays() as tensors, each copy inside
-    step("sync.lights")."""
-    return _uploads(arrays, device, step, "sync.lights")
+def camera_tensors(uniform: dict, device) -> dict:
+    """Camera.uniform()'s arrays as f32 tensors."""
+    return {k: _t(v, device) for k, v in camera_arrays(uniform).items()}
 
 
-def gtao_tensors(consts: dict, device, step=no_step) -> dict:
+def light_tensors(arrays: dict, device) -> dict:
+    """Lights.shader_arrays() as tensors."""
+    return {k: _t(v, device) for k, v in arrays.items()}
+
+
+def gtao_arrays(consts: dict) -> dict:
     """The GTAO constants as tpurt's main_pass uses them: the scalar block
     (effect radius, falloff) is derived in double precision from the Python
     floats and applied in f32, exactly as the jnp code does. Returns the
-    (14,) f32 vector the main pass reads (kernel and plain version alike,
-    laid out as GTAO_VEC), ``vec16``, the same for the fp16 main pass
-    (``gtao_vec16``), and the Python floats the prefilter needs. Each
-    vector's copy runs inside step("sync.gtao")."""
+    (14,) f32 vector ``vec`` the main pass reads (kernel and plain version
+    alike, laid out as GTAO_VEC) and ``vec16``, the same for the fp16 main
+    pass (``gtao_vec16``)."""
     effect_radius = consts["effect_radius"] * consts["radius_multiplier"]
     falloff_range = consts["effect_falloff_range"] * effect_radius
     falloff_from = effect_radius * (1.0 - consts["effect_falloff_range"])
@@ -293,8 +286,14 @@ def gtao_tensors(consts: dict, device, step=no_step) -> dict:
         consts["final_value_power"], consts["depth_mip_sampling_offset"],
         consts["ndc_to_view_mul_x_pixel_size"][0]], np.float32)
     assert len(vec) == len(GTAO_VEC)
-    return dict(_uploads(dict(vec=vec, vec16=gtao_vec16(consts)), device,
-                         step, "sync.gtao"), host=dict(consts))
+    return dict(vec=vec, vec16=gtao_vec16(consts))
+
+
+def gtao_tensors(consts: dict, device) -> dict:
+    """``gtao_arrays``' vectors as tensors, and the Python floats the
+    prefilter needs under ``host``."""
+    return dict({k: _t(v, device) for k, v in gtao_arrays(consts).items()},
+                host=dict(consts))
 
 
 def gtao_vec16(consts: dict) -> np.ndarray:
@@ -330,3 +329,74 @@ def gtao_vec16(consts: dict) -> np.ndarray:
 def lpm_tensors(derived: dict, device) -> dict:
     return {k: _t(np.asarray(v, np.float32), device)
             for k, v in derived.items()}
+
+
+class InputBuffer:
+    """Groups of host arrays (name -> {key: array}) as tensors in one
+    device buffer that persists across frames: ``Renderer``'s camera,
+    light and GTAO-constant arrays.
+
+    ``update`` uploads only when a host value changed, and then every
+    array at once: packed into one staging buffer, pinned for a CUDA
+    device (a fresh block of PyTorch's caching host allocator, which holds
+    it until the copy has run), and copied into the buffer in place by one
+    non-blocking transfer, inside step("upload"). The copy is ordered on
+    the stream after the frames already queued, so it never synchronises
+    the stream, and the tensors ``update`` returns stay the same tensors
+    while the arrays keep their shapes and dtypes (a captured frame reads
+    them: ``engine/frame_graph.py``). Another layout, such as another light
+    count, allocates a new buffer."""
+
+    # bytes each array's offset is a multiple of
+    ALIGN = 64
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.host = None      # the arrays last uploaded
+        self.layout = None    # ((group, key, dtype, shape, offset), ...)
+        self.buffer = None    # the device buffer, uint8
+        self.tensors = None   # {group: {key: view of the buffer}}
+
+    def update(self, groups: dict, step=no_step) -> dict:
+        """The tensors of `groups` ({group: {key: array}}) on the device;
+        copies them there when any value differs from the last upload."""
+        groups = {g: {k: np.ascontiguousarray(v) for k, v in arrays.items()}
+                  for g, arrays in groups.items()}
+        if self.host is not None and _same_arrays(self.host, groups):
+            return self.tensors
+        layout, size = [], 0
+        for g, arrays in groups.items():
+            for k, v in arrays.items():
+                layout.append((g, k, v.dtype, v.shape, size))
+                size += -(-v.nbytes // self.ALIGN) * self.ALIGN
+        layout = tuple(layout)
+        if layout != self.layout:
+            self.buffer = torch.empty(max(size, 1), dtype=torch.uint8,
+                                      device=self.device)
+            self.tensors = {g: {} for g in groups}
+            for g, k, dtype, shape, off in layout:
+                n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+                self.tensors[g][k] = self.buffer[off:off + n].view(
+                    torch.from_numpy(np.empty(0, dtype)).dtype).view(shape)
+            self.layout = layout
+        with step("upload"):
+            pinned = self.device.type == "cuda"
+            stage = torch.empty(self.buffer.shape[0], dtype=torch.uint8,
+                                pin_memory=pinned)
+            packed = stage.numpy()
+            for g, k, _, _, off in layout:
+                v = groups[g][k].reshape(-1).view(np.uint8)
+                packed[off:off + v.shape[0]] = v
+            self.buffer.copy_(stage, non_blocking=pinned)
+        self.host = groups
+        return self.tensors
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    """Whether two {group: {key: array}} hold the same keys, dtypes, shapes
+    and values."""
+    return a.keys() == b.keys() and all(
+        a[g].keys() == b[g].keys() and all(
+            a[g][k].dtype == b[g][k].dtype and np.array_equal(a[g][k],
+                                                              b[g][k])
+            for k in a[g]) for g in a)

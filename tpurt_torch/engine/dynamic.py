@@ -132,7 +132,7 @@ def build_world_tables(obj: dict, transforms) -> dict:
 
 
 def render_frame_dynamic(obj: dict, transforms, camera: dict, lights: dict,
-                         gtao: dict, lpm: dict, noise_index: int, *,
+                         gtao: dict, lpm: dict, noise, *,
                          width: int, height: int,
                          gtao_settings: GtaoSettings = GtaoSettings(),
                          enable_gtao: bool = True,
@@ -148,7 +148,7 @@ def render_frame_dynamic(obj: dict, transforms, camera: dict, lights: dict,
     g = shade(scene, camera, lights, hits, tables="bvh2", max_leaf=1,
               height=height, width=width, direction=direction,
               aniso_taps=aniso_taps)
-    return finish_frame(g, gtao, lpm, noise_index, width=width,
+    return finish_frame(g, gtao, lpm, noise, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,
                         enable_tonemap=enable_tonemap)
@@ -174,7 +174,7 @@ def make_refit_data(scene) -> dict:
 
 def render_frame_dynamic_refit(obj: dict, refit: dict, transforms,
                                camera: dict, lights: dict, gtao: dict,
-                               lpm: dict, noise_index: int, *, width: int,
+                               lpm: dict, noise, *, width: int,
                                height: int,
                                gtao_settings: GtaoSettings = GtaoSettings(),
                                enable_gtao: bool = True,
@@ -208,7 +208,7 @@ def render_frame_dynamic_refit(obj: dict, refit: dict, transforms,
                               height=height, width=width)
     g = shade(scene, camera, lights, hits, tables="bvh8", height=height,
               width=width, direction=direction, aniso_taps=aniso_taps)
-    out = finish_frame(g, gtao, lpm, noise_index, width=width,
+    out = finish_frame(g, gtao, lpm, noise, width=width,
                        height=height, gtao_settings=gtao_settings,
                        enable_gtao=enable_gtao,
                        enable_tonemap=enable_tonemap)

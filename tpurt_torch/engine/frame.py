@@ -13,11 +13,12 @@ pass: ``rays``, ``trace``, ``shade``, ``quantize_color``,
 (``STEPS``). The same hook is the program's span API: inside the steps,
 shade enters ``shade.surface`` (on a mip scene with its child
 ``shade.texels``, the texel fetch), ``shade.lights`` and ``shade.shadow``
-(``passes/shade.py``), and every host-to-device copy on ``render()``'s
-path, which synchronises the stream, runs inside a ``sync.*`` span:
-``sync.camera``, ``sync.lights``, ``sync.gtao`` (``Renderer``'s uploads of
-changed inputs, one span per tensor, before ``rays``) and ``sync.noise``
-(GTAO's noise table, inside ``gtao``). ``SPANS`` lists every name. The
+(``passes/shade.py``), and ``Renderer``'s one packed, non-blocking copy
+of the camera, light and GTAO-constant arrays, where a host value
+changed, runs inside ``upload`` before ``rays``. No span of the frame
+synchronises the stream: ``Renderer`` keeps GTAO's noise maps of every
+index on the device (``passes/gtao.noise_tables``) and passes a frame its
+own. ``SPANS`` lists every name. The
 default, ``no_step``, enters nothing while the torch profiler is off and
 a ``record_function`` range of the name while it records
 (``utils/spans.py``); ``engine/profiler.py`` passes its timers, so the
@@ -64,15 +65,14 @@ from ..utils.spans import no_step
 STEPS = ("rays", "trace", "shade", "quantize_color", "quantize_depth_normal",
          "gtao", "tonemap")
 # every span of the static frame (``render_passes``), in the order each is
-# first entered: the sync.* uploads of the camera, light and GTAO-constant
-# tensors run only when their host values changed; shade.lights runs
+# first entered: upload, the inputs' copy, runs only when a host value of
+# the camera, the lights or the GTAO constants changed; shade.lights runs
 # twice per shade call (the light-ray pre-pass and the lights' sum),
 # shade.shadow once per light (once for a fused trace) and shade.texels
 # once per shade call on a mip scene only
-SPANS = ("sync.camera", "sync.lights", "sync.gtao", "rays", "trace", "shade",
-         "shade.surface", "shade.texels", "shade.lights", "shade.shadow",
-         "quantize_color", "quantize_depth_normal", "gtao", "sync.noise",
-         "tonemap")
+SPANS = ("upload", "rays", "trace", "shade", "shade.surface", "shade.texels",
+         "shade.lights", "shade.shadow", "quantize_color",
+         "quantize_depth_normal", "gtao", "tonemap")
 
 
 def no_gather(x):
@@ -81,7 +81,7 @@ def no_gather(x):
     return x
 
 
-def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
+def finish_frame(g: dict, gtao: dict, lpm: dict, noise, *,
                  width: int, height: int, gtao_settings: GtaoSettings,
                  enable_gtao: bool, enable_tonemap: bool, step=no_step,
                  row_start: int = 0, num_rows=None,
@@ -91,6 +91,10 @@ def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
     (H, W) f32, ao (H, W) int32 (0..~383; the packed term's visibility,
     0..255, with bent normals) and, when the settings ask for bent normals,
     bent_normals (H, W, 3) f32.
+
+    noise: GTAO's (2, 64, 64) noise maps of the frame's noise index, on
+    the frame's device (``passes/gtao.noise_maps_64``'s, or the index's
+    row of ``noise_tables``, which ``Renderer`` keeps).
 
     `g` may hold a band of the frame: rows [row_start, row_start +
     num_rows) of `height`, and then every output holds those rows.
@@ -108,8 +112,7 @@ def finish_frame(g: dict, gtao: dict, lpm: dict, noise_index: int, *,
     with step("gtao"):
         if enable_gtao:
             ao_term = compute_ao_band(gather(depth), gather(normal), gtao,
-                                      gtao_settings, noise_index, row_start,
-                                      rows, step=step)
+                                      gtao_settings, noise, row_start, rows)
             ao = ao_visibility_u8(ao_term, gtao_settings)
             bent = ao_bent_normals(ao_term, gtao_settings)
         else:
@@ -206,25 +209,25 @@ def render_sample_hdr(scene: dict, camera: dict, lights: dict, jitter, *,
 
 
 def _frame(fuse_shadows: bool, scene: dict, camera: dict, lights: dict,
-           gtao: dict, lpm: dict, noise_index: int, *, width: int,
+           gtao: dict, lpm: dict, noise, *, width: int,
            height: int, gtao_settings: GtaoSettings = GtaoSettings(),
            enable_gtao: bool = True, enable_tonemap: bool = True,
            spp: int = 1, aniso_taps: int = 1, step=no_step) -> dict:
     g = _gbuffer(fuse_shadows, scene, camera, lights, width=width,
                  height=height, spp=spp, aniso_taps=aniso_taps, step=step)
-    return finish_frame(g, gtao, lpm, noise_index, width=width,
+    return finish_frame(g, gtao, lpm, noise, width=width,
                         height=height, gtao_settings=gtao_settings,
                         enable_gtao=enable_gtao,
                         enable_tonemap=enable_tonemap, step=step)
 
 
 def render_frame(*args, **kwargs) -> dict:
-    """Render one frame: (scene, camera, lights, gtao, lpm, noise_index, *,
-    width, height, gtao_settings, enable_gtao, enable_tonemap, spp,
-    aniso_taps, step) -> the outputs of ``finish_frame``. spp > 1 averages
-    R2-jittered HDR samples (``render_gbuffer``); GTAO reads the center
-    sample's depth and normals. aniso_taps > 1 filters a mip scene's
-    textures anisotropically."""
+    """Render one frame: (scene, camera, lights, gtao, lpm, noise, *, width,
+    height, gtao_settings, enable_gtao, enable_tonemap, spp, aniso_taps,
+    step) -> the outputs of ``finish_frame`` (noise as there). spp > 1
+    averages R2-jittered HDR samples (``render_gbuffer``); GTAO reads the
+    center sample's depth and normals. aniso_taps > 1 filters a mip
+    scene's textures anisotropically."""
     return _frame(False, *args, **kwargs)
 
 

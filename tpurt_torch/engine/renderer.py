@@ -9,8 +9,16 @@ machine), the flattened scene uploaded once per resident-set change (with
 the dynamic scene's object tables and refit metadata, uploaded at its first
 dynamic frame), the streaming-texture arena that holds the static scene's
 texel rows across those changes, the camera / light / GTAO-constant
-tensors, re-uploaded only when their host values change, and the refit ->
-rebuild trigger.
+tensors in one device buffer, updated in place by one non-blocking copy
+when their host values change (``convert.InputBuffer``), the static
+frame's CUDA graph (``engine/frame_graph.py``) and the refit -> rebuild
+trigger.
+
+``render()``'s frame (``render_passes`` without a step hook, on one CUDA
+device) is recorded once as a CUDA graph and replayed: the same calls of
+``engine/frame.render_frame``, which neither frame synchronises. Every
+other frame runs eagerly: with a step hook (the profilers), on the CPU,
+over a mesh, and the dynamic frames.
 
 Every static scene traces through the BVH8 kernels (K1, K2): tpurt's
 "auto" tier would pick its binary packet kernel for scenes under ~5k
@@ -28,7 +36,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..passes.gtao import GtaoSettings, gtao_constants, gtao_debug_image
+from ..kernels import traverse_bvh8
+from ..passes.gtao import (GtaoSettings, gtao_constants, gtao_debug_image,
+                           noise_tables)
 from ..passes.tonemap import LpmParams, lpm_setup
 from ..scene.camera import Camera
 from ..scene.lights import Lights
@@ -38,6 +48,7 @@ from . import convert
 from .dynamic import (REBUILD_SAH_RATIO, make_refit_data,
                       render_frame_dynamic, render_frame_dynamic_refit)
 from .frame import no_step, render_frame
+from .frame_graph import FrameGraph
 from .texture_arena import TextureRowArena
 
 
@@ -88,7 +99,10 @@ class Renderer:
         self.models: list = []
         self._scene: Optional[FlatScene] = None
         self._scene_device = None
-        self._input_cache = {}
+        self._inputs = convert.InputBuffer(self.device)
+        # GTAO's noise maps of every noise index, on the device
+        self._noise = noise_tables(self.device)
+        self._graph = FrameGraph()
         self._lpm = convert.lpm_tensors(lpm_setup(c.lpm)[1], self.device)
         self._frame_idx = 0
         self.rendered_frames = 0
@@ -207,20 +221,6 @@ class Renderer:
         return dict(tex_quad=arena.atlas,
                     tex_quad_base=torch.from_numpy(base).to(self.device))
 
-    def _cached(self, key: str, host: dict, to_device, step=no_step):
-        """Reuse uploaded tensors while the host values are unchanged;
-        to_device(host, device, step) uploads them (``convert``'s
-        functions, each copy inside its ``sync.*`` span)."""
-        prev = self._input_cache.get(key)
-        if prev is not None:
-            prev_host, prev_dev = prev
-            if prev_host.keys() == host.keys() and all(
-                    np.array_equal(prev_host[k], host[k]) for k in host):
-                return prev_dev
-        dev = to_device(host, self.device, step)
-        self._input_cache[key] = (host, dev)
-        return dev
-
     # -- frame loop -----------------------------------------------------------
 
     def resize(self, width: int, height: int):
@@ -233,18 +233,19 @@ class Renderer:
         self.camera.set_aspect(width / height)
 
     def _frame_inputs(self, step=no_step):
-        """The camera, light and GTAO-constant tensors of this frame;
-        step(name) as in ``engine/frame.py`` (the uploads' ``sync.*``
-        spans)."""
+        """The camera, light and GTAO-constant tensors of this frame: views
+        of one device buffer, updated in place where a host value changed
+        (``convert.InputBuffer``; its copy inside step("upload"), step as
+        in ``engine/frame.py``)."""
         c = self.config
-        cam = self._cached("camera", self.camera.uniform(),
-                           convert.camera_tensors, step)
-        lights = self._cached("lights", self.lights.shader_arrays(),
-                              convert.light_tensors, step)
-        gtao = self._cached("gtao", gtao_constants(
-            c.width, c.height, self.camera.znear, self.camera.zfar,
-            self.camera.fovy, self.camera.aspect), convert.gtao_tensors, step)
-        return cam, lights, gtao
+        consts = gtao_constants(c.width, c.height, self.camera.znear,
+                                self.camera.zfar, self.camera.fovy,
+                                self.camera.aspect)
+        dev = self._inputs.update(dict(
+            camera=convert.camera_arrays(self.camera.uniform()),
+            lights=self.lights.shader_arrays(),
+            gtao=convert.gtao_arrays(consts)), step)
+        return dev["camera"], dev["lights"], dict(dev["gtao"], host=consts)
 
     @property
     def noise_index(self) -> int:
@@ -254,7 +255,10 @@ class Renderer:
     def render_passes(self, noise_index: int, step=no_step) -> dict:
         """render()'s frame at GTAO noise index `noise_index`, without
         counting it as rendered; step(name) wraps each pass and span
-        (engine/frame.py). engine/profiler.py times its frames here. With
+        (engine/frame.py). engine/profiler.py times its frames here.
+        Without a step hook on one CUDA device the frame is the replay of
+        its CUDA graph (``engine/frame_graph.py``), keyed by what the frame
+        reads: the same outputs, in tensors of their own. With
         ``config.mesh`` every rank of the mesh calls it: each renders its
         band (``dist/sharding.render_frame_sharded``) and the bands are
         all-gathered, so every rank returns the whole frame."""
@@ -265,15 +269,20 @@ class Renderer:
         cam, lights, gtao = self._frame_inputs(step)
         kw = dict(width=c.width, height=c.height, gtao_settings=c.gtao,
                   enable_gtao=c.enable_gtao, enable_tonemap=c.enable_tonemap,
-                  spp=c.spp, aniso_taps=c.aniso_taps, step=step)
+                  spp=c.spp, aniso_taps=c.aniso_taps)
+        noise = self._noise[noise_index % 64]
         if c.mesh is None:
-            return render_frame(self._scene_device, cam, lights, gtao,
-                                self._lpm, noise_index, **kw)
+            args = (self._scene_device, cam, lights, gtao, self._lpm)
+            if step is not no_step or self.device.type != "cuda":
+                return render_frame(*args, noise, step=step, **kw)
+            return self._graph.frame(
+                (args, kw, traverse_bvh8.call_time_switches()), noise,
+                lambda maps: render_frame(*args, maps, **kw))
         from ..dist.sharding import gather_frame, render_frame_sharded
 
         band = render_frame_sharded(self._scene_device, cam, lights, gtao,
-                                    self._lpm, noise_index, mesh=c.mesh,
-                                    **kw)
+                                    self._lpm, noise, mesh=c.mesh,
+                                    step=step, **kw)
         return gather_frame(band, c.mesh)
 
     def render(self, block: bool = True) -> dict:
@@ -312,6 +321,7 @@ class Renderer:
             self._refit_device = convert.refit_tensors(
                 make_refit_data(self._scene), self.device)
         cam, lights, gtao = self._frame_inputs()
+        noise = self._noise[self._frame_idx % 64]
         if refit and auto_rebuild and self._frame_idx < self._rebuild_until:
             refit = False  # decayed tree: rebuild for this window
         kw = dict(width=c.width, height=c.height, gtao_settings=c.gtao,
@@ -320,7 +330,7 @@ class Renderer:
         if refit:
             out = render_frame_dynamic_refit(
                 self._obj_device, self._refit_device, transforms, cam,
-                lights, gtao, self._lpm, self._frame_idx % 64, **kw)
+                lights, gtao, self._lpm, noise, **kw)
             if auto_rebuild and self._frame_idx % check_every == 0:
                 ratio = float(out["refit_sah_ratio"])
                 self.last_refit_sah_ratio = ratio
@@ -330,7 +340,7 @@ class Renderer:
         else:
             out = render_frame_dynamic(
                 self._obj_device, transforms, cam, lights, gtao, self._lpm,
-                self._frame_idx % 64, **kw)
+                noise, **kw)
         self._frame_idx += 1
         self.rendered_frames += 1
         if block and self.device.type == "cuda":
@@ -382,7 +392,8 @@ class Renderer:
         _, _, gtao = self._frame_inputs()
         return gtao_debug_image(out["depth"], out["normal"], gtao,
                                 self.config.gtao,
-                                max(self._frame_idx - 1, 0) % 64, mode)
+                                self._noise[max(self._frame_idx - 1, 0) % 64],
+                                mode)
 
     def stats(self) -> dict:
         c = self.config

@@ -15,8 +15,12 @@ hash of the sources, and is built at first use. Pointers and the stream are
 passed as ``c_void_p``; every C entry returns ``cudaGetLastError()`` and
 :func:`check` raises when it is not 0.
 
-Each kernel wrapper counts its launches in :data:`launch_counts`;
-:func:`device_ms` times a wrapper's launches on the card.
+Each kernel wrapper counts its launches in :data:`launch_counts`, and
+``engine/frame_graph.py`` its launches of render()'s CUDA graph;
+:data:`KERNEL_OF` names the CUDA function each counter's launches run (its
+name in a ``torch.profiler`` trace, before any template arguments), so a
+profile counts what a graph replay ran. :func:`device_ms` times a
+wrapper's launches on the card.
 """
 from __future__ import annotations
 
@@ -63,7 +67,37 @@ launch_counts = {"bvh8_closest": 0, "bvh8_any": 0, "gtao_noise": 0,
                  # shade_surface.py): the kernel or pre-pass once per
                  # shade() call, the epilogue where K9 or a hook's rows
                  # come between
-                 "shade_surface": 0, "shade_surface_nmap": 0}
+                 "shade_surface": 0, "shade_surface_nmap": 0,
+                 # launches of render()'s frame as one CUDA graph
+                 # (engine/frame_graph.py), one a replayed frame: the
+                 # kernels the graph runs count nowhere here
+                 "frame_graph": 0}
+# the CUDA function each kernel counter's launches run
+KERNEL_OF = {
+    **dict.fromkeys(("bvh8_closest", "bvh8_closest_uvp"),
+                    "bvh8_closest_kernel"),
+    "bvh8_any": "bvh8_any_kernel",
+    **dict.fromkeys(("gtao_noise", "gtao_noise_fp16"), "gtao_noise_kernel"),
+    **dict.fromkeys(("gtao_main", "gtao_main_bent", "gtao_main_half",
+                     "gtao_main_fp16", "gtao_main_bent_fp16",
+                     "gtao_main_band"), "gtao_main_kernel"),
+    **dict.fromkeys(("gtao_denoise", "gtao_denoise_bent",
+                     "gtao_denoise_fp16", "gtao_denoise_bent_fp16"),
+                    "gtao_denoise_kernel"),
+    **dict.fromkeys(("bvh2_closest", "bvh2_any"), "bvh2_trace_kernel"),
+    **dict.fromkeys(("bvh8_any_multi", "bvh8_any_multi_pop2"),
+                    "bvh8_any_multi_kernel"),
+    **dict.fromkeys(("bvh8_closest_pop2", "bvh8_closest_steps"),
+                    "bvh8_closest_variant_kernel"),
+    **dict.fromkeys(("bvh8_any_pop2", "bvh8_any_steps"),
+                    "bvh8_any_variant_kernel"),
+    "trans_equiv": "trans_equiv_kernel",
+    "shade_light_rays": "light_rays_kernel",
+    "shade_light_sum": "light_sum_kernel",
+    "mip_texels": "mip_texels_kernel",
+    "mip_texel_rows": "mip_texel_rows_kernel",
+    "shade_surface": "shade_surface_kernel",
+    "shade_surface_nmap": "shade_surface_nmap_kernel"}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -73,6 +107,16 @@ build_log = ""
 def reset_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def by_kernel(counts: dict) -> dict:
+    """Kernel counters' launches summed by the CUDA function they run
+    (:data:`KERNEL_OF`), leaving out those at 0."""
+    out = {}
+    for k, n in counts.items():
+        if n and k in KERNEL_OF:
+            out[KERNEL_OF[k]] = out.get(KERNEL_OF[k], 0) + n
+    return out
 
 
 def _sources():

@@ -87,6 +87,7 @@ POP2_DEFAULT = False
 # the closest-hit uv payload (K7c) when a caller passes uv_payload=None and
 # the scene carries "uvp"
 UVP_DEFAULT = False
+
 # ray sets per fused any-hit launch (MULTI_SETS_MAX in csrc/bvh8_multi.cu)
 MULTI_SETS_MAX = 4
 # the largest per-thread stack of the CUDA kernels; the wrappers refuse
@@ -103,6 +104,14 @@ WARP_TILE = (8, 4)
 PAYLOAD_KEYS = ("texu", "texv", "img", "texh", "texw")
 # K7a's push orders, by their code in csrc/bvh8_variants.cu
 PUSH_ORDERS = ("sort", "nearlast", "none")
+
+
+def call_time_switches() -> tuple:
+    """Every module switch above that a trace reads when it is called. A
+    frame recorded under other values is another frame: the renderer keys
+    its CUDA graph by them (``engine/frame_graph.py``), so a switch added
+    here reaches that key."""
+    return POP2_DEFAULT, UVP_DEFAULT
 
 
 def stack_entries(depth8: int, pops: int = 1) -> int:

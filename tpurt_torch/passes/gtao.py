@@ -31,7 +31,6 @@ from ..kernels.gtao_denoise import (decode_bent, denoise_chain,
 from ..kernels.gtao_main import (PRECISIONS, XE_GTAO_OCCLUSION_TERM_SCALE,
                                  _Lp, encode_bent, gtao_main,
                                  main_pass_plain, rot_from_minus_z)
-from ..utils.spans import no_step
 from .encodings import divide, quantize_r16f, sqrt
 
 XE_GTAO_DEPTH_MIP_LEVELS = 5
@@ -145,17 +144,32 @@ def _hilbert_lut_64() -> np.ndarray:
 _HILBERT_LUT = _hilbert_lut_64()
 
 
-def noise_maps_64(noise_index: int, device, step=no_step) -> torch.Tensor:
-    """The Hilbert/R2 spatio-temporal noise over its 64x64 period:
-    (2, 64, 64) f32 = (slice noise, sample noise). The index table's copy
-    to `device` runs inside step("sync.noise")."""
-    idx = _HILBERT_LUT.astype(np.int64) + 288 * (int(noise_index) % 64)
-    idx = idx.astype(np.float32)
-    with step("sync.noise"):
-        fidx = torch.as_tensor(idx, device=device)
+def _r2_noise(fidx):
+    """(slice noise, sample noise) of index tables `fidx` (..., 64, 64):
+    (..., 2, 64, 64) f32, every element computed alone."""
     nx = torch.fmod(0.5 + fidx * 0.75487766624669276005, 1.0)
     ny = torch.fmod(0.5 + fidx * 0.5698402909980532659114, 1.0)
-    return torch.stack([nx, ny]).contiguous()
+    return torch.stack([nx, ny], dim=-3).contiguous()
+
+
+def noise_maps_64(noise_index: int, device) -> torch.Tensor:
+    """The Hilbert/R2 spatio-temporal noise over its 64x64 period:
+    (2, 64, 64) f32 = (slice noise, sample noise), from the index table of
+    `noise_index` (the Hilbert LUT + 288 * index, exact small integers in
+    f32), copied to `device` from the host: GTAO's `noise` argument."""
+    idx = _HILBERT_LUT.astype(np.int64) + 288 * (int(noise_index) % 64)
+    return _r2_noise(torch.as_tensor(idx.astype(np.float32), device=device))
+
+
+def noise_tables(device) -> torch.Tensor:
+    """``noise_maps_64`` of every noise index at once, (64, 2, 64, 64) f32
+    on `device` (2 MiB; one copy of the 64 index tables): the same values,
+    since every element is computed alone. ``Renderer`` keeps them on the
+    device and passes a frame its index's maps, so no frame copies
+    anything from the host for its noise."""
+    idx = (_HILBERT_LUT.astype(np.int64)[None]
+           + 288 * np.arange(64, dtype=np.int64)[:, None, None])
+    return _r2_noise(torch.as_tensor(idx.astype(np.float32), device=device))
 
 
 def _depth_mip_filter(d0, d1, d2, d3, consts, fp16: bool = False):
@@ -216,13 +230,12 @@ def prefilter_depths(view_depth, consts: dict, fp16: bool = False):
 
 
 def _main_pass(mips, normal_enc, gtao: dict, settings: GtaoSettings,
-               noise_index: int, row_start: int = 0, num_rows=None,
-               step=no_step):
+               noise, row_start: int = 0, num_rows=None):
     """K3h + K3 in the settings' variant, over the whole image or a band of
     rows (``kernels/gtao_main.band_rows``): (ao term, edges_u8)."""
     return gtao_main(mips, normal_enc.contiguous(),
                      gtao["vec16" if settings.fp16 else "vec"],
-                     noise_maps_64(noise_index, mips[0].device, step),
+                     noise,
                      slice_count=settings.slice_count,
                      steps_per_slice=settings.steps_per_slice,
                      bent=settings.bent_normals,
@@ -231,17 +244,19 @@ def _main_pass(mips, normal_enc, gtao: dict, settings: GtaoSettings,
 
 
 def compute_ao(view_depth, normal_enc, gtao: dict, settings: GtaoSettings,
-               noise_index: int):
+               noise):
     """Full GTAO chain: prefilter -> K3 -> K4. `gtao` is
-    ``engine/convert.gtao_tensors(...)``. Returns the final AO term (H, W)
-    int32: 0..~383, or the packed term with bent normals."""
-    return compute_ao_band(view_depth, normal_enc, gtao, settings,
-                           noise_index, 0, view_depth.shape[0])
+    ``engine/convert.gtao_tensors(...)``, `noise` the frame's (2, 64, 64)
+    noise maps on the device of the depth (``noise_maps_64(index, ...)``,
+    or the index's row of ``noise_tables``). Returns the final AO term
+    (H, W) int32: 0..~383, or the packed term with bent normals."""
+    return compute_ao_band(view_depth, normal_enc, gtao, settings, noise, 0,
+                           view_depth.shape[0])
 
 
 def compute_ao_band(view_depth, normal_enc, gtao: dict,
-                    settings: GtaoSettings, noise_index: int, row_start: int,
-                    band_rows: int, step=no_step):
+                    settings: GtaoSettings, noise, row_start: int,
+                    band_rows: int):
     """The final AO term of rows [row_start, row_start + band_rows) of the
     frame whose whole (H, W) depth and normals are given (tpurt's
     ``compute_ao_band``, the band-sharded frame's GTAO). The prefilter runs
@@ -255,8 +270,8 @@ def compute_ao_band(view_depth, normal_enc, gtao: dict,
     reads a repeated row that the whole frame's edge clamp does not see,
     so with two or more passes its first and last rows differ from its
     ``compute_ao`` (ROADMAP F22). Here the band array's edge is the
-    image's, and K4 clamps there as over the whole frame. step(name) as in
-    ``engine/frame.py`` (the noise table's ``sync.noise``)."""
+    image's, and K4 clamps there as over the whole frame. `noise` as in
+    ``compute_ao``."""
     h = view_depth.shape[0]
     if not (band_rows >= 1 and 0 <= row_start and row_start + band_rows <= h):
         raise ValueError(f"compute_ao_band: rows [{row_start}, "
@@ -265,8 +280,8 @@ def compute_ao_band(view_depth, normal_enc, gtao: dict,
     lo = max(row_start - halo, 0)
     hi = min(row_start + band_rows + halo, h)
     mips = prefilter_depths(view_depth, gtao["host"], fp16=settings.fp16)
-    ao, edges = _main_pass(mips, normal_enc, gtao, settings, noise_index,
-                           row_start=lo, num_rows=hi - lo, step=step)
+    ao, edges = _main_pass(mips, normal_enc, gtao, settings, noise,
+                           row_start=lo, num_rows=hi - lo)
     ao = denoise_chain(ao, edges, n_passes=settings.num_denoise_passes,
                        blur_beta=settings.denoise_blur_beta,
                        bent=settings.bent_normals, fp16=settings.fp16)
@@ -340,7 +355,7 @@ DEBUG_MODES = ("normals", "edges", "ao")
 
 
 def gtao_debug_image(view_depth, normal_enc, gtao: dict,
-                     settings: GtaoSettings, noise_index: int,
+                     settings: GtaoSettings, noise,
                      mode: str = "normals"):
     """The debug build's RGBA16F image (tpurt's ``gtao_debug_image``):
     (H, W, 4) float16.
@@ -350,7 +365,8 @@ def gtao_debug_image(view_depth, normal_enc, gtao: dict,
       edges of the depth pyramid's mip 0;
     * "ao": abs(v * 0.5 + 0.5) of the main pass's working AO visibility
       (K3 in the settings' variant, no denoise) broadcast to rgb.
-    `gtao` is ``engine/convert.gtao_tensors(...)``."""
+    `gtao` is ``engine/convert.gtao_tensors(...)``; `noise` as in
+    ``compute_ao``."""
     if mode not in DEBUG_MODES:
         raise ValueError(f"unknown debug image mode: {mode!r}")
     mips = prefilter_depths(view_depth, gtao["host"], fp16=settings.fp16)
@@ -367,7 +383,7 @@ def gtao_debug_image(view_depth, normal_enc, gtao: dict,
         rgba = 1.0 - torch.stack([e[..., 0], e[..., 1] * 0.5 + e[..., 3] * 0.5,
                                   e[..., 2], ones], dim=-1)
     else:
-        ao, _ = _main_pass(mips, normal_enc, gtao, settings, noise_index)
+        ao, _ = _main_pass(mips, normal_enc, gtao, settings, noise)
         v = divide(ao_visibility_u8(ao, settings).to(torch.float32), 255.0)
         rgb = (v[..., None] * 0.5 + 0.5).abs().expand(*v.shape, 3)
         rgba = torch.cat([rgb, ones[..., None]], dim=-1)
